@@ -1,0 +1,118 @@
+"""ICP over the kd-tile grid NN path (port of ``icp_tpu/engine/grid.py``).
+
+Same loop as ``engine/icp.py`` with three at-scale changes:
+
+  * the scene is kd-sorted once before the loop (a similarity keeps
+    neighbourhoods, so its tiles stay compact) and un-permuted at the end;
+  * the loop carries ``u``, each point's squared distance to its previous
+    match, an upper bound on its next NN distance that lets K4 cull model
+    tiles (exact in every case);
+  * the cloud is padded to the tile multiple by replicating its last point;
+    padded rows have weight 0 in the sums and the error.
+
+The first bounds come from K1 against every 16th model point.  Each
+iteration: K4 (with the candidate table built in torch), the float64 Horn
+sums in torch, K2 (solve, compose, convergence test), and the float32 apply
+of the step in torch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from icp_tpu_torch.engine.icp import LoopState
+from icp_tpu_torch.kernels.nn_grid import (
+    _round_up,
+    bound_from_indices,
+    build_model_grid,
+    closest_point_indices_pruned,
+    initial_bound_indices,
+    kd_order,
+    levels_for,
+    next_bound,
+)
+from icp_tpu_torch.kernels.qcp import (
+    identity_state,
+    pack_stats,
+    pack_total_state,
+    qcp_step,
+    step_similarity,
+    unpack_state,
+)
+from icp_tpu_torch.ops.alignment import (
+    Similarity,
+    alignment_from_stats,
+    compute_alignment_stats,
+)
+from icp_tpu_torch.ops.transform import apply_similarity, compose, identity_similarity
+
+
+def _prepare_scene(scene: torch.Tensor, target_tile: int):
+    """kd-sort + pad the scene: (p_sorted, weights, inv_slots, tn, perm);
+    ``p_sorted[inv_slots]`` restores the caller's order."""
+    n = scene.shape[0]
+    lvl = levels_for(n, target_tile)
+    tn = _round_up(-(-n // (2 ** lvl)), 8)
+    n_pad = tn * (2 ** lvl)
+    s_pad = torch.cat([scene, scene[-1:].expand(n_pad - n, 3)])
+    perm = kd_order(s_pad, lvl)
+    p_sorted = s_pad[perm]
+    w = (perm < n).to(scene.dtype)
+    inv_slots = torch.argsort(perm)[:n]
+    return p_sorted, w, inv_slots, tn, perm
+
+
+def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
+              solver: str, with_scale: bool, reference_compat: bool,
+              scene_tile_target: int = 256, model_tile_target: int = 1024,
+              max_candidates: int = 16, bound_stride: int = 16,
+              init: Optional[Similarity] = None, trace: bool = False):
+    dt, dev = scene.dtype, scene.device
+    if init is not None:
+        scene = apply_similarity(scene, init)
+    grid = build_model_grid(model, target_tile=model_tile_target)
+    p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target)
+    stride = max(1, min(bound_stride, model.shape[0] // 4))
+    u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig,
+                                                          stride=stride))
+    loop = LoopState(bound, length, threshold, reference_compat, dev)
+
+    if solver == "qcp_fused":
+        state = identity_state(dev) if init is None else pack_total_state(init, dev)
+
+        def step():
+            nonlocal p, u
+            _, y, _, _ = closest_point_indices_pruned(p, grid, u, scene_tile=tn,
+                                                      max_candidates=max_candidates)
+            y = y.to(dt)
+            stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
+            qcp_step(pack_stats(stats), state, loop.ctl, loop.errs,
+                     with_scale=with_scale, threshold=threshold,
+                     err_factor=loop.err_factor)
+            p = apply_similarity(p, step_similarity(state, dt))
+            u = next_bound(y, p)
+
+        loop.run(step)
+        total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
+    else:
+        total = identity_similarity(dt, dev) if init is None else init
+
+        def step():
+            nonlocal p, u, total
+            if loop.done():
+                return
+            _, y, _, _ = closest_point_indices_pruned(p, grid, u, scene_tile=tn,
+                                                      max_candidates=max_candidates)
+            y = y.to(dt)
+            stats = compute_alignment_stats(p, y, weights=w)
+            sim = alignment_from_stats(stats, solver=solver, with_scale=with_scale)
+            p = apply_similarity(p, sim)
+            total = compose(total, sim)
+            d = y - p
+            loop.record((w * (d * d).sum(1)).sum(), stats.n)
+            u = next_bound(y, p)
+
+        loop.run(step)
+    return loop.finish(p[inv_slots], total, dt, trace)

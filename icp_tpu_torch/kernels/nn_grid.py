@@ -1,0 +1,272 @@
+"""K4: kd-tile work-list nearest neighbour (``csrc/nn_grid.cu``) and the
+torch side of the grid path.
+
+Port of ``icp_tpu/kernels/nn_grid.py``: the model is kd-sorted once into
+2^L equal tiles with bounding boxes; the scene is kd-sorted once by the
+engine; each iteration, scene tile i keeps model tile j as a candidate when
+the squared box-box distance is at most the tile's largest upper bound on
+its points' nearest-neighbour distances (the previous match's distance).
+The kernel folds each scene tile's candidates, or all tiles when their
+count passes the table's capacity.  The result is exact in every case: the
+lexicographic minimum of (squared distance, original model index).
+
+The torch side mirrors the JAX functions so the two build the same
+permutations, tiles and candidate tables: ``kd_order`` sorts with
+``torch.argsort(stable=True)`` as ``jnp.argsort`` is stable.
+``nn_grid_plain`` is K4's plain version; the wrapper takes it only for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from icp_tpu_torch.kernels import _build
+from icp_tpu_torch.kernels.nn_dense import check_points, closest_point_indices_dense
+
+_BIG = 3.0e38
+_PAD_COORD = 1.0e17
+# float32 safety margins: u must stay an upper bound and the box distance a
+# lower bound through float32 rounding, or a winning tile could be culled.
+_UPPER_INFLATE = 1.0 + 1e-5
+_LOWER_DEFLATE = 1.0 - 1e-5
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kd_order(points: torch.Tensor, levels: int,
+             real: torch.Tensor | None = None) -> torch.Tensor:
+    """Permutation grouping ``points`` (n, 3) into 2^levels equal segments by
+    recursive widest-axis median split; ``real=False`` rows (padding) sort
+    to the tail of their segment and do not count for the axis choice."""
+    n = points.shape[0]
+    if n % (2 ** levels):
+        raise ValueError(f"kd_order: {n} points do not split into 2^{levels}")
+    pts = points.to(torch.float32)
+    dev = pts.device
+    perm = torch.arange(n, dtype=torch.int64, device=dev)
+    msk = torch.ones(n, dtype=torch.bool, device=dev) if real is None else real
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    for lvl in range(levels):
+        s = 2 ** lvl
+        seg = n // s
+        p3 = pts.reshape(s, seg, 3)
+        m3 = msk.reshape(s, seg)
+        ext = (torch.where(m3[..., None], p3, -big).amax(1)
+               - torch.where(m3[..., None], p3, big).amin(1))
+        ax = torch.argmax(ext, dim=1)  # first of equal extents, as jnp.argmax
+        keys = torch.gather(p3, 2, ax[:, None, None].expand(s, seg, 1))[..., 0]
+        keys = torch.where(m3, keys, big)  # padding sorts last
+        order = torch.argsort(keys, dim=1, stable=True)
+        pts = torch.gather(p3, 1, order[..., None].expand(s, seg, 3)).reshape(n, 3)
+        msk = torch.gather(m3, 1, order).reshape(n)
+        perm = torch.gather(perm.reshape(s, seg), 1, order).reshape(n)
+    return perm
+
+
+def levels_for(n: int, target_tile: int) -> int:
+    """Split depth giving ~target_tile points per kd tile."""
+    if n <= target_tile:
+        return 0
+    return max(0, round(math.log2(n / target_tile)))
+
+
+class ModelGrid(NamedTuple):
+    """kd-sorted model + per-tile bounding boxes (built once per run)."""
+
+    tiles: torch.Tensor  # (Nj, tm, 4) float32 rows (x, y, z, original index);
+    #                      padding rows at 1e17 with index 3e38
+    tile_lo: torch.Tensor  # (Nj, 3) per-tile box minima (real rows only)
+    tile_hi: torch.Tensor  # (Nj, 3)
+    model_orig: torch.Tensor  # (M, 3) float32 model in its original order
+    model_tile: int
+
+
+def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024) -> ModelGrid:
+    """kd-sort the model and precompute per-tile bounding boxes."""
+    m = model.shape[0]
+    if m >= 2 ** 24:
+        raise ValueError(f"grid NN encodes original indices as float32 (exact "
+                         f"below 2**24); model has {m} points")
+    dev = model.device
+    model = model.to(torch.float32).contiguous()
+    lvl = levels_for(m, target_tile)
+    n_tiles = 2 ** lvl
+    tm = _round_up(-(-m // n_tiles), 128)
+    m_pad = tm * n_tiles
+    pts_p = torch.full((m_pad, 3), _PAD_COORD, dtype=torch.float32, device=dev)
+    pts_p[:m] = model
+    real0 = torch.arange(m_pad, device=dev) < m
+    perm = kd_order(pts_p, lvl, real=real0)
+    sorted_pts = pts_p[perm]
+    real = perm < m
+    oidx = torch.where(real, perm.to(torch.float32),
+                       torch.tensor(_BIG, dtype=torch.float32, device=dev))
+    tiles = torch.cat([sorted_pts, oidx[:, None]], dim=1).reshape(n_tiles, tm, 4)
+    tiled = sorted_pts.reshape(n_tiles, tm, 3)
+    r3 = real.reshape(n_tiles, tm, 1)
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    return ModelGrid(
+        tiles=tiles.contiguous(),
+        tile_lo=torch.where(r3, tiled, big).amin(1),
+        tile_hi=torch.where(r3, tiled, -big).amax(1),
+        model_orig=model,
+        model_tile=tm,
+    )
+
+
+def initial_bound_indices(scene: torch.Tensor, model: torch.Tensor, *,
+                          stride: int = 16) -> torch.Tensor:
+    """First-iteration upper-bound indices: exact NN (K1) against every
+    ``stride``-th model point.  Returns ORIGINAL model indices."""
+    sub = model[::stride]
+    return closest_point_indices_dense(scene, sub).to(torch.int64) * stride
+
+
+def _sqnorm_rows(d: torch.Tensor) -> torch.Tensor:
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def bound_from_indices(scene: torch.Tensor, grid: ModelGrid,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """(N,) upper bounds on the NN distance: squared distance to a known
+    model point (one row gather, before the loop)."""
+    return _sqnorm_rows(scene.to(torch.float32) - grid.model_orig[idx])
+
+
+def next_bound(y: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
+    """(N,) float32 bounds for the next iteration: squared distance from the
+    moved point to this iteration's match, from the float32-cast pair (see
+    ``icp_tpu/kernels/nn_grid.py:next_bound``)."""
+    return _sqnorm_rows(y.to(torch.float32) - p_new.to(torch.float32))
+
+
+def tile_box_dists(p_pad: torch.Tensor, grid: ModelGrid, *,
+                   scene_tile: int) -> torch.Tensor:
+    """(Ni, Nj) deflated squared box-box distances (a lower bound on any
+    point-pair distance between the tiles, through float32 rounding)."""
+    ni = p_pad.shape[0] // scene_tile
+    tiles = p_pad[:, :3].reshape(ni, scene_tile, 3)
+    s_lo = tiles.amin(1)
+    s_hi = tiles.amax(1)
+    gap = torch.maximum(grid.tile_lo[None] - s_hi[:, None],
+                        s_lo[:, None] - grid.tile_hi[None])
+    gap = torch.clamp(gap, min=0.0)
+    g = gap * gap
+    return ((g[..., 0] + g[..., 1]) + g[..., 2]) * _LOWER_DEFLATE
+
+
+def candidates(p_pad: torch.Tensor, u_pad: torch.Tensor, grid: ModelGrid, *,
+               scene_tile: int, cap: int):
+    """Per-scene-tile candidate model tiles: (Ni, C) int32 ids ascending,
+    0 past the count; (Ni,) int32 counts; overflow flag (a 0-d tensor)."""
+    ni = p_pad.shape[0] // scene_tile
+    nj = grid.tile_lo.shape[0]
+    u_tile = u_pad.reshape(ni, scene_tile).amax(1) * _UPPER_INFLATE
+    mask = tile_box_dists(p_pad, grid, scene_tile=scene_tile) <= u_tile[:, None]
+    counts = mask.sum(1).to(torch.int32)
+    col = torch.arange(nj, dtype=torch.int32, device=p_pad.device)
+    keys = torch.where(mask, col[None, :], torch.full_like(col, nj)[None, :])
+    keys = torch.sort(keys, dim=1).values[:, :cap]
+    cand = torch.where(keys < nj, keys, torch.zeros_like(keys))
+    return cand.contiguous(), counts, (counts > cap).any()
+
+
+def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
+            tiles: torch.Tensor, scene_tile: int):
+    """K4: (d2 (N,) float32, idx (N,) int32, y (N, 3) float32) for the
+    kd-sorted, tile-padded scene (Ni * scene_tile rows)."""
+    check_points("nn_grid", "scene", scene)
+    dev = scene.device
+    ni, cap = cand.shape
+    nj, tm = tiles.shape[0], tiles.shape[1]
+    if cand.dtype != torch.int32 or counts.dtype != torch.int32 \
+            or cand.device != dev or counts.device != dev \
+            or not cand.is_contiguous() or counts.shape != (ni,):
+        raise ValueError("nn_grid: cand (Ni, C) and counts (Ni,) must be "
+                         "contiguous int32 tensors beside the scene")
+    if tiles.ndim != 3 or tiles.shape[2] != 4 or tiles.dtype != torch.float32 \
+            or tiles.device != dev or not tiles.is_contiguous():
+        raise ValueError("nn_grid: tiles must be a contiguous float32 "
+                         "(Nj, tm, 4) tensor beside the scene")
+    if scene.shape[0] != ni * scene_tile or cap < 1:
+        raise ValueError(f"nn_grid: scene has {scene.shape[0]} rows, expected "
+                         f"{ni} tiles of {scene_tile}")
+    if dev.type == "cpu":
+        return nn_grid_plain(cand, counts, scene, tiles, scene_tile)
+    if scene_tile > 1024:
+        raise ValueError("nn_grid: scene tiles are one thread per point, at "
+                         "most 1024")
+    n = scene.shape[0]
+    d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    code = _build.lib().nn_grid_launch(
+        cand.data_ptr(), counts.data_ptr(), ni, cap, scene.data_ptr(),
+        scene_tile, nj, tm, tiles.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+        y.data_ptr(), _build.stream_ptr(scene))
+    _build.LAUNCHES["nn_grid"] += 1
+    _build.check(code, "nn_grid")
+    return d2, idx, y
+
+
+def nn_grid_plain(cand, counts, scene, tiles, scene_tile):
+    """Plain version of K4: per scene tile, the lexicographic minimum of
+    (diff-squares distance, original index) over its candidate tiles."""
+    ni, cap = cand.shape
+    nj = tiles.shape[0]
+    dev = scene.device
+    n = scene.shape[0]
+    d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    for ti, cnt in enumerate(counts.tolist()):
+        ids = (torch.arange(nj, device=dev) if cnt > cap
+               else cand[ti, :max(cnt, 1)].to(torch.int64))
+        rows = tiles[ids].reshape(-1, 4)
+        lo = ti * scene_tile
+        p = scene[lo:lo + scene_tile]
+        dx = p[:, None, 0] - rows[None, :, 0]
+        dy = p[:, None, 1] - rows[None, :, 1]
+        dz = p[:, None, 2] - rows[None, :, 2]
+        d = (dx * dx + dy * dy) + dz * dz
+        best = d.amin(1)
+        key = torch.where(d == best[:, None], rows[None, :, 3], big)
+        win = torch.min(key, dim=1).indices
+        oidx = rows[win, 3]
+        d2[lo:lo + scene_tile] = best
+        idx[lo:lo + scene_tile] = torch.where(
+            oidx < 16777216.0, oidx, torch.full_like(oidx, -1.0)).to(torch.int32)
+        y[lo:lo + scene_tile] = rows[win, :3]
+    return d2, idx, y
+
+
+def closest_point_indices_pruned(scene: torch.Tensor, grid: ModelGrid,
+                                 u: torch.Tensor, *, scene_tile: int = 256,
+                                 max_candidates: int = 16):
+    """Exact NN via tile culling: (indices, matched points, squared
+    distances, overflow), always equal to brute force (squared distance,
+    lowest original index on ties).  ``u``: (N,) upper bounds on each
+    point's squared NN distance; ``overflow``: some tile folded all tiles.
+    The JAX function's payload slot is not ported (it serves the plane
+    engines)."""
+    n = scene.shape[0]
+    scene = scene.to(torch.float32)
+    tn = min(scene_tile, _round_up(n, 8))
+    n_pad = _round_up(n, tn)
+    nj = grid.tile_lo.shape[0]
+    cap = min(max_candidates, nj)
+    u = u.to(torch.float32)
+    if n_pad > n:  # replicate the last point: tile boxes stay tight
+        scene = torch.cat([scene, scene[-1:].expand(n_pad - n, 3)])
+        u = torch.cat([u, u[-1:].expand(n_pad - n)])
+    scene = scene.contiguous()
+    cand, counts, overflow = candidates(scene, u, grid, scene_tile=tn, cap=cap)
+    d2, idx, y = nn_grid(cand, counts, scene, grid.tiles, tn)
+    return idx[:n], y[:n], d2[:n], overflow

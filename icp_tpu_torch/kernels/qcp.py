@@ -1,0 +1,270 @@
+"""K2: the scalar alignment step (``csrc/qcp.cu``) and the state block.
+
+Port of ``icp_tpu/kernels/qcp_pallas.py``.  The (1, 32) state block keeps
+the JAX layout (``qcp_pallas.py:91-119``) in float64::
+
+    [s_step, R_step (9, row major), t_step (3),
+     s_tot, R_tot (9), t_tot (3), residual_sum, lambda, 0, 0, 0, 0]
+
+K2 reads a (P, 18) float64 array of partial sums — rows of
+``[sum_py (9), sum_p (3), sum_y (3), sum_pp, sum_yy, n]`` added in row
+order — and updates the state block, the loop control and the error buffer
+in place: it solves the step, composes it onto the cumulative transform,
+writes ``errs[it] = err_factor * residual / n``, advances the iteration
+count and raises the done flag when ``err < threshold`` (or NaN) or the
+bound is reached.  Once done, it writes the identity step and returns.
+
+Loop control ``ctl``: int32 ``[iterations done, done flag, bound]``.
+
+``qcp_step_plain`` is the same function in plain Python floats, in the same
+operation order; the wrapper takes it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from icp_tpu_torch.kernels import _build
+from icp_tpu_torch.ops.alignment import AlignmentStats, Similarity
+
+N_SUMS = 18
+STATE_SLOTS = 32
+_NEWTON_ITERS = 12
+_POWER_ITERS = 2
+
+
+def identity_state(device=None) -> torch.Tensor:
+    """(1, 32) float64 state block of the identity cumulative transform."""
+    out = torch.zeros((1, STATE_SLOTS), dtype=torch.float64, device=device)
+    out[0, [13, 14, 18, 22]] = 1.0  # s_tot, R_tot diagonal
+    return out
+
+
+def pack_total_state(sim: Similarity, device=None) -> torch.Tensor:
+    """(1, 32) state block whose cumulative transform is ``sim`` (warm start)."""
+    s, R, t = (torch.as_tensor(v).to(dtype=torch.float64, device=device)
+               for v in sim)
+    out = torch.zeros((1, STATE_SLOTS), dtype=torch.float64, device=device)
+    out[0, 13] = s
+    out[0, 14:23] = R.reshape(-1)
+    out[0, 23:26] = t
+    return out
+
+
+def unpack_state(state: torch.Tensor):
+    """(step Similarity, total Similarity, residual_sum) of a state block."""
+    step = Similarity(s=state[0, 0], R=state[0, 1:10].reshape(3, 3),
+                      t=state[0, 10:13])
+    total = Similarity(s=state[0, 13], R=state[0, 14:23].reshape(3, 3),
+                       t=state[0, 23:26])
+    return step, total, state[0, 26]
+
+
+def pack_stats(stats: AlignmentStats) -> torch.Tensor:
+    """AlignmentStats -> one (1, 18) float64 row of partial sums."""
+    dt = torch.float64
+    return torch.cat([
+        stats.sum_py.to(dt).reshape(-1), stats.sum_p.to(dt), stats.sum_y.to(dt),
+        stats.sum_pp.to(dt).reshape(1), stats.sum_yy.to(dt).reshape(1),
+        stats.n.to(dt).reshape(1),
+    ]).reshape(1, N_SUMS)
+
+
+def new_loop_control(bound: int, device=None) -> torch.Tensor:
+    """ctl = [0, done, bound]; done from the start when the bound is 0."""
+    return torch.tensor([0, int(bound <= 0), bound], dtype=torch.int32,
+                        device=device)
+
+
+def new_err_buffer(length: int, device=None) -> torch.Tensor:
+    return torch.full((length,), float("nan"), dtype=torch.float64, device=device)
+
+
+def qcp_step(partials: torch.Tensor, state: torch.Tensor, ctl: torch.Tensor,
+             errs: torch.Tensor, *, with_scale: bool = True,
+             threshold: float = -math.inf, err_factor: float = 2.0) -> None:
+    """One alignment step, in place on ``state``, ``ctl`` and ``errs``."""
+    _check(partials, state, ctl, errs)
+    if partials.device.type == "cpu":
+        qcp_step_plain(partials, state, ctl, errs, with_scale=with_scale,
+                       threshold=threshold, err_factor=err_factor)
+        return
+    code = _build.lib().qcp_step_launch(
+        partials.data_ptr(), partials.shape[0], state.data_ptr(),
+        ctl.data_ptr(), errs.data_ptr(), int(with_scale), float(threshold),
+        float(err_factor), _build.stream_ptr(partials))
+    _build.LAUNCHES["qcp_step"] += 1
+    _build.check(code, "qcp_step")
+
+
+def _check(partials, state, ctl, errs) -> None:
+    dev = partials.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"qcp_step: unsupported device {dev}")
+    for name, t, dt in (("partials", partials, torch.float64),
+                        ("state", state, torch.float64),
+                        ("ctl", ctl, torch.int32), ("errs", errs, torch.float64)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"qcp_step: {name} must be a contiguous {dt} "
+                             f"tensor on {dev} (got {t.dtype} on {t.device})")
+    if partials.ndim != 2 or partials.shape[1] != N_SUMS or partials.shape[0] < 1:
+        raise ValueError(f"qcp_step: partials must be (P, {N_SUMS}), got "
+                         f"{tuple(partials.shape)}")
+    if state.shape != (1, STATE_SLOTS) or ctl.shape != (3,):
+        raise ValueError("qcp_step: state must be (1, 32) and ctl (3,)")
+
+
+def record_error(ctl: torch.Tensor, errs: torch.Tensor, err: float,
+                 threshold: float) -> None:
+    """The loop bookkeeping of K2, on the host: errs[it] = err, it += 1, and
+    done when ``not err >= threshold`` or the bound is reached."""
+    it, _, bound = ctl.tolist()
+    errs[it] = err
+    done = int(not err >= threshold or it + 1 >= bound)
+    ctl.copy_(torch.tensor([it + 1, done, bound], dtype=torch.int32))
+
+
+def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
+                   threshold=-math.inf, err_factor=2.0) -> None:
+    """Plain version of K2 (same operation order, Python float64)."""
+    if int(ctl[1]):
+        step = [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
+        state[0, :13] = torch.tensor(step, dtype=torch.float64)
+        return
+    a = [0.0] * N_SUMS
+    for row in partials.tolist():
+        for k in range(N_SUMS):
+            a[k] += row[k]
+    prev = state[0].tolist()
+    out, resid, n = _alignment_update(a, prev, with_scale)
+    state.copy_(torch.tensor([out], dtype=torch.float64))
+    record_error(ctl, errs, err_factor * resid / n, threshold)
+
+
+def _mx(a: float, b: float) -> float:
+    """max that lets a NaN in ``a`` through (as jnp.maximum does)."""
+    return b if a < b else a
+
+
+def _minor3(M, r, c) -> float:
+    (r0, r1, r2), (c0, c1, c2) = r, c
+    return (M[r0][c0] * (M[r1][c1] * M[r2][c2] - M[r1][c2] * M[r2][c1])
+            - M[r0][c1] * (M[r1][c0] * M[r2][c2] - M[r1][c2] * M[r2][c0])
+            + M[r0][c2] * (M[r1][c0] * M[r2][c1] - M[r1][c1] * M[r2][c0]))
+
+
+def _others(skip: int):
+    return tuple(x for x in range(4) if x != skip)
+
+
+def _qcp_rotation(S, gp, gy):
+    """(R, lambda_max) from the centred cross-covariance; the solve runs on
+    S / (gp + gy) and lambda is un-scaled (``qcp_pallas.py:143-240``)."""
+    total = _mx(gp + gy, 1e-30)
+    norm = 1.0 / total
+    S = [[S[r][c] * norm for c in range(3)] for r in range(3)]
+    gp = gp * norm
+    gy = gy * norm
+    (S00, S01, S02), (S10, S11, S12), (S20, S21, S22) = S
+    tr = S00 + S11 + S22
+    A, B, C = S12 - S21, S20 - S02, S01 - S10
+    N = [
+        [tr, A, B, C],
+        [A, S00 - S11 - S22, S01 + S10, S02 + S20],
+        [B, S01 + S10, S11 - S00 - S22, S12 + S21],
+        [C, S02 + S20, S12 + S21, S22 - S00 - S11],
+    ]
+    c2 = -2.0 * (S00 * S00 + S01 * S01 + S02 * S02 + S10 * S10 + S11 * S11
+                 + S12 * S12 + S20 * S20 + S21 * S21 + S22 * S22)
+    detS = (S00 * (S11 * S22 - S12 * S21) - S01 * (S10 * S22 - S12 * S20)
+            + S02 * (S10 * S21 - S11 * S20))
+    c1 = -8.0 * detS
+    c0 = 0.0
+    for j in range(4):
+        sgn = -1.0 if j % 2 else 1.0
+        c0 = c0 + (sgn * N[0][j]) * _minor3(N, (1, 2, 3), _others(j))
+    lam = math.sqrt(_mx(gp * gy, 0.0))
+    for _ in range(_NEWTON_ITERS):
+        p = ((lam * lam + c2) * lam + c1) * lam + c0
+        dp = (4.0 * lam * lam + 2.0 * c2) * lam + c1
+        dp = 1.0 if abs(dp) < 1e-30 else dp
+        lam = lam - p / dp
+    M = [[N[i][j] - lam if i == j else N[i][j] for j in range(4)] for i in range(4)]
+    adj = [[0.0] * 4 for _ in range(4)]
+    for i in range(4):
+        for j in range(4):
+            sgn = -1.0 if (i + j) % 2 else 1.0
+            adj[j][i] = sgn * _minor3(M, _others(i), _others(j))
+    best, q = 0.0, [0.0] * 4
+    for j in range(4):
+        nj = adj[0][j] * adj[0][j] + adj[1][j] * adj[1][j] + adj[2][j] * adj[2][j] \
+            + adj[3][j] * adj[3][j]
+        if j == 0 or nj > best:
+            best, q = nj, [adj[k][j] for k in range(4)]
+    if best < 1e-16:  # degenerate adjugate: all-ones seed
+        q = [1.0] * 4
+    shift = math.sqrt(_mx(gp * gy, 0.0)) + 1.0
+    for _ in range(_POWER_ITERS):
+        w = [N[i][0] * q[0] + N[i][1] * q[1] + N[i][2] * q[2] + N[i][3] * q[3]
+             + shift * q[i] for i in range(4)]
+        inv = 1.0 / math.sqrt(_mx(w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+                                  + w[3] * w[3], 1e-30))
+        q = [wi * inv for wi in w]
+    inv = 1.0 / math.sqrt(_mx(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]
+                              + q[3] * q[3], 1e-30))
+    w_, x_, y_, z_ = (qk * inv for qk in q)
+    R = [
+        [w_ * w_ + x_ * x_ - y_ * y_ - z_ * z_, 2.0 * (x_ * y_ - w_ * z_),
+         2.0 * (x_ * z_ + w_ * y_)],
+        [2.0 * (x_ * y_ + w_ * z_), w_ * w_ - x_ * x_ + y_ * y_ - z_ * z_,
+         2.0 * (y_ * z_ - w_ * x_)],
+        [2.0 * (x_ * z_ - w_ * y_), 2.0 * (y_ * z_ + w_ * x_),
+         w_ * w_ - x_ * x_ - y_ * y_ + z_ * z_],
+    ]
+    return R, lam * total
+
+
+def _alignment_update(a, prev, with_scale):
+    """(new 32-slot state, residual_sum, n) from the 18 summed statistics
+    and the previous state (``alignment_update_scalars``, qcp_pallas.py:47)."""
+    n = a[17]
+    inv_n = 1.0 / n
+    mu_p = [a[9 + k] * inv_n for k in range(3)]
+    mu_y = [a[12 + k] * inv_n for k in range(3)]
+    S = [[a[3 * r + c] - n * mu_p[r] * mu_y[c] for c in range(3)] for r in range(3)]
+    gp = a[15] - n * (mu_p[0] * mu_p[0] + mu_p[1] * mu_p[1] + mu_p[2] * mu_p[2])
+    gy = a[16] - n * (mu_y[0] * mu_y[0] + mu_y[1] * mu_y[1] + mu_y[2] * mu_y[2])
+    R, lam = _qcp_rotation(S, gp, gy)
+    s = math.sqrt(_mx(gy / _mx(gp, 1e-30), 0.0)) if with_scale else 1.0
+    t = [mu_y[r] - s * (R[r][0] * mu_p[0] + R[r][1] * mu_p[1] + R[r][2] * mu_p[2])
+         for r in range(3)]
+    resid = _mx(gy + s * s * gp - 2.0 * s * lam, 0.0)
+    prev_s = prev[13]
+    pR = [[prev[14 + 3 * r + c] for c in range(3)] for r in range(3)]
+    pt = prev[23:26]
+    out = [s, *(R[r][c] for r in range(3) for c in range(3)), *t, s * prev_s]
+    out += [R[r][0] * pR[0][c] + R[r][1] * pR[1][c] + R[r][2] * pR[2][c]
+            for r in range(3) for c in range(3)]
+    out += [s * (R[r][0] * pt[0] + R[r][1] * pt[1] + R[r][2] * pt[2]) + t[r]
+            for r in range(3)]
+    out += [resid, lam, 0.0, 0.0, 0.0, 0.0]
+    return out, resid, n
+
+
+def step_similarity(state: torch.Tensor, dtype) -> Similarity:
+    """The state's step transform as a Similarity of ``dtype``."""
+    step, _, _ = unpack_state(state)
+    return Similarity(*(v.to(dtype) for v in step))
+
+
+def alignment_step_from_stats(stats: AlignmentStats, *,
+                              with_scale: bool = True) -> Similarity:
+    """Similarity from the statistics through K2, with an identity previous
+    transform (``solver="qcp_fused"`` of ``ops.alignment_from_stats``)."""
+    dev = stats.n.device
+    state = identity_state(dev)
+    qcp_step(pack_stats(stats), state, new_loop_control(1, dev),
+             new_err_buffer(1, dev), with_scale=with_scale)
+    return step_similarity(state, stats.n.dtype)

@@ -1,0 +1,199 @@
+"""Similarity alignment solve (Horn quaternion method, with scale).
+
+Port of ``icp_tpu/ops/alignment.py``: given scene points ``p`` and matched
+model points ``y``, find ``y ~= s R p + t`` from the sufficient statistics
+``(sum_p, sum_y, sum_py, sum_pp, sum_yy, n)`` (reference
+``src/cpu.cc:105-175``).  The reference's BUG-1 (an eigenvalue argmax that
+never updates its running max, ``src/cpu.cc:81-91``) is not reproduced.
+
+Solvers: ``eigh`` (``torch.linalg.eigh`` on Horn's N), ``qcp`` (Newton on
+the quartic characteristic polynomial + adjugate eigenvector, in tensor
+ops), ``kabsch`` (3x3 SVD) and ``qcp_fused`` (the scalar-solve CUDA kernel
+of ``kernels/qcp.py``, run on the statistics with an identity previous
+transform).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+class AlignmentStats(NamedTuple):
+    """Sufficient statistics of a (p, y) correspondence set (plain sums)."""
+
+    sum_p: torch.Tensor  # (3,)
+    sum_y: torch.Tensor  # (3,)
+    sum_py: torch.Tensor  # (3, 3) = sum_i p_i y_i^T
+    sum_pp: torch.Tensor  # () = sum_i ||p_i||^2
+    sum_yy: torch.Tensor  # () = sum_i ||y_i||^2
+    n: torch.Tensor  # () point count (float)
+
+
+class Similarity(NamedTuple):
+    """A similarity transform y = s * R @ p + t."""
+
+    s: torch.Tensor  # () scale
+    R: torch.Tensor  # (3, 3) rotation
+    t: torch.Tensor  # (3,) translation
+
+
+def compute_alignment_stats(p: torch.Tensor, y: torch.Tensor, acc_dtype=None,
+                            weights: torch.Tensor | None = None) -> AlignmentStats:
+    """Accumulate the alignment statistics of (N, 3) clouds in ``acc_dtype``
+    (default: ``p.dtype``).  ``weights`` (N,): optional per-row weights;
+    ``n`` becomes their sum.
+
+    The 3x3 cross term is a matmul; in float32 on the card it relies on
+    PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
+    The engines accumulate in float64, where TF32 does not apply."""
+    acc_dtype = p.dtype if acc_dtype is None else acc_dtype
+    pa = p.to(acc_dtype)
+    ya = y.to(acc_dtype)
+    if weights is None:
+        return AlignmentStats(
+            sum_p=pa.sum(0),
+            sum_y=ya.sum(0),
+            sum_py=pa.T @ ya,
+            sum_pp=(pa * pa).sum(),
+            sum_yy=(ya * ya).sum(),
+            n=torch.tensor(float(p.shape[0]), dtype=acc_dtype, device=p.device),
+        )
+    w = weights.to(acc_dtype)
+    pw = pa * w[:, None]
+    return AlignmentStats(
+        sum_p=pw.sum(0),
+        sum_y=(ya * w[:, None]).sum(0),
+        sum_py=pw.T @ ya,
+        sum_pp=(w * (pa * pa).sum(1)).sum(),
+        sum_yy=(w * (ya * ya).sum(1)).sum(),
+        n=w.sum(),
+    )
+
+
+def horn_n_matrix(S: torch.Tensor) -> torch.Tensor:
+    """Horn's symmetric, traceless 4x4 N-matrix (reference ``src/cpu.cc:121-126``)."""
+    tr = S[0, 0] + S[1, 1] + S[2, 2]
+    A = S[1, 2] - S[2, 1]
+    B = S[2, 0] - S[0, 2]
+    C = S[0, 1] - S[1, 0]
+    rows = [
+        [tr, A, B, C],
+        [A, S[0, 0] - S[1, 1] - S[2, 2], S[0, 1] + S[1, 0], S[0, 2] + S[2, 0]],
+        [B, S[0, 1] + S[1, 0], S[1, 1] - S[0, 0] - S[2, 2], S[1, 2] + S[2, 1]],
+        [C, S[0, 2] + S[2, 0], S[1, 2] + S[2, 1], S[2, 2] - S[0, 0] - S[1, 1]],
+    ]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> 3x3 rotation with y = R p."""
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    rows = [
+        [w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z],
+    ]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def max_eigvec_eigh(N: torch.Tensor) -> torch.Tensor:
+    """Largest-eigenvalue unit eigenvector (eigenvalues ascend)."""
+    _, vecs = torch.linalg.eigh(N)
+    return vecs[:, -1]
+
+
+def _adjugate4(A: torch.Tensor) -> torch.Tensor:
+    cof = torch.empty_like(A)
+    for i in range(4):
+        for j in range(4):
+            minor = A[[r for r in range(4) if r != i]][:, [c for c in range(4) if c != j]]
+            cof[i, j] = (-1.0) ** (i + j) * torch.linalg.det(minor)
+    return cof.T
+
+
+def max_eigvec_qcp(N: torch.Tensor, S: torch.Tensor, gp: torch.Tensor,
+                   gy: torch.Tensor, newton_iters: int = 12,
+                   power_iters: int = 4) -> torch.Tensor:
+    """Largest eigenvector of Horn's N via Newton on its characteristic
+    polynomial ``l^4 + c2 l^2 + c1 l + c0`` (c2 = -2 tr(S^T S),
+    c1 = -8 det S, c0 = det N) from the Cauchy-Schwarz bound
+    ``sqrt(gp gy)``, the adjugate of ``N - l I`` and shifted power steps;
+    the solve runs on N / (gp + gy)."""
+    dt = N.dtype
+    scale = 1.0 / torch.clamp(gp + gy, min=1e-30)
+    N, S, gp, gy = N * scale, S * scale, gp * scale, gy * scale
+    c2 = -2.0 * (S * S).sum()
+    c1 = -8.0 * torch.linalg.det(S)
+    c0 = torch.linalg.det(N)
+    lam0 = torch.sqrt(torch.clamp(gp * gy, min=0.0))
+    lam = lam0
+    for _ in range(newton_iters):
+        p = ((lam * lam + c2) * lam + c1) * lam + c0
+        dp = (4.0 * lam * lam + 2.0 * c2) * lam + c1
+        dp = torch.where(dp.abs() < torch.finfo(dt).tiny * 4 + 1e-30,
+                         torch.ones_like(dp), dp)
+        lam = lam - p / dp
+    eye = torch.eye(4, dtype=dt, device=N.device)
+    adj = _adjugate4(N - lam * eye)
+    norms = (adj * adj).sum(0)
+    v = adj[:, torch.argmax(norms)]
+    v = torch.where(norms.max() < 1e-16, torch.ones_like(v), v)
+    B = N + (lam0 + 1.0) * eye
+    tiny = torch.finfo(dt).tiny
+    for _ in range(power_iters):
+        w = B @ v
+        v = w * torch.rsqrt(torch.clamp((w * w).sum(), min=tiny))
+    return v * torch.rsqrt(torch.clamp((v * v).sum(), min=tiny))
+
+
+def rotation_kabsch(S: torch.Tensor) -> torch.Tensor:
+    """Kabsch/Umeyama rotation from S = sum p' y'^T, reflection corrected."""
+    U, _, Vh = torch.linalg.svd(S)
+    V = Vh.T
+    d = torch.sign(torch.linalg.det(V @ U.T))
+    D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+    return V @ D @ U.T
+
+
+def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
+                         with_scale: bool = True) -> Similarity:
+    """Closed-form similarity from the sufficient statistics."""
+    if solver == "qcp_fused":
+        from icp_tpu_torch.kernels.qcp import alignment_step_from_stats
+
+        return alignment_step_from_stats(stats, with_scale=with_scale)
+    n = stats.n
+    mu_p = stats.sum_p / n
+    mu_y = stats.sum_y / n
+    # centred cross-covariance and energies via the shift identities
+    S = stats.sum_py - n * torch.outer(mu_p, mu_y)
+    gp = stats.sum_pp - n * torch.dot(mu_p, mu_p)
+    gy = stats.sum_yy - n * torch.dot(mu_y, mu_y)
+    if solver == "kabsch":
+        R = rotation_kabsch(S)
+    else:
+        N = horn_n_matrix(S)
+        if solver == "eigh":
+            q = max_eigvec_eigh(N)
+        elif solver == "qcp":
+            q = max_eigvec_qcp(N, S, gp, gy)
+        else:
+            raise ValueError(f"unknown solver: {solver}")
+        R = quat_to_rot(q / torch.linalg.norm(q))
+    s = torch.sqrt(gy / gp) if with_scale else torch.ones_like(gp)
+    t = mu_y - s * (R @ mu_p)
+    return Similarity(s=s, R=R, t=t)
+
+
+def find_alignment(p: torch.Tensor, y: torch.Tensor, *, solver: str = "eigh",
+                   with_scale: bool = True,
+                   acc_dtype=None) -> Tuple[Similarity, torch.Tensor]:
+    """The transform and its residual ``sum ||y - (s R p + t)||^2``
+    (reference ``find_alignment``, ``src/cpu.cc:169-174``)."""
+    from icp_tpu_torch.ops.transform import residual_error
+
+    stats = compute_alignment_stats(p, y, acc_dtype=acc_dtype)
+    sim = alignment_from_stats(stats, solver=solver, with_scale=with_scale)
+    return sim, residual_error(p, y, sim)

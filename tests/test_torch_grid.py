@@ -1,0 +1,118 @@
+"""The grid path's torch side and K4's plain version vs the JAX package.
+
+``kd_order``, ``build_model_grid``, the candidate table and the engine's
+scene preparation must be bit-equal to JAX's (both sort stably in float32).
+K4's plain version must give the JAX work-list kernel's (interpret mode)
+indices and matched points exactly; the distances agree to 2 ulp because
+XLA's CPU backend contracts multiply-adds and the port does not.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icp_tpu.engine import grid as jg_engine
+from icp_tpu.kernels import nn_grid as jg
+from icp_tpu_torch.engine import grid as tg_engine
+from icp_tpu_torch.kernels import nn_grid as tg
+
+
+def _sphere(n, seed, noise=0.01):
+    r = np.random.default_rng(seed)
+    v = r.standard_normal((n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return (v + noise * r.standard_normal((n, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,levels,padded", [(64, 3, False), (1024, 5, False),
+                                             (768, 4, True)])
+def test_kd_order_bit_equal(n, levels, padded):
+    pts = np.random.default_rng(n).standard_normal((n, 3)).astype(np.float32)
+    pts[::7] = pts[3]  # duplicate keys: the sort must be stable on both sides
+    real = np.arange(n) < n - 37 if padded else None
+    want = jg.kd_order(jnp.asarray(pts), levels,
+                       real=None if real is None else jnp.asarray(real))
+    got = tg.kd_order(torch.tensor(pts), levels,
+                      real=None if real is None else torch.tensor(real))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("m,target", [(2903, 1024), (5000, 256)])
+def test_build_model_grid_bit_equal(m, target):
+    model = _sphere(m, seed=m)
+    want = jg.build_model_grid(jnp.asarray(model), target_tile=target)
+    got = tg.build_model_grid(torch.tensor(model), target_tile=target)
+    assert got.model_tile == want.model_tile
+    np.testing.assert_array_equal(got.tiles.numpy(),
+                                  np.asarray(want.tiles_t)[:, :4, :].transpose(0, 2, 1))
+    np.testing.assert_array_equal(got.tile_lo.numpy(), np.asarray(want.tile_lo))
+    np.testing.assert_array_equal(got.tile_hi.numpy(), np.asarray(want.tile_hi))
+
+
+def _grid_case(seed=0, n=900, m=1500):
+    model = _sphere(m, seed=seed + 1)
+    scene = _sphere(n, seed=seed + 2) * 1.02 + np.float32([0.01, -0.02, 0.005])
+    perm = np.asarray(jg.kd_order(jnp.asarray(scene[:n - n % 4]), 2))
+    scene = scene[:n - n % 4][perm]
+    jgrid = jg.build_model_grid(jnp.asarray(model), target_tile=128)
+    tgrid = tg.build_model_grid(torch.tensor(model), target_tile=128)
+    idx0 = jg.initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=8,
+                                    interpret=True)
+    u = np.asarray(jg.bound_from_indices(jnp.asarray(scene), jgrid, idx0))
+    return scene, model, jgrid, tgrid, u
+
+
+def test_bounds_and_candidates_equal():
+    scene, model, jgrid, tgrid, u = _grid_case()
+    tidx0 = tg.initial_bound_indices(torch.tensor(scene), torch.tensor(model), stride=8)
+    tu = tg.bound_from_indices(torch.tensor(scene), tgrid, tidx0)
+    np.testing.assert_allclose(tu.numpy(), u, rtol=3e-7)
+    tn = 60  # 900 scene rows: 15 tiles
+    jc, jn, jo = jg._candidates(jnp.asarray(scene), jnp.asarray(u), jgrid,
+                                scene_tile=tn, cap=8)
+    tc, tcount, to = tg.candidates(torch.tensor(scene), torch.tensor(u), tgrid,
+                                   scene_tile=tn, cap=8)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tcount.numpy(), np.asarray(jn))
+    assert bool(to) == bool(jo)
+
+
+@pytest.mark.parametrize("max_candidates", [16, 1])
+def test_pruned_matches_jax_kernel(max_candidates):
+    scene, model, jgrid, tgrid, u = _grid_case(seed=3)
+    jidx, jy, _, jd2, jover = jg.closest_point_indices_pruned(
+        jnp.asarray(scene), jgrid, jnp.asarray(u), scene_tile=60,
+        max_candidates=max_candidates, interpret=True)
+    idx, y, d2, over = tg.closest_point_indices_pruned(
+        torch.tensor(scene), tgrid, torch.tensor(u), scene_tile=60,
+        max_candidates=max_candidates)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=3e-7)
+    assert bool(over) == bool(jover)
+    brute = ((scene[:, None] - model[None]) ** 2).sum(-1).argmin(1)
+    np.testing.assert_array_equal(idx.numpy(), brute)
+
+
+def test_pruned_ties_go_to_lowest_original_index():
+    base = _sphere(300, seed=4)
+    model = np.concatenate([base, base])  # every point twice, in other kd tiles
+    scene = base[:100]
+    tgrid = tg.build_model_grid(torch.tensor(model), target_tile=128)
+    idx0 = tg.initial_bound_indices(torch.tensor(scene), torch.tensor(model), stride=4)
+    u = tg.bound_from_indices(torch.tensor(scene), tgrid, idx0)
+    idx, _, _, _ = tg.closest_point_indices_pruned(torch.tensor(scene), tgrid, u,
+                                                   scene_tile=32, max_candidates=32)
+    np.testing.assert_array_equal(idx.numpy(), np.arange(100))
+
+
+def test_prepare_scene_matches_jax():
+    scene = _sphere(1000, seed=5)
+    jp, jw, jinv, jtn, jperm = jg_engine._prepare_scene(jnp.asarray(scene), 256)
+    tp, tw, tinv, ttn, tperm = tg_engine._prepare_scene(torch.tensor(scene), 256)
+    assert ttn == jtn
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
