@@ -6,20 +6,29 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
   1. device: the card, and ``nvidia-smi``'s name and power limit;
-  2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``;
-  3. kernels: K1-K4 at the shapes of the main path, each against its plain
+  2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
+     process per source, all at once;
+  3. kernels: K1-K7 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices exactly equal,
      float64 sums and state blocks within the stated tolerances), with the
-     median times of both (CUDA events);
+     median times of both (CUDA events) and the least time the card could
+     take for the same work (``bound_ms``, from this run's inputs);
   4. cli: the reference program's path, ``engine.cli.main`` with
-     ``--device cuda``, on cow_tr1 10 and cow_tr2 10 (fused path) and
-     horse_tr1 3 (grid path), each trace and ``output.txt`` held against
-     the reference binary's fixtures, with the kernel launch counts of the
-     runs; then ms/iter of the cow and horse loops;
+     ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
+     path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
+     --solver qcp_fused`` (K5), each held against the reference binary's
+     fixtures; point-to-plane (``--engine point_to_plane``) on cow_tr1 30
+     and cow_tr2 30 against the JAX CLI's fixtures, and on horse_tr1 30
+     (grid path, K7 normals) against the port's own dense path.  The launch
+     counts of each run are read with the counts set to 0 just before it.
+     Then ms/iter of the cow and horse loops of both engines, and the
+     normals' ms;
   5. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
-     jitter, a known similarity), 10 fixed grid iterations; the first
-     iteration's correspondences checked against K1 brute force on 65,536
-     seeded scene rows.
+     jitter, a known similarity): 10 fixed point-to-point grid iterations,
+     the first iteration's correspondences checked against K1 brute force
+     on 65,536 seeded scene rows; K7 normals of the model, their neighbours
+     checked against K6 on 16,384 seeded rows; 10 fixed point-to-plane grid
+     iterations with a falling error.
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -42,6 +51,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(ROOT, "tests", "fixtures", "reference")
+P2PL_FIXDIR = os.path.join(ROOT, "tests", "fixtures", "torch_p2pl")
 _TRACE_RE = re.compile(r"\[ICP\] iteration number (\d+) \| error value = (\S+)")
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -49,14 +59,26 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "qcp_step": ("icp_tpu_torch/csrc/qcp.cu", "icp_tpu/kernels/qcp_pallas.py:122"),
     "icp_fused": ("icp_tpu_torch/csrc/icp_fused.cu", "icp_tpu/kernels/icp_fused.py:128"),
     "nn_grid": ("icp_tpu_torch/csrc/nn_grid.cu", "icp_tpu/kernels/nn_grid.py:240"),
+    "qcp_rotation": ("icp_tpu_torch/csrc/qcp.cu", "icp_tpu/kernels/qcp_pallas.py:32"),
+    "knn_dense": ("icp_tpu_torch/csrc/knn_dense.cu", "icp_tpu/kernels/knn_pallas.py:59"),
+    "knn_grid": ("icp_tpu_torch/csrc/knn_grid.cu", "icp_tpu/kernels/knn_grid.py:53"),
 }
-# (fixture, model file, scene file, nb_iter, iterations, output atol)
+# (fixture, model file, scene file, nb_iter, iterations, output atol, extra flags)
 CLI_CASES = [
-    ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5),
-    ("cow_tr2", "cow_ref.txt", "cow_tr2.txt", 10, 10, 1e-5),
-    ("horse_tr1", "horse_ref.txt", "horse_tr1.txt", 3, 3, 2e-6),
+    ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5, []),
+    ("cow_tr2", "cow_ref.txt", "cow_tr2.txt", 10, 10, 1e-5, []),
+    ("horse_tr1", "horse_ref.txt", "horse_tr1.txt", 3, 3, 2e-6, []),
+    ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5, ["--nn", "bcast", "--solver", "qcp_fused"]),
 ]
+# point-to-plane against the JAX CLI's fixtures: (fixture, scene file, iterations)
+P2PL_CASES = [("cow_tr1", "cow_tr1.txt", 3), ("cow_tr2", "cow_tr2.txt", 6)]
 TRACE_RTOL = 1e-2  # on entries > 1e-6: float32 coordinates, see ROADMAP C6
+NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
+# The card's peaks for the bounds (H100 SXM data sheet, the on-chip
+# measurement table): float32 outside the tensor cores, and HBM3.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+PAIR_OPS = 8  # float32 operations per distance: 3 sub, 3 mul, 2 add
 
 
 class SmokeError(RuntimeError):
@@ -93,6 +115,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def bound(ops: float, nbytes: float):
+    """(least ms, what bounds it): the larger of operations over the float32
+    peak and bytes (each input read once, each output written once) over
+    the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def folded_pairs(counts, cap: int, nj: int, tm: int, tn: int) -> int:
+    """(query, model row) pairs a work-list launch folds for this table: a
+    tile folds its candidates, or every tile past the capacity."""
+    import torch
+
+    c = counts.long()
+    return int(torch.where(c > cap, torch.full_like(c, nj), c.clamp(min=1)).sum()) * tm * tn
+
+
+def entry(err, ms, plain_ms, bound_ms_by, library_ms=None) -> dict:
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1], "library_ms": library_ms}
 
 
 def phase_device():
@@ -135,8 +183,9 @@ def phase_kernels(seed: int, record: dict):
     import torch
 
     from icp_tpu_torch.engine.grid import _prepare_scene
-    from icp_tpu_torch.kernels import icp_fused, nn_dense, nn_grid, qcp
+    from icp_tpu_torch.kernels import icp_fused, knn_dense, knn_grid, nn_dense, nn_grid, qcp
     from icp_tpu_torch.ops.alignment import Similarity, compute_alignment_stats
+    from icp_tpu_torch.ops.normals import estimate_normals, knn_indices
 
     dev = torch.device("cuda")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -148,9 +197,10 @@ def phase_kernels(seed: int, record: dict):
     # K1: cow 2,903^2, and the grid path's bound seed (kd-padded horse scene
     # x every 16th model point).
     p0, _, _, tn, _ = _prepare_scene(horse_tr1, 256)
+    p0 = p0.contiguous()
     sub = horse_ref[::16].contiguous()
     k1 = {}
-    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse_seed", p0.contiguous(), sub)):
+    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse_seed", p0, sub)):
         ik, dk = nn_dense.nn_dense(s, m, with_dist=True)
         ip, dp = nn_dense.nn_dense_plain(s, m, with_dist=True)
         require(torch.equal(ik, ip), f"K1 {label}: indices differ from plain")
@@ -159,7 +209,9 @@ def phase_kernels(seed: int, record: dict):
         say("kernels", kernel="nn_dense", shape=f"{s.shape[0]}x{m.shape[0]}",
             idx_equal=True, d2_max_abs_err=k1[label][0],
             ms=f"{k1[label][1]:.4f}", plain_ms=f"{k1[label][2]:.4f}")
-    record["nn_dense"] = (max(v[0] for v in k1.values()), *k1["horse_seed"][1:])
+    n, m = p0.shape[0], sub.shape[0]
+    record["nn_dense"] = entry(max(v[0] for v in k1.values()), *k1["horse_seed"][1:],
+                               bound(PAIR_OPS * n * m, 12 * n + 12 * m + 4 * n))
 
     # K2: statistics of a seeded random correspondence set, as one row
     # (grid engine) and as 23 rows (fused path), from a non-identity state.
@@ -194,10 +246,14 @@ def phase_kernels(seed: int, record: dict):
         st, ctl, errs = prev.clone(), qcp.new_loop_control(1 << 20, dev), qcp.new_err_buffer(1 << 20, dev)
         return lambda: fn(parts, st, ctl, errs, threshold=-math.inf)
 
-    record["qcp_step"] = (k2_err, cuda_ms(k2_bench(qcp.qcp_step), 50),
-                          cuda_ms(k2_bench(qcp.qcp_step_plain), 10))
+    # ~600 float64 operations on the summed rows; reads the rows and the
+    # state, writes the state, the control and one error
+    record["qcp_step"] = entry(k2_err, cuda_ms(k2_bench(qcp.qcp_step), 50),
+                               cuda_ms(k2_bench(qcp.qcp_step_plain), 10),
+                               bound(600 + 18 * parts.shape[0],
+                                     nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
     say("kernels", kernel="qcp_step", rows="1,23", state_max_abs_err=k2_err,
-        ms=f"{record['qcp_step'][1]:.4f}", plain_ms=f"{record['qcp_step'][2]:.4f}")
+        ms=f"{record['qcp_step']['ms']:.4f}", plain_ms=f"{record['qcp_step']['plain_ms']:.4f}")
 
     # K3: cow, from the identity and from a non-identity state.
     prep = icp_fused.prepare_fused_inputs(cow_tr1, cow_ref)
@@ -223,23 +279,29 @@ def phase_kernels(seed: int, record: dict):
             sums_max_rel_err=rel, state_max_abs_err=err)
     bench_ctl = qcp.new_loop_control(4, dev)
     st_b = qcp.identity_state(dev)
-    record["icp_fused"] = (k3_err,
-                           cuda_ms(lambda: icp_fused.fused_partials(prep, st_b, bench_ctl), 50),
-                           cuda_ms(lambda: icp_fused.fused_partials_plain(prep, st_b), 10))
+    n = m = cow_ref.shape[0]
+    # expansion-form distance: 3 mul + 3 add per pair; the scene (12 B) and
+    # the pre-scaled model (16 B) a row, 17 float64 sums a block out
+    record["icp_fused"] = entry(
+        k3_err, cuda_ms(lambda: icp_fused.fused_partials(prep, st_b, bench_ctl), 50),
+        cuda_ms(lambda: icp_fused.fused_partials_plain(prep, st_b), 10),
+        bound(6 * n * m, 12 * n + 16 * m + pk.shape[0] * 17 * 8 + 32 * 8))
     say("kernels", kernel="icp_fused", shape="2903x2903",
-        ms=f"{record['icp_fused'][1]:.4f}", plain_ms=f"{record['icp_fused'][2]:.4f}")
+        ms=f"{record['icp_fused']['ms']:.4f}", plain_ms=f"{record['icp_fused']['plain_ms']:.4f}")
 
     # K4: horse, the first iteration's real candidate table, and the
-    # forced-overflow table (max_candidates=1: every tile folds all tiles).
+    # forced-overflow table (max_candidates=1: every tile folds all tiles);
+    # then the payload slot with the horse normals (3 wide).
     grid = nn_grid.build_model_grid(horse_ref, target_tile=1024)
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, horse_ref))
-    idx_bf = nn_dense.nn_dense(p0.contiguous(), horse_ref)
-    k4_err, k4_times = 0.0, None
+    idx_bf = nn_dense.nn_dense(p0, horse_ref)
+    nj, tm = grid.tiles.shape[0], grid.tiles.shape[1]
+    k4_err, k4 = 0.0, None
     for cap in (16, 1):
         cand, counts, over = nn_grid.candidates(p0, u0, grid, scene_tile=tn, cap=cap)
-        args = (cand, counts, p0.contiguous(), grid.tiles, tn)
-        dk, ik, yk = nn_grid.nn_grid(*args)
-        dp, ip, yp = nn_grid.nn_grid_plain(*args)
+        args = (cand, counts, p0, grid.tiles, tn)
+        dk, ik, yk, _ = nn_grid.nn_grid(*args)
+        dp, ip, yp, _ = nn_grid.nn_grid_plain(*args)
         require(torch.equal(ik, ip), f"K4 cap={cap}: indices differ from plain")
         require(torch.equal(ik, idx_bf), f"K4 cap={cap}: indices differ from brute force")
         err = max(max_abs(dk, dp), max_abs(yk, yp))
@@ -247,71 +309,255 @@ def phase_kernels(seed: int, record: dict):
         k4_err = max(k4_err, err)
         times = (cuda_ms(lambda: nn_grid.nn_grid(*args), 20),
                  cuda_ms(lambda: nn_grid.nn_grid_plain(*args), 3))
-        k4_times = k4_times or times
-        say("kernels", kernel="nn_grid", max_candidates=cap, tiles=f"{cand.shape[0]}x{grid.tiles.shape[0]}",
+        if k4 is None:  # the real table: the numbers of the record
+            pairs = folded_pairs(counts, cand.shape[1], nj, tm, tn)
+            k4 = (*times, bound(PAIR_OPS * pairs, nbytes(cand, counts, p0, grid.tiles)
+                                + p0.shape[0] * (4 + 4 + 12)))
+        say("kernels", kernel="nn_grid", max_candidates=cap, tiles=f"{cand.shape[0]}x{nj}",
             mean_count=f"{counts.double().mean().item():.2f}", overflow=bool(over),
             idx_equal=True, max_abs_err=err, ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}")
-    record["nn_grid"] = (k4_err, *k4_times)
+    normals = estimate_normals(horse_ref, method="dense")
+    pgrid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)
+    cand, counts, _ = nn_grid.candidates(p0, u0, pgrid, scene_tile=tn, cap=16)
+    args = (cand, counts, p0, pgrid.tiles, tn, pgrid.payload)
+    dk, ik, yk, plk = nn_grid.nn_grid(*args)
+    dp, ip, yp, plp = nn_grid.nn_grid_plain(*args)
+    require(torch.equal(ik, ip) and torch.equal(ik, idx_bf), "K4 payload: indices differ")
+    require(torch.equal(plk[:, :3], normals[ik.long()]), "K4 payload: not the winner's normal")
+    err = max(max_abs(dk, dp), max_abs(yk, yp), max_abs(plk, plp))
+    require(err == 0.0, f"K4 payload: d2/y/payload differ from plain by {err}")
+    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args), 20),
+             cuda_ms(lambda: nn_grid.nn_grid_plain(*args), 3))
+    say("kernels", kernel="nn_grid", payload=3, idx_equal=True, max_abs_err=err,
+        ms=f"{pl_ms[0]:.4f}", plain_ms=f"{pl_ms[1]:.4f}")
+    record["nn_grid"] = entry(k4_err, *k4)
+
+    # K5: the rotation solve on the cow statistics (first matches).
+    stats = compute_alignment_stats(cow_tr1, cow_ref[nn_dense.nn_dense(cow_tr1, cow_ref).long()])
+    mu_p, mu_y = stats.sum_p / stats.n, stats.sum_y / stats.n
+    S = stats.sum_py - stats.n * torch.outer(mu_p, mu_y)
+    gp = stats.sum_pp - stats.n * torch.dot(mu_p, mu_p)
+    gy = stats.sum_yy - stats.n * torch.dot(mu_y, mu_y)
+    packed = qcp.pack_rotation_input(S, gp, gy)
+    rk, rp = qcp.qcp_rotation(packed), qcp.qcp_rotation_plain(packed)
+    k5_err = max_abs(rk, rp)
+    require(k5_err <= 1e-12, f"K5: output differs from plain by {k5_err}")
+    R = rk[0, :9].reshape(3, 3)
+    require(max_abs(R @ R.T, torch.eye(3, dtype=R.dtype, device=dev)) <= 1e-12, "K5: R not a rotation")
+    record["qcp_rotation"] = entry(k5_err, cuda_ms(lambda: qcp.qcp_rotation(packed), 50),
+                                   cuda_ms(lambda: qcp.qcp_rotation_plain(packed), 10),
+                                   bound(500, 2 * 16 * 8))
+    say("kernels", kernel="qcp_rotation", max_abs_err=k5_err,
+        ms=f"{record['qcp_rotation']['ms']:.4f}", plain_ms=f"{record['qcp_rotation']['plain_ms']:.4f}")
+
+    # K6: the normals' kNN at cow (2,903^2) and horse (48,485^2), k 17.
+    k6 = {}
+    for label, cloud in (("cow", cow_ref), ("horse", horse_ref)):
+        dk, ik = knn_dense.knn_dense(cloud, cloud, NORMAL_K)
+        dp, ip = knn_dense.knn_dense_plain(cloud, cloud, NORMAL_K)
+        require(torch.equal(ik, ip), f"K6 {label}: indices differ from plain")
+        err = max_abs(dk, dp)
+        require(err == 0.0, f"K6 {label}: d2 differs from plain by {err}")
+        n = cloud.shape[0]
+        heavy = n > 10_000
+        k6[label] = entry(err, cuda_ms(lambda: knn_dense.knn_dense(cloud, cloud, NORMAL_K),
+                                       5 if heavy else 20),
+                          cuda_ms(lambda: knn_dense.knn_dense_plain(cloud, cloud, NORMAL_K),
+                                  2 if heavy else 5, warmup=1),
+                          bound(PAIR_OPS * n * n, 24 * n + 8 * n * NORMAL_K))
+        say("kernels", kernel="knn_dense", shape=f"{n}x{n}", k=NORMAL_K, idx_equal=True,
+            ms=f"{k6[label]['ms']:.4f}", plain_ms=f"{k6[label]['plain_ms']:.4f}",
+            bound_ms=f"{k6[label]['bound_ms']:.4f}")
+    # the record's numbers are at the main path's shape: cow's normals
+    record["knn_dense"] = dict(k6["cow"], max_abs_err=max(v["max_abs_err"] for v in k6.values()))
+    idx_k6_horse = ik
+
+    # K7: the horse normals' two launches (seed, exact pass) on the tables
+    # knn_grid builds, each against its plain version; the whole path must
+    # equal K6 on the same cloud (the JAX contract knn_grid == knn_pallas).
+    kgrid = nn_grid.build_model_grid(horse_ref, target_tile=256)  # the normals' tiles
+    q7, _, _, tn7, _ = _prepare_scene(horse_ref, 64)
+    q7 = q7.contiguous()
+    nj7, tm7 = kgrid.tiles.shape[0], kgrid.model_tile
+    bd2 = nn_grid.tile_box_dists(q7, kgrid, scene_tile=tn7)
+    seed_tab = knn_grid.seed_table(bd2, NORMAL_K, tm7)
+    d_seed, _ = knn_grid.knn_worklist(*seed_tab, q7, kgrid.tiles, tn7, NORMAL_K)
+    tables = {"seed": seed_tab,
+              "exact": knn_grid.cull_table(bd2, d_seed[:, NORMAL_K - 1], tn7, min(32, nj7))}
+    k7_err, k7_ms, k7_plain, k7_ops, k7_bytes = 0.0, 0.0, 0.0, 0, 0
+    for label, (cand, counts) in tables.items():
+        args = (cand, counts, q7, kgrid.tiles, tn7, NORMAL_K)
+        dk, ik = knn_grid.knn_worklist(*args)
+        dp, ip = knn_grid.knn_worklist_plain(*args)
+        require(torch.equal(ik, ip), f"K7 {label}: indices differ from plain")
+        err = max_abs(dk, dp)
+        require(err == 0.0, f"K7 {label}: d2 differs from plain by {err}")
+        ms = cuda_ms(lambda: knn_grid.knn_worklist(*args), 10)
+        plain_ms = cuda_ms(lambda: knn_grid.knn_worklist_plain(*args), 2, warmup=1)
+        k7_err, k7_ms, k7_plain = max(k7_err, err), k7_ms + ms, k7_plain + plain_ms
+        k7_ops += PAIR_OPS * folded_pairs(counts, cand.shape[1], nj7, tm7, tn7)
+        k7_bytes += nbytes(cand, counts, q7, kgrid.tiles) + 8 * q7.shape[0] * NORMAL_K
+        say("kernels", kernel="knn_grid", launch=label, tiles=f"{cand.shape[0]}x{nj7}",
+            query_tile=tn7, mean_count=f"{counts.double().mean().item():.2f}",
+            fallback_tiles=int((counts > cand.shape[1]).sum()), idx_equal=True,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    idx_k7 = knn_indices(horse_ref, NORMAL_K, method="grid")
+    require(torch.equal(idx_k7, idx_k6_horse), "K7: horse neighbours differ from K6")
+    record["knn_grid"] = entry(k7_err, k7_ms, k7_plain, bound(k7_ops, k7_bytes))
+    say("kernels", kernel="knn_grid", shape="48485x48485", k=NORMAL_K, equal_to_knn_dense=True,
+        ms=f"{k7_ms:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
 
 
-def _golden(name):
-    with open(os.path.join(FIXDIR, f"{name}_stderr.txt")) as f:
+def _golden(path):
+    with open(path) as f:
         return [float(e) for _, e in _TRACE_RE.findall(f.read())]
 
 
-def phase_cli(tmp: str) -> dict:
-    import numpy as np
+def _run_cli(args: list[str]):
+    """(exit code, trace, stderr, seconds, launches) of one CLI run on the
+    card, the launch counts set to 0 just before it and read just after."""
     import torch
 
     from icp_tpu_torch.engine.cli import main as cli_main
-    from icp_tpu_torch.io.csv import load_matrix
     from icp_tpu_torch.kernels import _build
 
     _build.reset_counts()
-    for fixture, ref, scene, nb_iter, want_iters, atol in CLI_CASES:
-        before = dict(_build.LAUNCHES)
-        out_path = os.path.join(tmp, f"{fixture}_output.txt")
-        err = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(err):
-            rc = cli_main([os.path.join(ROOT, "data", ref), os.path.join(ROOT, "data", scene),
-                           str(nb_iter), "--device", "cuda", "--output", out_path])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        require(rc == 0, f"cli {fixture}: exit {rc}\n{err.getvalue()}")
-        got = [float(e) for _, e in _TRACE_RE.findall(err.getvalue())]
-        want = _golden(fixture)
-        require(len(got) == want_iters == len(want),
-                f"cli {fixture}: {len(got)} iterations, reference {len(want)}")
-        big = [(g, w) for g, w in zip(got, want) if w > 1e-6]
-        worst = max(abs(g - w) / w for g, w in big)
-        require(worst <= TRACE_RTOL, f"cli {fixture}: trace off by {worst:.3g} relative")
-        with contextlib.redirect_stderr(io.StringIO()):
-            out = load_matrix(out_path)
-            gold = load_matrix(os.path.join(FIXDIR, f"{fixture}_output.txt"))
-        require(out.shape == gold.shape and bool(np.isfinite(out).all()),
-                f"cli {fixture}: output shape {out.shape}")
-        off = float(np.abs(out - gold).max())
-        # np.testing.assert_allclose's rule (rtol 1e-7): both clouds are
-        # printed at 6 significant digits, a last-digit step above 1 is 1e-5
-        require(bool(np.all(np.abs(out - gold) <= atol + 1e-7 * np.abs(gold))),
-                f"cli {fixture}: output {off:.3g} from the reference")
-        used = {k: _build.LAUNCHES[k] - before[k] for k in before}
-        if fixture.startswith("cow"):
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    used = dict(_build.LAUNCHES)
+    got = [float(e) for _, e in _TRACE_RE.findall(err.getvalue())]
+    return rc, got, err.getvalue(), seconds, used
+
+
+def _check_output(label, out_path, gold_path, atol):
+    import numpy as np
+
+    from icp_tpu_torch.io.csv import load_matrix
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        out = load_matrix(out_path)
+        gold = load_matrix(gold_path)
+    require(out.shape == gold.shape and bool(np.isfinite(out).all()),
+            f"cli {label}: output shape {out.shape}")
+    off = float(np.abs(out - gold).max())
+    # np.testing.assert_allclose's rule (rtol 1e-7): both clouds are
+    # printed at 6 significant digits, a last-digit step above 1 is 1e-5
+    require(bool(np.all(np.abs(out - gold) <= atol + 1e-7 * np.abs(gold))),
+            f"cli {label}: output {off:.3g} from the reference")
+    return off
+
+
+def _check_trace(label, got, want, want_iters):
+    require(len(got) == want_iters == len(want),
+            f"cli {label}: {len(got)} iterations, reference {len(want)}")
+    big = [(g, w) for g, w in zip(got, want) if w > 1e-6]
+    worst = max(abs(g - w) / w for g, w in big)
+    require(worst <= TRACE_RTOL, f"cli {label}: trace off by {worst:.3g} relative")
+    return worst
+
+
+def _add(total: dict, used: dict) -> None:
+    for k, v in used.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_cli(tmp: str) -> dict:
+    """The main paths through the CLI; returns the launches of every run."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp_point_to_plane
+    from icp_tpu_torch.io.csv import load_matrix
+    from icp_tpu_torch.ops.normals import estimate_normals
+
+    total = {}
+    for fixture, ref, scene, nb_iter, want_iters, atol, extra in CLI_CASES:
+        label = fixture + ("_k5" if extra else "")
+        out_path = os.path.join(tmp, f"{label}_output.txt")
+        rc, got, err, seconds, used = _run_cli(
+            [os.path.join(ROOT, "data", ref), os.path.join(ROOT, "data", scene), str(nb_iter),
+             "--output", out_path, *extra])
+        require(rc == 0, f"cli {label}: exit {rc}\n{err}")
+        worst = _check_trace(label, got, _golden(os.path.join(FIXDIR, f"{fixture}_stderr.txt")),
+                             want_iters)
+        off = _check_output(label, out_path, os.path.join(FIXDIR, f"{fixture}_output.txt"), atol)
+        if extra:
+            require(used["qcp_rotation"] >= want_iters and used["qcp_step"] == 0,
+                    f"cli {label}: K5 path not taken ({used})")
+        elif fixture.startswith("cow"):
             require(used["icp_fused"] >= want_iters and used["qcp_step"] >= want_iters,
-                    f"cli {fixture}: fused path not taken ({used})")
+                    f"cli {label}: fused path not taken ({used})")
         else:
             require(used["nn_grid"] >= want_iters and used["qcp_step"] >= want_iters
-                    and used["nn_dense"] >= 1, f"cli {fixture}: grid path not taken ({used})")
-        say("cli", case=fixture, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
+                    and used["nn_dense"] >= 1, f"cli {label}: grid path not taken ({used})")
+        _add(total, used)
+        say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
-    return dict(_build.LAUNCHES)
+
+    for fixture, scene, want_iters in P2PL_CASES:
+        label = f"p2pl_{fixture}"
+        out_path = os.path.join(tmp, f"{label}_output.txt")
+        rc, got, err, seconds, used = _run_cli(
+            [os.path.join(ROOT, "data", "cow_ref.txt"), os.path.join(ROOT, "data", scene), "30",
+             "--engine", "point_to_plane", "--output", out_path])
+        require(rc == 0, f"cli {label}: exit {rc}\n{err}")
+        worst = _check_trace(label, got,
+                             _golden(os.path.join(P2PL_FIXDIR, f"{fixture}_stderr.txt")), want_iters)
+        off = _check_output(label, out_path, os.path.join(P2PL_FIXDIR, f"{fixture}_output.txt"), 1e-5)
+        require(used["knn_dense"] == 1 and used["nn_dense"] >= want_iters,
+                f"cli {label}: dense point-to-plane path not taken ({used})")
+        _add(total, used)
+        say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
+            output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
+
+    # horse: the grid path (K7 normals, K4 with the normals payload) against
+    # the port's own dense path (K6 normals, K1) on the card
+    label = "p2pl_horse_tr1"
+    out_path = os.path.join(tmp, f"{label}_output.txt")
+    rc, got, err, seconds, used = _run_cli(
+        [os.path.join(ROOT, "data", "horse_ref.txt"), os.path.join(ROOT, "data", "horse_tr1.txt"),
+         "30", "--engine", "point_to_plane", "--output", out_path])
+    require(rc == 0, f"cli {label}: exit {rc}\n{err}")
+    require(used["knn_grid"] == 2 and used["nn_grid"] >= len(got) and used["nn_dense"] >= 1,
+            f"cli {label}: grid point-to-plane path not taken ({used})")
+    _add(total, used)
+    model = torch.tensor(_load("horse_ref.txt"), dtype=torch.float32, device="cuda")
+    scene_t = torch.tensor(_load("horse_tr1.txt"), dtype=torch.float32, device="cuda")
+    dense = icp_point_to_plane(model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
+                               normals=estimate_normals(model, method="dense"), trace=True)
+    n_dense = int(dense.result.iters)
+    require(len(got) == n_dense, f"cli {label}: {len(got)} iterations, dense path {n_dense}")
+    with contextlib.redirect_stderr(io.StringIO()):
+        out = load_matrix(out_path)
+    off = float(abs(out - dense.result.points.cpu().numpy()).max())
+    require(off <= 1e-5, f"cli {label}: output {off:.3g} from the dense path")
+    dense_errs = dense.errs[:n_dense].tolist()
+    worst = max((abs(g - w) / w for g, w in zip(got, dense_errs) if w > 1e-6), default=0.0)
+    say("cli", case=label, path="grid", iters=len(got), dense_iters=n_dense,
+        trace=",".join(f"{e:.6g}" for e in got), trace_max_rel_err_vs_dense=f"{worst:.3e}",
+        output_max_abs_err_vs_dense=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
+    return total
+
+
+def _wall(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def phase_loop_times():
     import torch
 
+    from icp_tpu_torch import ICPConfig, icp_point_to_plane
     from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.ops.normals import estimate_normals
 
     for label, ref, scene, nn in (("cow", "cow_ref.txt", "cow_tr1.txt", "pallas"),
                                   ("horse", "horse_ref.txt", "horse_tr1.txt", "grid")):
@@ -319,17 +565,30 @@ def phase_loop_times():
         sc = torch.tensor(_load(scene), dtype=torch.float32, device="cuda")
 
         def run(k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = icp_fixed_iters(model, sc, n_iters=k, solver="qcp_fused", nn_method=nn)
-            float(res.err)
-            torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            return _wall(lambda: float(icp_fixed_iters(model, sc, n_iters=k, solver="qcp_fused",
+                                                       nn_method=nn).err))
 
         run(2)
         t1 = statistics.median(run(1) for _ in range(3))
         t21 = statistics.median(run(21) for _ in range(3))
-        say("loop", case=label, path=nn, ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}",
+        say("loop", case=label, engine="point_to_point", path=nn,
+            ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}", setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
+
+        method = "dense" if nn == "pallas" else "grid"
+        estimate_normals(model, method=method)
+        t_n = statistics.median(_wall(lambda: estimate_normals(model, method=method))
+                                for _ in range(3))
+        normals = estimate_normals(model, method=method)
+
+        def run_pl(k):
+            cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method=nn)
+            return _wall(lambda: float(icp_point_to_plane(model, sc, cfg, normals=normals).err))
+
+        run_pl(2)
+        t1 = statistics.median(run_pl(1) for _ in range(3))
+        t21 = statistics.median(run_pl(21) for _ in range(3))
+        say("loop", case=label, engine="point_to_plane", path=nn, normals=method,
+            normals_ms=f"{t_n * 1e3:.3f}", ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}",
             setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
 
 
@@ -360,9 +619,11 @@ def phase_scale(seed: int):
     import numpy as np
     import torch
 
+    from icp_tpu_torch import ICPConfig, icp_point_to_plane
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
-    from icp_tpu_torch.kernels import nn_dense, nn_grid
+    from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
+    from icp_tpu_torch.ops.normals import knn_indices, normals_from_neighbor_indices
 
     n = 1_000_000
     model, scene, s_true = scale_pair(seed, n)
@@ -372,12 +633,13 @@ def phase_scale(seed: int):
     grid = nn_grid.build_model_grid(model, target_tile=1024)
     p0, _, _, tn, _ = _prepare_scene(scene, 256)
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, model))
-    idx, _, d2, over = nn_grid.closest_point_indices_pruned(p0, grid, u0, scene_tile=tn)
+    idx, _, _, d2, over = nn_grid.closest_point_indices_pruned(p0, grid, u0, scene_tile=tn)
     rows = torch.tensor(np.sort(rng.choice(p0.shape[0], 65536, replace=False)), device="cuda")
     idx_bf, d2_bf = nn_dense.nn_dense(p0[rows].contiguous(), model, with_dist=True)
     mism = int((idx[rows] != idx_bf).sum())
     require(mism == 0, f"scale: {mism} of 65536 first-iteration matches differ from brute force")
     require(bool(torch.equal(d2[rows], d2_bf)), "scale: first-iteration distances differ")
+    del grid, p0, u0, idx, d2
 
     def run(k):
         torch.cuda.synchronize()
@@ -397,6 +659,42 @@ def phase_scale(seed: int):
         err_iter1=f"{err1:.6e}", err_iter10=f"{err10:.6e}",
         s=f"{float(res.transform.s):.6f}", s_inverse_true=f"{1 / s_true:.6f}",
         ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}", ten_iters_s=f"{t10:.3f}")
+    del res, pts
+
+    # K7 normals of the 1M model; their neighbours against K6 on seeded rows.
+    torch.cuda.reset_peak_memory_stats()
+    holder = {}
+    t_knn = _wall(lambda: holder.update(idx=knn_indices(model, NORMAL_K, method="grid")))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    nbr = holder["idx"]
+    rows = torch.tensor(np.sort(rng.choice(n, 16384, replace=False)), device="cuda")
+    _, idx_k6 = knn_dense.knn_dense(model[rows].contiguous(), model, NORMAL_K)
+    mism = int((nbr[rows] != idx_k6).sum())
+    require(mism == 0, f"scale: {mism} K7 neighbours of 16384 rows differ from K6")
+    t_pca = _wall(lambda: holder.update(normals=normals_from_neighbor_indices(model, nbr)))
+    normals = holder["normals"]
+    require(bool(torch.isfinite(normals).all()), "scale: non-finite normals")
+    say("scale", normals_points=n, k=NORMAL_K, knn_grid_ms=f"{t_knn * 1e3:.3f}",
+        pca_ms=f"{t_pca * 1e3:.3f}", knn_peak_gib=f"{peak_gb:.2f}", rows_checked=16384)
+
+    def run_pl(k):
+        cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method="grid")
+        holder.clear()
+        t = _wall(lambda: holder.update(tr=icp_point_to_plane(model, scene, cfg, normals=normals,
+                                                               trace=True)))
+        return t, holder["tr"]
+
+    run_pl(1)
+    t1, _ = run_pl(1)
+    t10, tr = run_pl(10)
+    errs = tr.errs.tolist()
+    require(int(tr.result.iters) == 10 and all(map(math.isfinite, errs)),
+            f"scale: point-to-plane errors {errs}")
+    require(errs[9] < errs[0], f"scale: point-to-plane error {errs[0]} -> {errs[9]}")
+    require(bool(torch.isfinite(tr.result.points).all()), "scale: bad point-to-plane cloud")
+    say("scale", engine="point_to_plane", points=f"{n}x{n}", err_iter1=f"{errs[0]:.6e}",
+        err_iter10=f"{errs[9]:.6e}", ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}",
+        ten_iters_s=f"{t10:.3f}")
 
 
 def main(argv=None) -> int:
@@ -425,15 +723,16 @@ def main(argv=None) -> int:
         out_dir = os.path.join(ROOT, "chiprun_out", "chip_smoke")
         os.makedirs(out_dir, exist_ok=True)
         launches = phase_cli(out_dir)
+        missing = [k for k in KERNELS if not launches.get(k)]
+        require(not missing, f"kernels never launched on the main paths: {missing}")
         phase_loop_times()
     if "scale" in phases:
         phase_scale(args.seed)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        err, ms, plain_ms = record.get(name, (None, None, None))
+        rec = record.get(name, entry(None, None, None, (None, None)))
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches.get(name),
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": replaces, "launches": launches.get(name), **rec})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ PyTorch version.
 
 from icp_tpu_torch.config import GRID_AUTO_THRESHOLD, ICPConfig
 from icp_tpu_torch.engine.icp import ICPResult, ICPTrace, icp, icp_fixed_iters, icp_step
+from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
 from icp_tpu_torch.io.csv import load_matrix, write_matrix
 from icp_tpu_torch.ops.alignment import (
     AlignmentStats,
@@ -19,6 +20,7 @@ from icp_tpu_torch.ops.alignment import (
     find_alignment,
 )
 from icp_tpu_torch.ops.distance import closest_point_indices
+from icp_tpu_torch.ops.normals import estimate_normals, orient_normals
 from icp_tpu_torch.ops.transform import (
     apply_similarity,
     compose,
@@ -36,6 +38,9 @@ __all__ = [
     "icp",
     "icp_fixed_iters",
     "icp_step",
+    "icp_point_to_plane",
+    "estimate_normals",
+    "orient_normals",
     "load_matrix",
     "write_matrix",
     "AlignmentStats",

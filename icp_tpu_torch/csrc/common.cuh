@@ -34,6 +34,53 @@ __device__ __forceinline__ float expdist_rn(float px, float py, float pz,
       __fmul_rn(pz, q.z));
 }
 
+// The k-best list of one thread for the kNN kernels (K6, K7): K slots in
+// registers, ascending by (d, i), of which the first k (k <= K, a run-time
+// value) are live.  `kd`/`ki` mirror slot k-1, so the caller's test "does
+// (d, i) beat the k-th best" needs no run-time index into the list.
+template <int K, typename I>
+struct TopK {
+  float d[K];
+  I i[K];
+  float kd;
+  I ki;
+
+  __device__ __forceinline__ void init(float big_d, I big_i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      d[j] = big_d;
+      i[j] = big_i;
+    }
+    kd = big_d;
+    ki = big_i;
+  }
+
+  __device__ __forceinline__ bool beats_kth(float dc, I ic) const {
+    return dc < kd || (dc == kd && ic < ki);
+  }
+
+  // Insert (dc, ic), which beats slot k-1: a fully unrolled compare-and-swap
+  // chain over the live slots (a run-time index into d[] or i[] would put
+  // the list in local memory).  The candidate sinks to its place and every
+  // later live entry moves down one slot; slot k-1's entry drops out.
+  __device__ __forceinline__ void insert(float dc, I ic, int k) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const bool lt = j < k && (dc < d[j] || (dc == d[j] && ic < i[j]));
+      const float td = lt ? d[j] : dc;
+      const I ti = lt ? i[j] : ic;
+      d[j] = lt ? dc : d[j];
+      i[j] = lt ? ic : i[j];
+      dc = td;
+      ic = ti;
+      if (j == k - 1) {
+        kd = d[j];
+        ki = i[j];
+      }
+    }
+  }
+};
+
 // Deterministic block sum of K doubles per thread: a warp-shuffle tree,
 // then the warps' sums added in warp order by thread k.  No atomics, so a
 // run repeats bit for bit.  `scratch` holds (blockDim.x / 32) * K doubles;

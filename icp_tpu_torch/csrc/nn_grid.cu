@@ -15,6 +15,14 @@
 // (the per-tile fallback: exact, and only that tile pays).  Ties go to the
 // lowest ORIGINAL model index: d < best || (d == best && idx < best_idx),
 // as nn_grid.py:320-323.  Outputs: d2, index and the matched point.
+//
+// The payload slot (nn_grid.py:432-472, the point-to-plane engine's
+// normals): the JAX kernel carries the payload sublanes of the winning lane
+// through its fold.  Here each thread tracks its winner's kd row, and after
+// the fold reads that one 16-byte row of the kd-ordered (Nj * tm) float4
+// payload from device memory: one extra load per point, no second shared
+// tile and no payload work inside the fold.  A null payload pointer means
+// no payload (the point-to-point engines).
 #include "common.cuh"
 
 namespace {
@@ -22,8 +30,9 @@ namespace {
 __global__ void nn_grid_kernel(const int* __restrict__ cand, const int* __restrict__ counts,
                                int cap, const float* __restrict__ scene, int tn, int nj,
                                int tm, const float4* __restrict__ tiles,
+                               const float4* __restrict__ payload,
                                float* __restrict__ d2_out, int* __restrict__ idx_out,
-                               float* __restrict__ y_out) {
+                               float* __restrict__ y_out, float4* __restrict__ pl_out) {
   extern __shared__ float4 tile[];
   const int ti = blockIdx.x;
   const int r = threadIdx.x;
@@ -41,6 +50,7 @@ __global__ void nn_grid_kernel(const int* __restrict__ cand, const int* __restri
 
   float best = ICP_BIG, best_i = ICP_BIG;
   float bx = 0.f, by = 0.f, bz = 0.f;
+  long long best_row = 0;  // kd row of the winner (payload lookup)
   for (int c = 0; c < cnt; ++c) {
     const int j = use_all ? c : cand[ti * cap + min(c, cap - 1)];
     const float4* src = tiles + static_cast<long long>(j) * tm;
@@ -56,6 +66,7 @@ __global__ void nn_grid_kernel(const int* __restrict__ cand, const int* __restri
           bx = q.x;
           by = q.y;
           bz = q.z;
+          best_row = static_cast<long long>(j) * tm + k;
         }
       }
     }
@@ -68,6 +79,7 @@ __global__ void nn_grid_kernel(const int* __restrict__ cand, const int* __restri
     y_out[3 * row] = bx;
     y_out[3 * row + 1] = by;
     y_out[3 * row + 2] = bz;
+    if (payload) pl_out[row] = payload[best_row];
   }
 }
 
@@ -75,8 +87,9 @@ __global__ void nn_grid_kernel(const int* __restrict__ cand, const int* __restri
 
 ICP_EXPORT int nn_grid_launch(const int* cand, const int* counts, int ni, int cap,
                               const float* scene, int tn, int nj, int tm,
-                              const float4* tiles, float* d2_out, int* idx_out,
-                              float* y_out, cudaStream_t stream) {
+                              const float4* tiles, const float4* payload,
+                              float* d2_out, int* idx_out, float* y_out,
+                              float4* pl_out, cudaStream_t stream) {
   if (tn > 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = (tn + 31) / 32 * 32;
   const size_t smem = static_cast<size_t>(tm) * sizeof(float4);
@@ -86,6 +99,6 @@ ICP_EXPORT int nn_grid_launch(const int* cand, const int* counts, int ni, int ca
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   nn_grid_kernel<<<ni, threads, smem, stream>>>(cand, counts, cap, scene, tn, nj, tm, tiles,
-                                                d2_out, idx_out, y_out);
+                                                payload, d2_out, idx_out, y_out, pl_out);
   return static_cast<int>(cudaGetLastError());
 }

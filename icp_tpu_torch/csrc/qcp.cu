@@ -1,9 +1,14 @@
 // K2: the scalar alignment step — Horn/QCP solve, composition, closed-form
 // residual and the ICP loop's convergence test, in one thread.
+// K5: the rotation-only solve of the same device function.
 //
-// Replaces icp_tpu/kernels/qcp_pallas.py:122 _alignment_step_kernel (with
-// its shared scalar math alignment_update_scalars :47 and
+// K2 replaces icp_tpu/kernels/qcp_pallas.py:122 _alignment_step_kernel
+// (with its shared scalar math alignment_update_scalars :47 and
 // _qcp_rotation_scalar :143).
+// K5 replaces icp_tpu/kernels/qcp_pallas.py:32 _qcp_kernel (via
+// horn_rotation_pallas): (1, 16) slots [S (9, row major), gp, gy, 0...] in,
+// [R (9, row major), q (4), lambda, 0, 0] out, the JAX kernel's layout.  It
+// solves in float64 (the JAX kernel in float32), like K2.
 //
 // What bounds it on the H100: latency.  The work is ~600 dependent float64
 // scalar operations on 18 input sums — no memory traffic worth counting,
@@ -12,7 +17,11 @@
 // launch instead of hundreds of tiny tensor ops, and it never leaves the
 // card: the kernel also writes errs[it], advances the iteration counter and
 // raises the done flag, so the host reads the flag once per chunk of
-// iterations, not the error every iteration.
+// iterations, not the error every iteration.  K5 is bound the same way
+// (~500 dependent float64 operations on 11 inputs) and takes the same
+// design: the rotation solve of an ICP step that computes its own error
+// (solver "qcp_fused" with the bcast or matmul NN) is one launch, read by
+// the torch ops that follow it on the stream, with no host read.
 //
 // Numerics: float64 throughout.  The JAX kernel is float32, and its
 // closed-form residual gy + s^2 gp - 2 s lambda cancels to noise near
@@ -49,9 +58,10 @@ __device__ void others(int skip, int out[3]) {
     if (x != skip) out[k++] = x;
 }
 
-// _qcp_rotation_scalar: rotation R and the un-scaled lambda_max.
+// _qcp_rotation_scalar: rotation R, unit quaternion q (w, x, y, z) and the
+// un-scaled lambda_max.
 __device__ void qcp_rotation(double S[3][3], double gp, double gy,
-                             double R[3][3], double* lam_out) {
+                             double R[3][3], double q_out[4], double* lam_out) {
   const double total = mx(gp + gy, 1e-30);
   const double norm = 1.0 / total;
   for (int r = 0; r < 3; ++r)
@@ -137,6 +147,10 @@ __device__ void qcp_rotation(double S[3][3], double gp, double gy,
   R[2][0] = 2.0 * (x_ * z_ - w_ * y_);
   R[2][1] = 2.0 * (y_ * z_ + w_ * x_);
   R[2][2] = w_ * w_ - x_ * x_ - y_ * y_ + z_ * z_;
+  q_out[0] = w_;
+  q_out[1] = x_;
+  q_out[2] = y_;
+  q_out[3] = z_;
   *lam_out = lam * total;
 }
 
@@ -177,8 +191,8 @@ __global__ void qcp_step_kernel(const double* __restrict__ partials, int n_rows,
   const double gy =
       a[16] - n * (mu_y[0] * mu_y[0] + mu_y[1] * mu_y[1] + mu_y[2] * mu_y[2]);
 
-  double R[3][3], lam;
-  qcp_rotation(S, gp, gy, R, &lam);
+  double R[3][3], q[4], lam;
+  qcp_rotation(S, gp, gy, R, q, &lam);
   const double s = with_scale ? sqrt(mx(gy / mx(gp, 1e-30), 0.0)) : 1.0;
   double t[3];
   for (int r = 0; r < 3; ++r)
@@ -208,7 +222,26 @@ __global__ void qcp_step_kernel(const double* __restrict__ partials, int n_rows,
   if (!(err >= threshold) || it + 1 >= ctl[2]) ctl[1] = 1;
 }
 
+// K5: one thread; `in` and `out` are the (1, 16) float64 slot blocks.
+__global__ void qcp_rotation_kernel(const double* __restrict__ in, double* __restrict__ out) {
+  double S[3][3], R[3][3], q[4], lam;
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) S[r][c] = in[3 * r + c];
+  qcp_rotation(S, in[9], in[10], R, q, &lam);
+  for (int r = 0; r < 3; ++r)
+    for (int c = 0; c < 3; ++c) out[3 * r + c] = R[r][c];
+  for (int k = 0; k < 4; ++k) out[9 + k] = q[k];
+  out[13] = lam;
+  out[14] = 0.0;
+  out[15] = 0.0;
+}
+
 }  // namespace
+
+ICP_EXPORT int qcp_rotation_launch(const double* in, double* out, cudaStream_t stream) {
+  qcp_rotation_kernel<<<1, 1, 0, stream>>>(in, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 ICP_EXPORT int qcp_step_launch(const double* partials, int n_rows, double* state,
                                int* ctl, double* errs, int with_scale,

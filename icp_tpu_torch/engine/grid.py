@@ -27,7 +27,7 @@ from icp_tpu_torch.kernels.nn_grid import (
     _round_up,
     bound_from_indices,
     build_model_grid,
-    closest_point_indices_pruned,
+    closest_point_indices_grid,
     initial_bound_indices,
     kd_order,
     levels_for,
@@ -84,8 +84,8 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
 
         def step():
             nonlocal p, u
-            _, y, _, _ = closest_point_indices_pruned(p, grid, u, scene_tile=tn,
-                                                      max_candidates=max_candidates)
+            _, y, _, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
+                                                    max_candidates=max_candidates)
             y = y.to(dt)
             stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
             qcp_step(pack_stats(stats), state, loop.ctl, loop.errs,
@@ -103,8 +103,8 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
             nonlocal p, u, total
             if loop.done():
                 return
-            _, y, _, _ = closest_point_indices_pruned(p, grid, u, scene_tile=tn,
-                                                      max_candidates=max_candidates)
+            _, y, _, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
+                                                    max_candidates=max_candidates)
             y = y.to(dt)
             stats = compute_alignment_stats(p, y, weights=w)
             sim = alignment_from_stats(stats, solver=solver, with_scale=with_scale)

@@ -13,19 +13,24 @@ that every launch is an exact no-op.  The host launches iterations in
 chunks of ``_CHUNK`` and reads the flag once per chunk, so iteration counts
 and the NaN-tailed error buffer are those of the JAX loop.  The plain
 solvers (``eigh``, ``qcp``, ``kabsch``: the CPU default, or chosen
-explicitly) record each error on the host instead — ``torch.linalg.eigh``
-synchronises with the host in any case.
+explicitly, and ``qcp_fused`` with the ``bcast``/``matmul`` NN) record each
+error on the host instead — ``torch.linalg.eigh`` synchronises with the
+host in any case.
 
-Paths, as in the JAX engine:
+Paths, as in the JAX engine (``icp_tpu/engine/icp.py:160-219``):
   * fused (qcp_fused + pallas, model <= ``MAX_FUSED_MODEL``): K3 + K2 per
     iteration; only the state block changes, the moved cloud is never
     written until the one apply after the loop;
-  * pipeline (qcp_fused with any other case): NN (K1 for ``pallas``),
-    matched-point gather, float64 Horn sums in torch, K2, and the apply of
-    the step in torch;
-  * plain solver: NN, sums in the cloud's dtype, solve, apply and the
-    explicit residual;
+  * pipeline (qcp_fused + pallas, larger models): NN (K1), matched-point
+    gather, float64 Horn sums in torch, K2, and the apply of the step in
+    torch;
+  * plain solver (every other case): NN, sums in the cloud's dtype, solve
+    (K5 for ``qcp_fused``), apply and the explicit residual;
   * grid (``nn_method="grid"``): ``engine/grid.py``.
+
+The entry points run on the card: numpy input goes to ``cuda`` unless the
+caller passes ``device="cpu"``, a tensor stays on its own device, and with
+no card and no ``device`` they raise rather than move to the CPU.
 
 Accumulating the Horn sums and solving in float64 is a deliberate numerics
 choice: the JAX kernels' float32 closed-form residual cancels to noise near
@@ -119,6 +124,22 @@ class LoopState:
         err = float(self.err_factor * err_sum / n)
         record_error(self.ctl, self.errs, err, self.threshold)
 
+    def record_on_device(self, err: torch.Tensor) -> torch.Tensor:
+        """K2's bookkeeping in tensor ops, with no host read: errs[it] = err,
+        it += 1, done when ``not err >= threshold`` or at the bound; nothing
+        changes once done.  Returns the done flag as it stood before this
+        iteration (a 0-d bool tensor): the caller gates its update by it, so
+        the launches after convergence are exact no-ops."""
+        done = self.ctl[1] != 0
+        it = self.ctl[0].to(torch.int64)
+        slot = it.clamp(max=self.errs.numel() - 1).reshape(1)
+        new_err = err.to(self.errs.dtype).reshape(1)
+        self.errs.index_copy_(0, slot, torch.where(done, self.errs[slot], new_err))
+        stop = ~(err >= self.threshold) | (it + 1 >= self.bound)
+        self.ctl[:2] = torch.stack([torch.where(done, it, it + 1),
+                                    (done | stop).to(torch.int64)]).to(torch.int32)
+        return done
+
     def finish(self, points, transform, dtype, trace: bool):
         iters = self.ctl[0].clone()
         last = (iters.to(torch.int64) - 1).clamp(min=0)
@@ -133,11 +154,24 @@ class LoopState:
         return ICPTrace(result=result, errs=self.errs.to(dtype)) if trace else result
 
 
+def target_device(x, device=None) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else a tensor's own
+    device, else the card.  Without a card, numpy input and no ``device``
+    raise: nothing moves to the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to "
+                           "run on the CPU")
+    return torch.device("cuda")
+
+
 def as_points(x, dtype, device=None) -> torch.Tensor:
-    """An (N, 3) tensor of ``dtype``; numpy input goes to ``device`` (CPU by
-    default), a tensor stays on its device unless ``device`` is given."""
-    t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
-    return t.to(dtype=dtype, device=device)
+    """An (N, 3) tensor of ``dtype`` on ``target_device(x, device)``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(dtype=dtype, device=target_device(x, device))
 
 
 def icp_step(p: torch.Tensor, model: torch.Tensor, *, solver: str,
@@ -171,7 +205,7 @@ def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
         return loop.finish(apply_similarity(scene, total), total, dt, trace)
 
     p = scene if init is None else apply_similarity(scene, init)
-    if solver == "qcp_fused":
+    if solver == "qcp_fused" and nn_method == "pallas":
         state = identity_state(dev) if init is None else pack_total_state(init, dev)
 
         def step():
@@ -228,9 +262,10 @@ def icp(model, scene, config: Optional[ICPConfig] = None, *, trace: bool = False
         guard=False, init: Optional[Similarity] = None, n_iters=None, device=None):
     """Register ``scene`` onto ``model``, both (N, 3).
 
-    Returns ``ICPResult`` (or ``ICPTrace`` when ``trace=True``).  Runs on the
-    device of the tensors given, or on ``device`` (numpy inputs go to the
-    CPU unless it is given).  ``init``: warm-start Similarity (the returned
+    Returns ``ICPResult`` (or ``ICPTrace`` when ``trace=True``).  Runs on
+    ``device`` when given, else on the device of the tensors given, else
+    (numpy input) on the card; ``device="cpu"`` is the way onto the CPU.
+    ``init``: warm-start Similarity (the returned
     transform still maps the caller's scene).  ``guard=True``: host-side
     NaN/Inf check of the result.  ``n_iters``: an early-exit bound at most
     ``config.max_iter``, for plain runs.
@@ -287,7 +322,7 @@ def icp_fixed_iters(model, scene, *, n_iters: int, solver: str = "eigh",
                     reference_compat: bool = True, device=None) -> ICPResult:
     """Exactly ``n_iters`` float32 iterations with no convergence exit (the
     benchmark workload).  ``nn_method="grid"`` runs the grid engine with
-    ``ICPConfig``'s default tiles."""
+    ``ICPConfig``'s default tiles.  Devices as in ``icp``."""
     model = as_points(model, torch.float32, device)
     scene = as_points(scene, torch.float32, model.device)
     kw = dict(threshold=-math.inf, bound=n_iters, length=n_iters, solver=solver,

@@ -1,8 +1,9 @@
 """Build, load and count the hand-written CUDA kernels.
 
 All sources under ``icp_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
-``ctypes`` loads.  The build runs on first use, into
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+linked into one shared library with a plain C interface, which ``ctypes``
+loads.  The build runs on first use, into
 ``icp_tpu_torch/_build/<hash>/`` (ignored by git), where the hash covers the
 sources and the flags: a changed source builds anew, an unchanged one loads
 what is there.  Importing this module builds nothing.
@@ -31,9 +32,10 @@ BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 # rounds as its plain Python version does and the float32 distance
 # arithmetic (written with explicit _rn intrinsics besides) as plain torch.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"nn_dense": 0, "qcp_step": 0, "icp_fused": 0, "nn_grid": 0}
+LAUNCHES = {"nn_dense": 0, "qcp_step": 0, "icp_fused": 0, "nn_grid": 0,
+            "qcp_rotation": 0, "knn_dense": 0, "knn_grid": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,7 +46,10 @@ _SIGNATURES = {
     "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _P],
     "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P],
     "icp_fused_blocks": [_I],
-    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "qcp_rotation_launch": [_P, _P, _P],
+    "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "knn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -88,19 +93,40 @@ def _build() -> str:
         build_info.update(path=so_path, seconds=0.0, cached=True)
         return so_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cus]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for cu in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(cu)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o", obj, cu]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        tmp = f"{so_path}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(link.stderr)
     seconds = time.perf_counter() - t0
     with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        f.write("\n".join(logs))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so_path)
     build_info.update(path=so_path, seconds=seconds, cached=False,
-                      ptxas=proc.stderr)
+                      ptxas="\n".join(logs))
     return so_path
 
 

@@ -9,6 +9,8 @@ its points' nearest-neighbour distances (the previous match's distance).
 The kernel folds each scene tile's candidates, or all tiles when their
 count passes the table's capacity.  The result is exact in every case: the
 lexicographic minimum of (squared distance, original model index).
+A grid built with a payload (the point-to-plane engine's normals) also
+gives the winner's payload row.
 
 The torch side mirrors the JAX functions so the two build the same
 permutations, tiles and candidate tables: ``kd_order`` sorts with
@@ -85,10 +87,19 @@ class ModelGrid(NamedTuple):
     tile_hi: torch.Tensor  # (Nj, 3)
     model_orig: torch.Tensor  # (M, 3) float32 model in its original order
     model_tile: int
+    payload: torch.Tensor | None = None  # (Nj, tm, 4) float32 per-point values
+    #                                      in kd order (padding rows and unused
+    #                                      columns 0), or None
+    payload_width: int = 0  # the payload's real columns (<= 4)
 
 
-def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024) -> ModelGrid:
-    """kd-sort the model and precompute per-tile bounding boxes."""
+def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024,
+                     payload: torch.Tensor | None = None) -> ModelGrid:
+    """kd-sort the model and precompute per-tile bounding boxes.
+
+    ``payload``: optional (M, k) per-point values, k <= 4 (the normals of
+    the point-to-plane engine), kept in float32 in kd order beside the
+    tiles; the NN kernel then gives the winner's payload row."""
     m = model.shape[0]
     if m >= 2 ** 24:
         raise ValueError(f"grid NN encodes original indices as float32 (exact "
@@ -111,12 +122,23 @@ def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024) -> ModelGr
     tiled = sorted_pts.reshape(n_tiles, tm, 3)
     r3 = real.reshape(n_tiles, tm, 1)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    pl_tiles, width = None, 0
+    if payload is not None:
+        width = payload.shape[1]
+        if payload.ndim != 2 or payload.shape[0] != m or not 1 <= width <= 4:
+            raise ValueError(f"build_model_grid: payload must be (M, k<=4), got "
+                             f"{tuple(payload.shape)} for {m} points")
+        pl_pad = torch.zeros((m_pad, 4), dtype=torch.float32, device=dev)
+        pl_pad[:m, :width] = payload.to(device=dev, dtype=torch.float32)
+        pl_tiles = pl_pad[perm].reshape(n_tiles, tm, 4).contiguous()
     return ModelGrid(
         tiles=tiles.contiguous(),
         tile_lo=torch.where(r3, tiled, big).amin(1),
         tile_hi=torch.where(r3, tiled, -big).amax(1),
         model_orig=model,
         model_tile=tm,
+        payload=pl_tiles,
+        payload_width=width,
     )
 
 
@@ -149,16 +171,22 @@ def next_bound(y: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
 def tile_box_dists(p_pad: torch.Tensor, grid: ModelGrid, *,
                    scene_tile: int) -> torch.Tensor:
     """(Ni, Nj) deflated squared box-box distances (a lower bound on any
-    point-pair distance between the tiles, through float32 rounding)."""
+    point-pair distance between the tiles, through float32 rounding).
+
+    One axis at a time, summed as ``(g0 + g1) + g2``: no (Ni, Nj, 3)
+    temporary (0.8 GB at a million points in 64-point tiles)."""
     ni = p_pad.shape[0] // scene_tile
     tiles = p_pad[:, :3].reshape(ni, scene_tile, 3)
     s_lo = tiles.amin(1)
     s_hi = tiles.amax(1)
-    gap = torch.maximum(grid.tile_lo[None] - s_hi[:, None],
-                        s_lo[:, None] - grid.tile_hi[None])
-    gap = torch.clamp(gap, min=0.0)
-    g = gap * gap
-    return ((g[..., 0] + g[..., 1]) + g[..., 2]) * _LOWER_DEFLATE
+    acc = None
+    for ax in range(3):
+        gap = torch.maximum(grid.tile_lo[None, :, ax] - s_hi[:, None, ax],
+                            s_lo[:, None, ax] - grid.tile_hi[None, :, ax])
+        gap = gap.clamp_(min=0.0)
+        gap = gap.mul_(gap)
+        acc = gap if acc is None else acc.add_(gap)
+    return acc.mul_(_LOWER_DEFLATE)
 
 
 def candidates(p_pad: torch.Tensor, u_pad: torch.Tensor, grid: ModelGrid, *,
@@ -177,58 +205,82 @@ def candidates(p_pad: torch.Tensor, u_pad: torch.Tensor, grid: ModelGrid, *,
     return cand.contiguous(), counts, (counts > cap).any()
 
 
-def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
-            tiles: torch.Tensor, scene_tile: int):
-    """K4: (d2 (N,) float32, idx (N,) int32, y (N, 3) float32) for the
-    kd-sorted, tile-padded scene (Ni * scene_tile rows)."""
-    check_points("nn_grid", "scene", scene)
-    dev = scene.device
+def check_table(fn: str, cand: torch.Tensor, counts: torch.Tensor,
+                query: torch.Tensor, tiles: torch.Tensor, scene_tile: int) -> None:
+    """Raise unless the candidate table and the tiles fit the query."""
+    check_points(fn, "query", query)
+    dev = query.device
     ni, cap = cand.shape
-    nj, tm = tiles.shape[0], tiles.shape[1]
     if cand.dtype != torch.int32 or counts.dtype != torch.int32 \
             or cand.device != dev or counts.device != dev \
             or not cand.is_contiguous() or counts.shape != (ni,):
-        raise ValueError("nn_grid: cand (Ni, C) and counts (Ni,) must be "
-                         "contiguous int32 tensors beside the scene")
+        raise ValueError(f"{fn}: cand (Ni, C) and counts (Ni,) must be "
+                         "contiguous int32 tensors beside the query")
     if tiles.ndim != 3 or tiles.shape[2] != 4 or tiles.dtype != torch.float32 \
             or tiles.device != dev or not tiles.is_contiguous():
-        raise ValueError("nn_grid: tiles must be a contiguous float32 "
-                         "(Nj, tm, 4) tensor beside the scene")
-    if scene.shape[0] != ni * scene_tile or cap < 1:
-        raise ValueError(f"nn_grid: scene has {scene.shape[0]} rows, expected "
+        raise ValueError(f"{fn}: tiles must be a contiguous float32 "
+                         "(Nj, tm, 4) tensor beside the query")
+    if query.shape[0] != ni * scene_tile or cap < 1:
+        raise ValueError(f"{fn}: query has {query.shape[0]} rows, expected "
                          f"{ni} tiles of {scene_tile}")
-    if dev.type == "cpu":
-        return nn_grid_plain(cand, counts, scene, tiles, scene_tile)
-    if scene_tile > 1024:
-        raise ValueError("nn_grid: scene tiles are one thread per point, at "
+    if dev.type == "cuda" and scene_tile > 1024:
+        raise ValueError(f"{fn}: query tiles are one thread per point, at "
                          "most 1024")
+
+
+def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
+            tiles: torch.Tensor, scene_tile: int, payload: torch.Tensor | None = None):
+    """K4: (d2 (N,) float32, idx (N,) int32, y (N, 3) float32, payload rows
+    (N, 4) float32 or None) for the kd-sorted, tile-padded scene
+    (Ni * scene_tile rows); ``payload`` is the grid's (Nj, tm, 4)."""
+    check_table("nn_grid", cand, counts, scene, tiles, scene_tile)
+    if payload is not None and (payload.shape != tiles.shape or payload.dtype != torch.float32
+                                or payload.device != scene.device
+                                or not payload.is_contiguous()):
+        raise ValueError("nn_grid: payload must be a contiguous float32 tensor "
+                         "shaped as the tiles")
+    dev = scene.device
+    if dev.type == "cpu":
+        return nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload)
+    ni, cap = cand.shape
+    nj, tm = tiles.shape[0], tiles.shape[1]
     n = scene.shape[0]
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pl = None if payload is None else torch.empty((n, 4), dtype=torch.float32, device=dev)
     code = _build.lib().nn_grid_launch(
         cand.data_ptr(), counts.data_ptr(), ni, cap, scene.data_ptr(),
-        scene_tile, nj, tm, tiles.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-        y.data_ptr(), _build.stream_ptr(scene))
+        scene_tile, nj, tm, tiles.data_ptr(),
+        None if payload is None else payload.data_ptr(), d2.data_ptr(),
+        idx.data_ptr(), y.data_ptr(), None if pl is None else pl.data_ptr(),
+        _build.stream_ptr(scene))
     _build.LAUNCHES["nn_grid"] += 1
     _build.check(code, "nn_grid")
-    return d2, idx, y
+    return d2, idx, y, pl
 
 
-def nn_grid_plain(cand, counts, scene, tiles, scene_tile):
+def tile_ids(cand: torch.Tensor, nj: int, ti: int, cnt: int):
+    """The model tiles scene tile ``ti`` folds, in the kernels' order: its
+    candidates, or every tile when its count passes the table's capacity."""
+    if cnt > cand.shape[1]:
+        return torch.arange(nj, device=cand.device)
+    return cand[ti, :max(cnt, 1)].to(torch.int64)
+
+
+def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None):
     """Plain version of K4: per scene tile, the lexicographic minimum of
     (diff-squares distance, original index) over its candidate tiles."""
-    ni, cap = cand.shape
     nj = tiles.shape[0]
     dev = scene.device
     n = scene.shape[0]
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     y = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pl = None if payload is None else torch.empty((n, 4), dtype=torch.float32, device=dev)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
     for ti, cnt in enumerate(counts.tolist()):
-        ids = (torch.arange(nj, device=dev) if cnt > cap
-               else cand[ti, :max(cnt, 1)].to(torch.int64))
+        ids = tile_ids(cand, nj, ti, cnt)
         rows = tiles[ids].reshape(-1, 4)
         lo = ti * scene_tile
         p = scene[lo:lo + scene_tile]
@@ -244,18 +296,20 @@ def nn_grid_plain(cand, counts, scene, tiles, scene_tile):
         idx[lo:lo + scene_tile] = torch.where(
             oidx < 16777216.0, oidx, torch.full_like(oidx, -1.0)).to(torch.int32)
         y[lo:lo + scene_tile] = rows[win, :3]
-    return d2, idx, y
+        if payload is not None:
+            pl[lo:lo + scene_tile] = payload[ids].reshape(-1, 4)[win]
+    return d2, idx, y, pl
 
 
 def closest_point_indices_pruned(scene: torch.Tensor, grid: ModelGrid,
                                  u: torch.Tensor, *, scene_tile: int = 256,
                                  max_candidates: int = 16):
-    """Exact NN via tile culling: (indices, matched points, squared
-    distances, overflow), always equal to brute force (squared distance,
-    lowest original index on ties).  ``u``: (N,) upper bounds on each
-    point's squared NN distance; ``overflow``: some tile folded all tiles.
-    The JAX function's payload slot is not ported (it serves the plane
-    engines)."""
+    """Exact NN via tile culling: (indices, matched points, payload rows or
+    None, squared distances, overflow), always equal to brute force
+    (squared distance, lowest original index on ties).  ``u``: (N,) upper
+    bounds on each point's squared NN distance; ``overflow``: some tile
+    folded all tiles.  The payload rows are the (N, k) values packed by
+    ``build_model_grid(payload=...)``."""
     n = scene.shape[0]
     scene = scene.to(torch.float32)
     tn = min(scene_tile, _round_up(n, 8))
@@ -268,5 +322,16 @@ def closest_point_indices_pruned(scene: torch.Tensor, grid: ModelGrid,
         u = torch.cat([u, u[-1:].expand(n_pad - n)])
     scene = scene.contiguous()
     cand, counts, overflow = candidates(scene, u, grid, scene_tile=tn, cap=cap)
-    d2, idx, y = nn_grid(cand, counts, scene, grid.tiles, tn)
-    return idx[:n], y[:n], d2[:n], overflow
+    d2, idx, y, pl = nn_grid(cand, counts, scene, grid.tiles, tn, grid.payload)
+    pl = None if pl is None else pl[:n, :grid.payload_width]
+    return idx[:n], y[:n], pl, d2[:n], overflow
+
+
+def closest_point_indices_grid(scene: torch.Tensor, grid: ModelGrid,
+                               u: torch.Tensor, *, scene_tile: int = 256,
+                               max_candidates: int = 16):
+    """(indices, matched points, payload rows or None, squared distances):
+    ``closest_point_indices_pruned`` without the overflow flag."""
+    idx, y, pl, d2, _ = closest_point_indices_pruned(
+        scene, grid, u, scene_tile=scene_tile, max_candidates=max_candidates)
+    return idx, y, pl, d2

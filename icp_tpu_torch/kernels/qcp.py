@@ -1,4 +1,5 @@
-"""K2: the scalar alignment step (``csrc/qcp.cu``) and the state block.
+"""K2: the scalar alignment step and K5: the rotation solve
+(``csrc/qcp.cu``), and the state block.
 
 Port of ``icp_tpu/kernels/qcp_pallas.py``.  The (1, 32) state block keeps
 the JAX layout (``qcp_pallas.py:91-119``) in float64::
@@ -16,8 +17,15 @@ bound is reached.  Once done, it writes the identity step and returns.
 
 Loop control ``ctl``: int32 ``[iterations done, done flag, bound]``.
 
-``qcp_step_plain`` is the same function in plain Python floats, in the same
-operation order; the wrapper takes it only for CPU tensors.
+K5 (``qcp_rotation``) is the rotation-only solve of the same scalar math
+(``_qcp_kernel``), on the JAX kernel's (1, 16) slots in float64::
+
+    in:  [S (9, row major), gp, gy, 0, 0, 0, 0, 0]
+    out: [R (9, row major), q (4: w, x, y, z), lambda, 0, 0]
+
+``qcp_step_plain`` and ``qcp_rotation_plain`` are the same functions in
+plain Python floats, in the same operation order; the wrappers take them
+only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from icp_tpu_torch.ops.alignment import AlignmentStats, Similarity
 
 N_SUMS = 18
 STATE_SLOTS = 32
+ROT_SLOTS = 16
 _NEWTON_ITERS = 12
 _POWER_ITERS = 2
 
@@ -160,8 +169,9 @@ def _others(skip: int):
 
 
 def _qcp_rotation(S, gp, gy):
-    """(R, lambda_max) from the centred cross-covariance; the solve runs on
-    S / (gp + gy) and lambda is un-scaled (``qcp_pallas.py:143-240``)."""
+    """(R, unit quaternion q, lambda_max) from the centred cross-covariance;
+    the solve runs on S / (gp + gy) and lambda is un-scaled
+    (``qcp_pallas.py:143-240``)."""
     total = _mx(gp + gy, 1e-30)
     norm = 1.0 / total
     S = [[S[r][c] * norm for c in range(3)] for r in range(3)]
@@ -223,7 +233,7 @@ def _qcp_rotation(S, gp, gy):
         [2.0 * (x_ * z_ - w_ * y_), 2.0 * (y_ * z_ + w_ * x_),
          w_ * w_ - x_ * x_ - y_ * y_ + z_ * z_],
     ]
-    return R, lam * total
+    return R, [w_, x_, y_, z_], lam * total
 
 
 def _alignment_update(a, prev, with_scale):
@@ -236,7 +246,7 @@ def _alignment_update(a, prev, with_scale):
     S = [[a[3 * r + c] - n * mu_p[r] * mu_y[c] for c in range(3)] for r in range(3)]
     gp = a[15] - n * (mu_p[0] * mu_p[0] + mu_p[1] * mu_p[1] + mu_p[2] * mu_p[2])
     gy = a[16] - n * (mu_y[0] * mu_y[0] + mu_y[1] * mu_y[1] + mu_y[2] * mu_y[2])
-    R, lam = _qcp_rotation(S, gp, gy)
+    R, _, lam = _qcp_rotation(S, gp, gy)
     s = math.sqrt(_mx(gy / _mx(gp, 1e-30), 0.0)) if with_scale else 1.0
     t = [mu_y[r] - s * (R[r][0] * mu_p[0] + R[r][1] * mu_p[1] + R[r][2] * mu_p[2])
          for r in range(3)]
@@ -259,12 +269,37 @@ def step_similarity(state: torch.Tensor, dtype) -> Similarity:
     return Similarity(*(v.to(dtype) for v in step))
 
 
-def alignment_step_from_stats(stats: AlignmentStats, *,
-                              with_scale: bool = True) -> Similarity:
-    """Similarity from the statistics through K2, with an identity previous
-    transform (``solver="qcp_fused"`` of ``ops.alignment_from_stats``)."""
-    dev = stats.n.device
-    state = identity_state(dev)
-    qcp_step(pack_stats(stats), state, new_loop_control(1, dev),
-             new_err_buffer(1, dev), with_scale=with_scale)
-    return step_similarity(state, stats.n.dtype)
+def pack_rotation_input(S: torch.Tensor, gp: torch.Tensor,
+                        gy: torch.Tensor) -> torch.Tensor:
+    """K5's (1, 16) float64 input block from S (3, 3), gp and gy."""
+    dt = torch.float64
+    return torch.cat([S.to(dt).reshape(-1), gp.to(dt).reshape(1), gy.to(dt).reshape(1),
+                      torch.zeros(5, dtype=dt, device=S.device)]).reshape(1, ROT_SLOTS)
+
+
+def qcp_rotation(packed: torch.Tensor) -> torch.Tensor:
+    """K5: the (1, 16) output block [R, q, lambda, 0, 0] of a (1, 16) input
+    block [S, gp, gy, 0...], float64."""
+    dev = packed.device
+    if packed.shape != (1, ROT_SLOTS) or packed.dtype != torch.float64 \
+            or not packed.is_contiguous() or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"qcp_rotation: input must be a contiguous float64 "
+                         f"(1, {ROT_SLOTS}) tensor, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {dev}")
+    if dev.type == "cpu":
+        return qcp_rotation_plain(packed)
+    out = torch.empty((1, ROT_SLOTS), dtype=torch.float64, device=dev)
+    code = _build.lib().qcp_rotation_launch(packed.data_ptr(), out.data_ptr(),
+                                            _build.stream_ptr(packed))
+    _build.LAUNCHES["qcp_rotation"] += 1
+    _build.check(code, "qcp_rotation")
+    return out
+
+
+def qcp_rotation_plain(packed: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 (Python float64, K2's operation order)."""
+    a = packed[0].tolist()
+    S = [[a[3 * r + c] for c in range(3)] for r in range(3)]
+    R, q, lam = _qcp_rotation(S, a[9], a[10])
+    out = [v for row in R for v in row] + q + [lam, 0.0, 0.0]
+    return torch.tensor([out], dtype=torch.float64, device=packed.device)

@@ -8,9 +8,8 @@ never updates its running max, ``src/cpu.cc:81-91``) is not reproduced.
 
 Solvers: ``eigh`` (``torch.linalg.eigh`` on Horn's N), ``qcp`` (Newton on
 the quartic characteristic polynomial + adjugate eigenvector, in tensor
-ops), ``kabsch`` (3x3 SVD) and ``qcp_fused`` (the scalar-solve CUDA kernel
-of ``kernels/qcp.py``, run on the statistics with an identity previous
-transform).
+ops), ``kabsch`` (3x3 SVD) and ``qcp_fused`` (the rotation-solve CUDA
+kernel K5 of ``kernels/qcp.py``, the port of ``horn_rotation_pallas``).
 """
 
 from __future__ import annotations
@@ -160,10 +159,6 @@ def rotation_kabsch(S: torch.Tensor) -> torch.Tensor:
 def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
                          with_scale: bool = True) -> Similarity:
     """Closed-form similarity from the sufficient statistics."""
-    if solver == "qcp_fused":
-        from icp_tpu_torch.kernels.qcp import alignment_step_from_stats
-
-        return alignment_step_from_stats(stats, with_scale=with_scale)
     n = stats.n
     mu_p = stats.sum_p / n
     mu_y = stats.sum_y / n
@@ -173,6 +168,12 @@ def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
     gy = stats.sum_yy - n * torch.dot(mu_y, mu_y)
     if solver == "kabsch":
         R = rotation_kabsch(S)
+    elif solver == "qcp_fused":
+        # the whole 4x4 solve in one launch of K5 (float64), as JAX's
+        # horn_rotation_pallas (icp_tpu/ops/alignment.py:284-292)
+        from icp_tpu_torch.kernels.qcp import pack_rotation_input, qcp_rotation
+
+        R = qcp_rotation(pack_rotation_input(S, gp, gy))[0, :9].reshape(3, 3).to(S.dtype)
     else:
         N = horn_n_matrix(S)
         if solver == "eigh":

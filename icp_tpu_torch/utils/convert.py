@@ -2,9 +2,11 @@
 
 Works on numpy arrays only, so neither side imports the other: pass the JAX
 package's values through ``np.asarray`` (a JAX ``Similarity`` is a triple
-``s, R, t``; its state block is (1, 32) float32), and build the JAX
-``Similarity`` from the triple returned here.  Tests use this to start both
-engines from the same ``init=`` and to compare state blocks.
+``s, R, t``; its state block is (1, 32) float32; a JAX ``ModelGrid`` is a
+named tuple of arrays), and build the JAX ``Similarity`` from the triple
+returned here.  Tests use this to start both engines from the same
+``init=``, the same normals and the same model grid, and to compare state
+blocks.
 """
 
 from __future__ import annotations
@@ -37,3 +39,33 @@ def state_from_jax(state, device=None) -> torch.Tensor:
 def state_to_jax(state: torch.Tensor) -> np.ndarray:
     """This package's state block -> the JAX layout, (1, 32) float32."""
     return state.detach().cpu().numpy().astype(np.float32).reshape(1, 32)
+
+
+def points_from_numpy(a, dtype=torch.float32, device=None) -> torch.Tensor:
+    """An (N, k) array-like (points, normals) -> a tensor of ``dtype``."""
+    return torch.as_tensor(np.array(a)).to(dtype=dtype, device=device)
+
+
+def model_grid_from_jax(grid, device=None):
+    """A JAX ``ModelGrid`` -> this package's: the transposed (Nj, 8, tm)
+    tiles become (Nj, tm, 4) rows (x, y, z, original index), and the payload
+    sublanes 4.. a kd-ordered (Nj, tm, 4) payload."""
+    from icp_tpu_torch.kernels.nn_grid import ModelGrid
+
+    tiles_t = np.asarray(grid.tiles_t, dtype=np.float32)
+    rows = np.ascontiguousarray(tiles_t.transpose(0, 2, 1))  # (Nj, tm, 8)
+    payload, width = None, 0
+    if grid.payload_orig is not None:
+        width = np.asarray(grid.payload_orig).shape[1]
+        payload = np.zeros(rows.shape[:2] + (4,), np.float32)
+        payload[..., :width] = rows[..., 4:4 + width]
+        payload = points_from_numpy(payload, device=device)
+    return ModelGrid(
+        tiles=points_from_numpy(np.ascontiguousarray(rows[..., :4]), device=device),
+        tile_lo=points_from_numpy(grid.tile_lo, device=device),
+        tile_hi=points_from_numpy(grid.tile_hi, device=device),
+        model_orig=points_from_numpy(grid.model_orig, device=device),
+        model_tile=int(grid.model_tile),
+        payload=payload,
+        payload_width=width,
+    )

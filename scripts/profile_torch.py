@@ -5,12 +5,16 @@
 
 For each cell — cow_tr1 on the fused path (K3 + K2), horse_tr1 on the grid
 path (K4 + torch + K2), and the 1,000,000-point pair of ``chip_smoke.py``
-on the grid path — it times fixed-iteration loops without the profiler
-(ms/iter from the difference of two iteration counts), then runs one loop
-under ``torch.profiler`` and prints the device time by kernel, the device's
-busy share of the profiled window (union of kernel intervals over the
-window's wall time) and each launch's time of the hand-written kernels.
-Chrome traces go to ``DIR`` (default ``chiprun_out/profile``).
+on the grid path, each with the point-to-point and the point-to-plane
+engine (dense K1 on cow, grid K4 with the normals payload elsewhere) — it
+times fixed-iteration loops without the profiler (ms/iter from the
+difference of two iteration counts), then runs one loop under
+``torch.profiler`` and prints the device time by kernel, the device's busy
+share of the profiled window (union of kernel intervals over the window's
+wall time) and each launch's time of the hand-written kernels.  The
+point-to-plane cells take their normals from one ``estimate_normals``
+call (K6 on cow, K7 elsewhere), which is profiled the same way.  Chrome
+traces go to ``DIR`` (default ``chiprun_out/profile``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_kernel")
+OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_kernel",
+        "qcp_rotation_kernel", "knn_dense_kernel", "knn_grid_kernel")
 
 
 def _us(event) -> float:
@@ -42,34 +47,45 @@ def _busy_share(events, wall_us: float) -> float:
     return busy / wall_us
 
 
-def profile_cell(name, model, scene, nn, n_iters, out_dir):
+def _timed(fn) -> float:
     import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def profile_cell(name, label, run, n_iters, out_dir):
+    """``run(k)``: k iterations of the cell's loop (set-up included);
+    ``n_iters`` 0 profiles one call of ``run`` as it is."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from icp_tpu_torch.engine.icp import icp_fixed_iters
-
-    def run(k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        float(icp_fixed_iters(model, scene, n_iters=k, solver="qcp_fused", nn_method=nn).err)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    run(2)
-    t1 = statistics.median(run(1) for _ in range(3))
-    tk = statistics.median(run(n_iters + 1) for _ in range(3))
-    print(f"[{name}] path={nn} ms_per_iter={(tk - t1) / n_iters * 1e3:.4f} "
-          f"setup_plus_one_iter_ms={t1 * 1e3:.3f}", flush=True)
+    run(max(n_iters, 1))
+    if n_iters:
+        t1 = statistics.median(_timed(lambda: run(1)) for _ in range(3))
+        tk = statistics.median(_timed(lambda: run(n_iters + 1)) for _ in range(3))
+        print(f"[{name}] {label} ms_per_iter={(tk - t1) / n_iters * 1e3:.4f} "
+              f"setup_plus_one_iter_ms={t1 * 1e3:.3f}", flush=True)
+    else:
+        t = statistics.median(_timed(lambda: run(0)) for _ in range(3))
+        print(f"[{name}] {label} ms={t * 1e3:.3f}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run(n_iters)
+        wall = _timed(lambda: run(n_iters))
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total = sum(_us(e) for e in kernels) or float("nan")
+    # host waits on the card inside the window (the loop's once-a-chunk
+    # flag read is one; more per iteration mean a hidden synchronisation)
+    waits = sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
+                and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                               "cudaMemcpy", "cudaEventSynchronize"))
     print(f"[{name}] profiled iters={n_iters} wall_ms={wall * 1e3:.3f} "
           f"device_kernel_ms={total / 1e3:.3f} "
           f"device_busy_share={_busy_share(kernels, wall * 1e6):.3f} "
-          f"kernel_launches={len(kernels)}", flush=True)
+          f"kernel_launches={len(kernels)} host_waits={waits}", flush=True)
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -77,7 +93,7 @@ def profile_cell(name, model, scene, nn, n_iters, out_dir):
     for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[{name}]   {t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{c:<4d} {kname[:90]}")
     for ours in OURS:
-        per = [_us(e) for e in kernels if ours in e.name]
+        per = [_us(e) for e in kernels if f"::{ours}" in e.name]  # not ::k{ours}
         if per:
             print(f"[{name}]   per-launch us {ours}: " + " ".join(f"{v:.1f}" for v in per))
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
@@ -92,17 +108,36 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
         return 1
+    import math
+
     import chip_smoke
+    from icp_tpu_torch import ICPConfig, icp_point_to_plane
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.ops.normals import estimate_normals
 
     os.makedirs(args.out, exist_ok=True)
     print(chip_smoke.phase_device(), flush=True)
     f32 = dict(dtype=torch.float32, device="cuda")
-    for name, ref, scene, nn, k in (("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
-                                    ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20)):
-        profile_cell(name, torch.tensor(chip_smoke._load(ref), **f32),
-                     torch.tensor(chip_smoke._load(scene), **f32), nn, k, args.out)
-    model, scene, _ = chip_smoke.scale_pair(0)
-    profile_cell("1M", model, scene, "grid", 10, args.out)
+    cells = [("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
+             ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20), ("1M", None, None, "grid", 10)]
+    for name, ref, scene_file, nn, k in cells:
+        if ref is None:
+            model, scene, _ = chip_smoke.scale_pair(0)
+        else:
+            model = torch.tensor(chip_smoke._load(ref), **f32)
+            scene = torch.tensor(chip_smoke._load(scene_file), **f32)
+        profile_cell(name, f"engine=point_to_point path={nn}",
+                     lambda i: float(icp_fixed_iters(model, scene, n_iters=i, solver="qcp_fused",
+                                                     nn_method=nn).err), k, args.out)
+        method = "dense" if nn == "pallas" else "grid"
+        profile_cell(f"{name}_normals", f"method={method}",
+                     lambda _: estimate_normals(model, method=method), 0, args.out)
+        normals = estimate_normals(model, method=method)
+        profile_cell(f"{name}_p2pl", f"engine=point_to_plane path={nn}",
+                     lambda i: float(icp_point_to_plane(
+                         model, scene, ICPConfig(max_iter=i, threshold=-math.inf, nn_method=nn),
+                         normals=normals).err), k, args.out)
+        del model, scene, normals
     return 0
 
 

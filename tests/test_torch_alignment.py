@@ -77,7 +77,7 @@ def test_solvers_match_jax(solver):
 
 
 def test_qcp_fused_solver_matches_eigh():
-    """``solver="qcp_fused"`` goes through K2 (its plain version here)."""
+    """``solver="qcp_fused"`` goes through K5 (its plain version here)."""
     p, y = _pair(4)
     _, ts = _stats_pair(p, y)
     want = ta.alignment_from_stats(ts, solver="eigh")
@@ -154,6 +154,44 @@ def test_qcp_step_matches_jax_kernel(n, with_scale, warm):
     for k in (0, 13):  # s
         np.testing.assert_allclose(got[0, k], want[0, k], rtol=1e-5)
     np.testing.assert_allclose(got[0, 26], want[0, 26], rtol=1e-3)
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_qcp_rotation_matches_jax_kernel(seed):
+    """K5's plain version (float64) vs ``horn_rotation_pallas`` (the float32
+    ``_qcp_kernel`` in interpret mode), on the same (1, 16) slots."""
+    p, y = _pair(seed, n=300, noise=0.02, centred=True)
+    js, ts = _stats_pair(p, y)
+    n = ts.n
+    S = ts.sum_py - n * torch.outer(ts.sum_p / n, ts.sum_y / n)
+    gp = ts.sum_pp - n * torch.dot(ts.sum_p / n, ts.sum_p / n)
+    gy = ts.sum_yy - n * torch.dot(ts.sum_y / n, ts.sum_y / n)
+    packed = tq.pack_rotation_input(S, gp, gy)
+    assert packed.shape == (1, 16) and not packed[0, 11:].any()
+    out = tq.qcp_rotation(packed)
+    jR, jq_, jlam = jq.horn_rotation_pallas(jnp.asarray(S.numpy(), jnp.float32),
+                                            jnp.asarray(float(gp), jnp.float32),
+                                            jnp.asarray(float(gy), jnp.float32), interpret=True)
+    np.testing.assert_allclose(out[0, :9].reshape(3, 3).numpy(), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(out[0, 9:13].numpy(), np.asarray(jq_), atol=1e-5)
+    np.testing.assert_allclose(float(out[0, 13]), float(jlam), rtol=1e-5)
+    assert float(out[0, 14]) == float(out[0, 15]) == 0.0
+    R = out[0, :9].reshape(3, 3)  # a rotation, and the one eigh gives
+    np.testing.assert_allclose((R @ R.T).numpy(), np.eye(3), atol=1e-12)
+    want = ta.alignment_from_stats(ts, solver="eigh").R
+    np.testing.assert_allclose(R.numpy(), want.numpy(), atol=1e-10)
+
+
+def test_qcp_rotation_rejects_bad_blocks_and_counts_nothing_on_cpu():
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="qcp_rotation"):
+        tq.qcp_rotation(torch.zeros((1, 16), dtype=torch.float32))
+    with pytest.raises(ValueError, match="qcp_rotation"):
+        tq.qcp_rotation(torch.zeros((1, 15), dtype=torch.float64))
+    p, y = _pair(23)
+    _, ts = _stats_pair(p, y)
+    ta.alignment_from_stats(ts, solver="qcp_fused")
+    assert _build.LAUNCHES["qcp_rotation"] == 0  # CPU tensors take the plain version
 
 
 def test_state_helpers_match_jax():

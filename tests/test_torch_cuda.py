@@ -1,4 +1,4 @@
-"""K1-K4 on the card against their plain versions (``cuda`` marker).
+"""K1-K7 on the card against their plain versions (``cuda`` marker).
 
 These need a CUDA device and ``nvcc``; without a card they skip.  On a
 machine with one:
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from icp_tpu_torch.kernels import _build, icp_fused, nn_dense, nn_grid, qcp
+from icp_tpu_torch.kernels import _build, icp_fused, knn_dense, knn_grid, nn_dense, nn_grid, qcp
 
 pytestmark = pytest.mark.cuda
 
@@ -69,7 +69,66 @@ def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap):
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
     cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
     args = (cand, counts, scene, grid.tiles, 128)
-    dk, ik, yk = nn_grid.nn_grid(*args)
-    dp, ip, yp = nn_grid.nn_grid_plain(*args)
+    dk, ik, yk, _ = nn_grid.nn_grid(*args)
+    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args)
     assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
     assert torch.equal(ik, nn_dense.nn_dense(scene, model))
+
+
+@pytest.mark.parametrize("cap", [16, 1])
+def test_nn_grid_payload_matches_plain(dev, cap):
+    model = _cloud(7, 3000).to(dev)
+    normals = _cloud(8, 3000).to(dev)
+    scene = (_cloud(9, 1024) * 1.01).to(dev)
+    grid = nn_grid.build_model_grid(model, target_tile=256, payload=normals)
+    u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
+    args = (cand, counts, scene, grid.tiles, 128, grid.payload)
+    before = _build.LAUNCHES["nn_grid"]
+    dk, ik, yk, pk = nn_grid.nn_grid(*args)
+    assert _build.LAUNCHES["nn_grid"] == before + 1
+    dp, ip, yp, pp = nn_grid.nn_grid_plain(*args)
+    assert torch.equal(ik, ip) and torch.equal(yk, yp) and torch.equal(pk, pp)
+    assert torch.equal(pk[:, :3], normals[ik.long()])
+
+
+def test_qcp_rotation_kernel_matches_plain(dev):
+    rng = np.random.default_rng(10)
+    S = torch.tensor(rng.standard_normal((3, 3)), dtype=torch.float64)
+    packed = qcp.pack_rotation_input(S, torch.tensor(3.0, dtype=torch.float64),
+                                     torch.tensor(2.5, dtype=torch.float64))
+    before = _build.LAUNCHES["qcp_rotation"]
+    out = qcp.qcp_rotation(packed.to(dev))
+    assert _build.LAUNCHES["qcp_rotation"] == before + 1
+    torch.testing.assert_close(out.cpu(), qcp.qcp_rotation_plain(packed), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n,m,k", [(1, 17, 17), (700, 2049, 5), (3000, 1500, 17), (300, 900, 32)])
+def test_knn_dense_kernel_matches_plain(dev, n, m, k):
+    q, p = _cloud(n + 1, n).to(dev), _cloud(m + 2, m, 1.5).to(dev)
+    p[m // 2:] = p[: m - m // 2].clone()  # duplicates: lowest index wins
+    before = _build.LAUNCHES["knn_dense"]
+    dk, ik = knn_dense.knn_dense(q, p, k)
+    assert _build.LAUNCHES["knn_dense"] == before + 1
+    dp, ip = knn_dense.knn_dense_plain(q, p, k)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("k,cap", [(17, 32), (8, 1)])
+def test_knn_grid_kernel_matches_plain_and_dense(dev, k, cap):
+    pts = _cloud(11, 5000).to(dev)
+    grid = nn_grid.build_model_grid(pts, target_tile=256)
+    query = pts[torch.randperm(5000, generator=torch.Generator().manual_seed(0))[:1800]]
+    before = _build.LAUNCHES["knn_grid"]
+    dk, ik = knn_grid.knn_grid(query, grid, k, scene_tile=64, max_candidates=cap)
+    assert _build.LAUNCHES["knn_grid"] == before + 2  # seed pass + exact pass
+    dd, idd = knn_dense.knn_dense(query.contiguous(), pts, k)
+    assert torch.equal(ik, idd) and torch.equal(dk, dd)
+    cand = torch.zeros((1800 // 60, 4), dtype=torch.int32, device=dev)
+    cand[:, 1] = 1
+    cand[:, 2] = grid.tiles.shape[0] - 1
+    counts = torch.full((1800 // 60,), 3, dtype=torch.int32, device=dev)
+    counts[::5] = 99  # some tiles fold every tile
+    args = (cand, counts, query.contiguous(), grid.tiles, 60, k)
+    assert all(torch.equal(a, b) for a, b in zip(knn_grid.knn_worklist(*args),
+                                                 knn_grid.knn_worklist_plain(*args)))

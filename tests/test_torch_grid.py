@@ -16,6 +16,7 @@ from icp_tpu.engine import grid as jg_engine
 from icp_tpu.kernels import nn_grid as jg
 from icp_tpu_torch.engine import grid as tg_engine
 from icp_tpu_torch.kernels import nn_grid as tg
+from icp_tpu_torch.utils.convert import model_grid_from_jax
 
 
 def _sphere(n, seed, noise=0.01):
@@ -84,13 +85,13 @@ def test_pruned_matches_jax_kernel(max_candidates):
     jidx, jy, _, jd2, jover = jg.closest_point_indices_pruned(
         jnp.asarray(scene), jgrid, jnp.asarray(u), scene_tile=60,
         max_candidates=max_candidates, interpret=True)
-    idx, y, d2, over = tg.closest_point_indices_pruned(
+    idx, y, pl, d2, over = tg.closest_point_indices_pruned(
         torch.tensor(scene), tgrid, torch.tensor(u), scene_tile=60,
         max_candidates=max_candidates)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
     np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=3e-7)
-    assert bool(over) == bool(jover)
+    assert bool(over) == bool(jover) and pl is None
     brute = ((scene[:, None] - model[None]) ** 2).sum(-1).argmin(1)
     np.testing.assert_array_equal(idx.numpy(), brute)
 
@@ -102,8 +103,8 @@ def test_pruned_ties_go_to_lowest_original_index():
     tgrid = tg.build_model_grid(torch.tensor(model), target_tile=128)
     idx0 = tg.initial_bound_indices(torch.tensor(scene), torch.tensor(model), stride=4)
     u = tg.bound_from_indices(torch.tensor(scene), tgrid, idx0)
-    idx, _, _, _ = tg.closest_point_indices_pruned(torch.tensor(scene), tgrid, u,
-                                                   scene_tile=32, max_candidates=32)
+    idx, _, _, _ = tg.closest_point_indices_grid(torch.tensor(scene), tgrid, u,
+                                                 scene_tile=32, max_candidates=32)
     np.testing.assert_array_equal(idx.numpy(), np.arange(100))
 
 
@@ -116,3 +117,41 @@ def test_prepare_scene_matches_jax():
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+
+
+@pytest.mark.parametrize("width", [3, 4])
+def test_build_model_grid_payload_matches_jax(width):
+    model = _sphere(900, seed=6)
+    payload = np.random.default_rng(7).standard_normal((900, width))
+    jgrid = jg.build_model_grid(jnp.asarray(model), target_tile=128,
+                                payload=jnp.asarray(payload))
+    tgrid = tg.build_model_grid(torch.tensor(model), target_tile=128,
+                                payload=torch.tensor(payload))
+    assert tgrid.payload_width == width and tgrid.payload.shape == tgrid.tiles.shape
+    want = np.asarray(jgrid.tiles_t)[:, 4:4 + width, :].transpose(0, 2, 1)
+    np.testing.assert_array_equal(tgrid.payload[..., :width].numpy(), want)
+    assert not tgrid.payload[..., width:].any()
+    carried = model_grid_from_jax(jgrid)
+    assert torch.equal(carried.payload, tgrid.payload) and torch.equal(carried.tiles, tgrid.tiles)
+
+
+@pytest.mark.parametrize("max_candidates", [16, 1])
+def test_payload_slot_matches_jax_kernel(max_candidates):
+    """K4's plain version emits the winner's payload row, as the JAX
+    work-list kernel's payload sublanes do (interpret mode)."""
+    scene, model, _, _, u = _grid_case(seed=8)
+    normals = np.random.default_rng(9).standard_normal((model.shape[0], 3)).astype(np.float32)
+    jgrid = jg.build_model_grid(jnp.asarray(model), target_tile=128,
+                                payload=jnp.asarray(normals))
+    tgrid = model_grid_from_jax(jgrid)
+    jidx, jy, jpl, _ = jg.closest_point_indices_grid(
+        jnp.asarray(scene), jgrid, jnp.asarray(u), scene_tile=60,
+        max_candidates=max_candidates, interpret=True)
+    idx, y, pl, _ = tg.closest_point_indices_grid(
+        torch.tensor(scene), tgrid, torch.tensor(u), scene_tile=60,
+        max_candidates=max_candidates)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    assert pl.shape == (scene.shape[0], 3)
+    np.testing.assert_array_equal(pl.numpy(), np.asarray(jpl))
+    np.testing.assert_array_equal(pl.numpy(), normals[idx.numpy()])

@@ -40,7 +40,7 @@ def cow():
 
 def _run(cow, fixture, nn, **kw):
     cfg = ICPConfig(max_iter=10, solver="qcp_fused", nn_method=nn)
-    return icp(cow["ref"], cow[fixture], cfg, trace=True, **kw)
+    return icp(cow["ref"], cow[fixture], cfg, trace=True, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("fixture", ["cow_tr1", "cow_tr2"])
@@ -99,7 +99,7 @@ def test_float64_plain_path_matches_reference_binary(cow):
     """``bcast`` + ``eigh`` in float64 (the CPU default solver) reproduces
     the binary's trace to its printed precision, as the JAX f64 engine does."""
     cfg = ICPConfig(max_iter=10, dtype=torch.float64, solver="eigh", nn_method="bcast")
-    tr = icp(cow["ref"], cow["cow_tr1"], cfg, trace=True)
+    tr = icp(cow["ref"], cow["cow_tr1"], cfg, trace=True, device="cpu")
     iters = int(tr.result.iters)
     np.testing.assert_allclose(tr.errs[:iters].numpy(), reference_trace("cow_tr1"), rtol=1e-5)
     np.testing.assert_allclose(tr.result.points.numpy(), reference_output("cow_tr1"), atol=5e-6)
@@ -108,7 +108,7 @@ def test_float64_plain_path_matches_reference_binary(cow):
 @pytest.mark.parametrize("nn", ["pallas", "grid"])
 def test_fixed_iters_runs_every_iteration(cow, nn):
     res = icp_fixed_iters(cow["ref"], cow["cow_tr1"], n_iters=9, solver="qcp_fused",
-                          nn_method=nn)
+                          nn_method=nn, device="cpu")
     assert int(res.iters) == 9  # no convergence exit at iteration 7
     tr = _run(cow, "cow_tr1", nn)
     np.testing.assert_allclose(res.points.numpy(), tr.result.points.numpy(), atol=1e-5)
@@ -116,13 +116,15 @@ def test_fixed_iters_runs_every_iteration(cow, nn):
 
 def test_n_iters_bound_and_plain_result(cow):
     res = icp(cow["ref"], cow["cow_tr1"],
-              ICPConfig(max_iter=10, solver="qcp_fused", nn_method="pallas"), n_iters=3)
+              ICPConfig(max_iter=10, solver="qcp_fused", nn_method="pallas"), n_iters=3,
+              device="cpu")
     assert int(res.iters) == 3 and math.isfinite(float(res.err))
     with pytest.raises(ValueError, match="exceeds"):
-        icp(cow["ref"], cow["cow_tr1"], ICPConfig(max_iter=2), n_iters=3)
+        icp(cow["ref"], cow["cow_tr1"], ICPConfig(max_iter=2), n_iters=3, device="cpu")
     # nb_iter 0 (the reference's atoi of garbage): no iteration, scene as given
     tr = icp(cow["ref"], cow["cow_tr1"],
-             ICPConfig(max_iter=0, solver="qcp_fused", nn_method="pallas"), trace=True)
+             ICPConfig(max_iter=0, solver="qcp_fused", nn_method="pallas"), trace=True,
+             device="cpu")
     assert int(tr.result.iters) == 0 and math.isinf(float(tr.result.err))
     assert tr.errs.shape == (0,)
     np.testing.assert_array_equal(tr.result.points.numpy(),
@@ -134,18 +136,18 @@ def test_guard_raises_on_non_finite(cow):
     scene[5] = np.nan
     with pytest.raises(FloatingPointError):
         icp(cow["ref"], scene, ICPConfig(max_iter=3, solver="qcp_fused", nn_method="pallas"),
-            guard=True)
+            guard=True, device="cpu")
 
 
 def test_input_checks_and_options_not_ported(cow):
     with pytest.raises(ValueError, match="same number"):
-        icp(cow["ref"], cow["cow_tr1"][:100])
+        icp(cow["ref"], cow["cow_tr1"][:100], device="cpu")
     with pytest.raises(ValueError, match="at least 4"):
-        icp(cow["ref"][:3], cow["cow_tr1"][:3])
+        icp(cow["ref"][:3], cow["cow_tr1"][:3], device="cpu")
     with pytest.raises(NotImplementedError):
-        icp(cow["ref"], cow["cow_tr1"], ICPConfig(trim_fraction=0.1))
+        icp(cow["ref"], cow["cow_tr1"], ICPConfig(trim_fraction=0.1), device="cpu")
     with pytest.raises(NotImplementedError):
-        icp(cow["ref"], cow["cow_tr1"], guard="device")
+        icp(cow["ref"], cow["cow_tr1"], guard="device", device="cpu")
 
 
 def test_auto_resolution_mirrors_jax():
@@ -157,3 +159,56 @@ def test_auto_resolution_mirrors_jax():
         assert cfg.resolved_nn_method("cpu", n) == jcfg.resolved_nn_method("cpu", n)
     assert cfg.resolved_solver("cuda") == jcfg.resolved_solver("tpu") == "qcp_fused"
     assert cfg.resolved_solver("cpu") == jcfg.resolved_solver("cpu") == "eigh"
+
+
+def test_qcp_fused_with_bcast_takes_k5_and_the_explicit_residual(cow, monkeypatch):
+    """As JAX (``icp_tpu/engine/icp.py:171``), ``qcp_fused`` with an NN other
+    than ``pallas`` is the plain step: K5 for the rotation, then the explicit
+    residual, and no K2.  Iterations equal JAX's.  The trace is within
+    rtol 1e-2 of JAX's: JAX solves in float32 and lands 3.1e-3 off the
+    reference binary at iteration 4, while the port's float64 solve stays
+    within 1e-5 of the binary on every entry > 1e-6."""
+    import icp_tpu_torch.engine.icp as engine
+    from icp_tpu_torch.kernels import qcp as tq
+
+    calls = []
+    real = tq.qcp_rotation
+    monkeypatch.setattr(tq, "qcp_rotation", lambda b: calls.append(1) or real(b))
+    monkeypatch.setattr(engine, "qcp_step", None)  # K2 must not be reached
+    cfg = dict(max_iter=30, solver="qcp_fused", nn_method="bcast")
+    jtr = icp_tpu.icp(cow["ref"], cow["cow_tr1"], icp_tpu.ICPConfig(**cfg), trace=True)
+    tr = icp(cow["ref"], cow["cow_tr1"], ICPConfig(**cfg), trace=True, device="cpu")
+    n = int(tr.result.iters)
+    assert n == int(jtr.result.iters) == GOLDEN_ITERS["cow_tr1"] and len(calls) == n
+    got = tr.errs[:n].numpy().astype(np.float64)
+    big = got > 1e-6
+    np.testing.assert_allclose(got[big], np.asarray(jtr.errs)[:n][big], rtol=1e-2)
+    want = np.asarray(reference_trace("cow_tr1"))
+    np.testing.assert_allclose(got[big], want[big], rtol=1e-5)
+    # the explicit residual: after one step, 2 x the mean squared distance
+    # from the moved scene to its first matches
+    from icp_tpu_torch.ops.distance import closest_point_indices
+
+    one = icp(cow["ref"], cow["cow_tr1"], ICPConfig(**dict(cfg, max_iter=1)), device="cpu")
+    model = torch.tensor(cow["ref"], dtype=torch.float32)
+    scene = torch.tensor(cow["cow_tr1"], dtype=torch.float32)
+    y = model[closest_point_indices(scene, model, method="bcast").long()]
+    resid = 2.0 * float(((y - one.points) ** 2).sum(1).mean())
+    assert float(one.err) == pytest.approx(resid, rel=1e-5)
+
+
+def test_numpy_input_targets_the_card(cow, monkeypatch):
+    from icp_tpu_torch.engine.icp import target_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert target_device(cow["ref"]) == torch.device("cuda")
+    assert target_device(torch.zeros(4, 3)) == torch.device("cpu")  # a tensor stays
+    assert target_device(cow["ref"], "cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        icp(cow["ref"], cow["cow_tr1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        icp_fixed_iters(cow["ref"], cow["cow_tr1"], n_iters=2)
+    res = icp(torch.tensor(cow["ref"]), torch.tensor(cow["cow_tr1"]),
+              ICPConfig(max_iter=2), n_iters=1)
+    assert res.points.device.type == "cpu" and int(res.iters) == 1

@@ -13,6 +13,7 @@ REPO = os.path.dirname(PKG)
 
 def test_import_leaves_jax_out():
     code = ("import sys, icp_tpu_torch, icp_tpu_torch.engine.cli, icp_tpu_torch.engine.grid, "
+            "icp_tpu_torch.engine.point_to_plane, icp_tpu_torch.kernels.knn_grid, "
             "icp_tpu_torch.utils.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -46,7 +47,10 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
     for name, replaced in (("nn_dense.cu", "nn_pallas.py:99 _nn_kernel"),
                            ("qcp.cu", "qcp_pallas.py:122 _alignment_step_kernel"),
                            ("icp_fused.cu", "icp_fused.py:128 _icp_iter_kernel"),
-                           ("nn_grid.cu", "nn_grid.py:240 _pruned_kernel")):
+                           ("nn_grid.cu", "nn_grid.py:240 _pruned_kernel"),
+                           ("qcp.cu", "qcp_pallas.py:32 _qcp_kernel"),
+                           ("knn_dense.cu", "knn_pallas.py:59 _knn_kernel"),
+                           ("knn_grid.cu", "knn_grid.py:53 _knn_worklist_kernel")):
         with open(os.path.join(csrc, name)) as f:
             head = f.read(4000)
         assert f"icp_tpu/kernels/{replaced}" in head, name
