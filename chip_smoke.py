@@ -8,27 +8,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card, and ``nvidia-smi``'s name and power limit;
   2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
      process per source, all at once;
-  3. kernels: K1-K7 at the shapes of the main paths, each against its plain
-     PyTorch version on the same inputs on the card (indices exactly equal,
-     float64 sums and state blocks within the stated tolerances), with the
-     median times of both (CUDA events) and the least time the card could
-     take for the same work (``bound_ms``, from this run's inputs);
+  3. kernels: K1-K9 at the shapes of the main paths, each against its plain
+     PyTorch version on the same inputs on the card (indices and float32
+     outputs exactly equal, float64 sums and state blocks within the stated
+     tolerances), with the median times of both (CUDA events) and the least
+     time the card could take for the same work (``bound_ms``, from this
+     run's inputs);
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
      --solver qcp_fused`` (K5), each held against the reference binary's
-     fixtures; point-to-plane (``--engine point_to_plane``) on cow_tr1 30
-     and cow_tr2 30 against the JAX CLI's fixtures, and on horse_tr1 30
-     (grid path, K7 normals) against the port's own dense path.  The launch
+     fixtures; ``--engine point_to_plane``, ``symmetric`` and ``gicp`` on
+     cow_tr1 30 and cow_tr2 30 against the JAX CLI's fixtures, and on
+     horse_tr1 30 (grid path, K7 normals) against the port's own dense
+     path; the lane-chunked NN (K8) through its entry point at K1's shapes
+     against K1; the bf16 prefilter (K9) through ``icp_symmetric`` with
+     ``nn_method="bf16"`` on a seeded surface and on cow_tr1.  The launch
      counts of each run are read with the counts set to 0 just before it.
-     Then ms/iter of the cow and horse loops of both engines, and the
+     Then ms/iter of the cow and horse loops of the four engines, and the
      normals' ms;
   5. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
      jitter, a known similarity): 10 fixed point-to-point grid iterations,
      the first iteration's correspondences checked against K1 brute force
-     on 65,536 seeded scene rows; K7 normals of the model, their neighbours
-     checked against K6 on 16,384 seeded rows; 10 fixed point-to-plane grid
-     iterations with a falling error.
+     on 65,536 seeded scene rows; K7 normals of both clouds, the model's
+     neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
+     iterations of the point-to-plane, symmetric and GICP engines, each
+     with a falling error.
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -51,7 +56,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(ROOT, "tests", "fixtures", "reference")
-P2PL_FIXDIR = os.path.join(ROOT, "tests", "fixtures", "torch_p2pl")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 _TRACE_RE = re.compile(r"\[ICP\] iteration number (\d+) \| error value = (\S+)")
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -62,6 +67,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "qcp_rotation": ("icp_tpu_torch/csrc/qcp.cu", "icp_tpu/kernels/qcp_pallas.py:32"),
     "knn_dense": ("icp_tpu_torch/csrc/knn_dense.cu", "icp_tpu/kernels/knn_pallas.py:59"),
     "knn_grid": ("icp_tpu_torch/csrc/knn_grid.cu", "icp_tpu/kernels/knn_grid.py:53"),
+    "nn_chunked": ("icp_tpu_torch/csrc/nn_chunked.cu", "icp_tpu/kernels/nn_pallas.py:49"),
+    "nn_bf16": ("icp_tpu_torch/csrc/nn_bf16.cu", "icp_tpu/kernels/nn_bf16.py:60"),
 }
 # (fixture, model file, scene file, nb_iter, iterations, output atol, extra flags)
 CLI_CASES = [
@@ -70,8 +77,15 @@ CLI_CASES = [
     ("horse_tr1", "horse_ref.txt", "horse_tr1.txt", 3, 3, 2e-6, []),
     ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5, ["--nn", "bcast", "--solver", "qcp_fused"]),
 ]
-# point-to-plane against the JAX CLI's fixtures: (fixture, scene file, iterations)
-P2PL_CASES = [("cow_tr1", "cow_tr1.txt", 3), ("cow_tr2", "cow_tr2.txt", 6)]
+# the plane engines against the JAX CLI's fixtures:
+# engine -> (fixture folder, short label, {pair: iterations})
+PLANE_CASES = {
+    "point_to_plane": ("torch_p2pl", "p2pl", {"cow_tr1": 3, "cow_tr2": 6}),
+    "symmetric": ("torch_sym", "sym", {"cow_tr1": 3, "cow_tr2": 5}),
+    "gicp": ("torch_gicp", "gicp", {"cow_tr1": 3, "cow_tr2": 4}),
+}
+# the engines that estimate normals of both clouds
+BOTH_NORMALS = ("symmetric", "gicp")
 TRACE_RTOL = 1e-2  # on entries > 1e-6: float32 coordinates, see ROADMAP C6
 NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
 # The card's peaks for the bounds (H100 SXM data sheet, the on-chip
@@ -79,6 +93,7 @@ NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PAIR_OPS = 8  # float32 operations per distance: 3 sub, 3 mul, 2 add
+PEAK_BF16 = 989e12  # dense bf16 tensor cores: K9's cross term
 
 
 class SmokeError(RuntimeError):
@@ -121,8 +136,11 @@ def bound(ops: float, nbytes: float):
     """(least ms, what bounds it): the larger of operations over the float32
     peak and bytes (each input read once, each output written once) over
     the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return slower(ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def slower(ops_ms: float, bytes_ms: float):
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def nbytes(*tensors) -> int:
@@ -183,7 +201,15 @@ def phase_kernels(seed: int, record: dict):
     import torch
 
     from icp_tpu_torch.engine.grid import _prepare_scene
-    from icp_tpu_torch.kernels import icp_fused, knn_dense, knn_grid, nn_dense, nn_grid, qcp
+    from icp_tpu_torch.kernels import (
+        icp_fused,
+        knn_dense,
+        knn_grid,
+        nn_bf16,
+        nn_dense,
+        nn_grid,
+        qcp,
+    )
     from icp_tpu_torch.ops.alignment import Similarity, compute_alignment_stats
     from icp_tpu_torch.ops.normals import estimate_normals, knn_indices
 
@@ -407,6 +433,73 @@ def phase_kernels(seed: int, record: dict):
     say("kernels", kernel="knn_grid", shape="48485x48485", k=NORMAL_K, equal_to_knn_dense=True,
         ms=f"{k7_ms:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
 
+    # K8: K1's shapes (cow 2,903^2, the grid seed 49,152 x 3,031); indices
+    # equal to K1's and to the plain version's, with K1's time beside.
+    k8 = {}
+    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse_seed", p0, sub)):
+        ik = nn_dense.nn_chunked(s, m)
+        require(torch.equal(ik, nn_dense.nn_chunked_plain(s, m)),
+                f"K8 {label}: indices differ from plain")
+        require(torch.equal(ik, nn_dense.nn_dense(s, m)), f"K8 {label}: indices differ from K1")
+        k8[label] = (cuda_ms(lambda: nn_dense.nn_chunked(s, m), 20),
+                     cuda_ms(lambda: nn_dense.nn_chunked_plain(s, m), 5),
+                     cuda_ms(lambda: nn_dense.nn_dense(s, m), 20))
+        say("kernels", kernel="nn_chunked", shape=f"{s.shape[0]}x{m.shape[0]}",
+            idx_equal_plain=True, idx_equal_k1=True, ms=f"{k8[label][0]:.4f}",
+            plain_ms=f"{k8[label][1]:.4f}", k1_ms=f"{k8[label][2]:.4f}")
+    n, m = p0.shape[0], sub.shape[0]
+    record["nn_chunked"] = entry(0.0, *k8["horse_seed"][:2],
+                                 bound(PAIR_OPS * n * m, 12 * n + 12 * m + 4 * n))
+
+    # K9: cow (tr1 onto ref) and horse 48,485^2 (tr1 onto ref), centred as
+    # closest_point_indices_bf16 centres them; all four outputs bit-equal
+    # to the plain version's, certified rows equal to K1 on the same clouds.
+    # Neither certifies a row (their extent is far above their spacing), so
+    # a jittered 4^3 lattice with 8,192 scene points beside its sites, where
+    # the margins exceed the bf16 band, holds the certificate itself.
+    rng = np.random.default_rng(seed + 9)
+    sites = np.stack(np.meshgrid(*[np.arange(4.0)] * 3), -1).reshape(-1, 3)
+    lat_m = torch.tensor(sites + 0.01 * rng.standard_normal(sites.shape), **f32)
+    lat_s = torch.tensor(sites[rng.integers(0, len(sites), 8192)]
+                         + 0.02 * rng.standard_normal((8192, 3)), **f32)
+    k9 = {}
+    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse", horse_tr1, horse_ref),
+                        ("lattice", lat_s, lat_m)):
+        c = m.mean(0)
+        sc, mc = (s - c).contiguous(), (m - c).contiguous()
+        outs = nn_bf16.nn_bf16(sc, mc)
+        for name, a, b in zip(("idx", "best", "second", "d_exact"), outs,
+                              nn_bf16.nn_bf16_plain(sc, mc)):
+            require(torch.equal(a, b), f"K9 {label}: {name} differs from plain")
+        idx, dex, cert = nn_bf16.closest_point_indices_bf16(s, m)
+        require(torch.equal(idx, outs[0]), f"K9 {label}: entry point differs from the kernel")
+        ik1, d1 = nn_dense.nn_dense(sc, mc, with_dist=True)
+        require(torch.equal(idx[cert], ik1[cert]), f"K9 {label}: a certified index is not the NN")
+        require(label != "lattice" or float(cert.double().mean()) > 0.5,
+                f"K9 lattice: only {int(cert.sum())} of {cert.numel()} rows certified")
+        require(bool((dex >= d1).all()), f"K9 {label}: d_exact below the NN distance")
+        heavy = s.shape[0] > 10_000
+        ms = cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), 5 if heavy else 20)
+        plain_ms = cuda_ms(lambda: nn_bf16.nn_bf16_plain(sc, mc), 2 if heavy else 5, warmup=1)
+        # The least time for the function: the cross term as a bf16
+        # product on the tensor cores (K padded to 16: 32 operations a
+        # pair) while the float32 units add the norm and make the fold's
+        # two compares (3 a pair), or the bytes, whichever takes longest.
+        # The all-float32 form this kernel has (8 operations a pair) is
+        # printed beside it.
+        n, m_rows = s.shape[0], m.shape[0]
+        pairs, io_bytes = n * m_rows, 12 * n + 12 * m_rows + 16 * n
+        tc_ms, f32_ms = 32 * pairs / PEAK_BF16 * 1e3, 3 * pairs / PEAK_FLOPS * 1e3
+        k9[label] = entry(0.0, ms, plain_ms,
+                          slower(max(tc_ms, f32_ms), io_bytes / PEAK_BYTES * 1e3))
+        say("kernels", kernel="nn_bf16", shape=f"{n}x{m_rows}", outputs_equal_plain=True,
+            certified_share=f"{float(cert.double().mean()):.4f}",
+            idx_equal_k1_share=f"{float((idx == ik1).double().mean()):.4f}",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{k9[label]['bound_ms']:.6f}",
+            tensor_core_product_ms=f"{tc_ms:.6f}", float32_add_compares_ms=f"{f32_ms:.6f}",
+            all_float32_bound_ms=f"{bound(PAIR_OPS * pairs, io_bytes)[0]:.6f}")
+    record["nn_bf16"] = k9["cow"]  # the main path's shape: the bf16 runs on cow
+
 
 def _golden(path):
     with open(path) as f:
@@ -466,13 +559,8 @@ def _add(total: dict, used: dict) -> None:
 
 
 def phase_cli(tmp: str) -> dict:
-    """The main paths through the CLI; returns the launches of every run."""
-    import torch
-
-    from icp_tpu_torch import ICPConfig, icp_point_to_plane
-    from icp_tpu_torch.io.csv import load_matrix
-    from icp_tpu_torch.ops.normals import estimate_normals
-
+    """The main paths through the CLI and the entry points of K8 and K9;
+    returns the launches of every run."""
     total = {}
     for fixture, ref, scene, nb_iter, want_iters, atol, extra in CLI_CASES:
         label = fixture + ("_k5" if extra else "")
@@ -497,37 +585,70 @@ def phase_cli(tmp: str) -> dict:
         say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
 
-    for fixture, scene, want_iters in P2PL_CASES:
-        label = f"p2pl_{fixture}"
+    for engine, (folder, short, pairs) in PLANE_CASES.items():
+        _add(total, _plane_engine_cli(tmp, engine, folder, short, pairs))
+    _add(total, _chunked_entry())
+    _add(total, _bf16_path())
+    return total
+
+
+def run_plane_engine(engine, model, scene, cfg, normals, scene_normals=None, **kw):
+    """One plane-metric engine with the normals given (``scene_normals`` for
+    the engines that take both clouds')."""
+    from icp_tpu_torch import icp_generalized, icp_point_to_plane, icp_symmetric
+
+    if engine == "point_to_plane":
+        return icp_point_to_plane(model, scene, cfg, normals=normals, **kw)
+    if engine == "symmetric":
+        return icp_symmetric(model, scene, cfg, normals=normals, scene_normals=scene_normals, **kw)
+    return icp_generalized(model, scene, cfg, model_normals=normals, scene_normals=scene_normals,
+                           **kw)
+
+
+def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dict) -> dict:
+    """``--engine engine`` on the cow pairs against the JAX CLI's fixtures
+    (dense: K6 normals, K1) and on horse_tr1 (grid: K7 normals, K4 with the
+    normals payload) against the port's own dense path on the card."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.io.csv import load_matrix
+    from icp_tpu_torch.ops.normals import estimate_normals
+
+    total = {}
+    fixdir = os.path.join(FIXTURES, folder)
+    clouds = 2 if engine in BOTH_NORMALS else 1  # clouds whose normals are estimated
+    for fixture, want_iters in pairs.items():
+        label = f"{short}_{fixture}"
         out_path = os.path.join(tmp, f"{label}_output.txt")
         rc, got, err, seconds, used = _run_cli(
-            [os.path.join(ROOT, "data", "cow_ref.txt"), os.path.join(ROOT, "data", scene), "30",
-             "--engine", "point_to_plane", "--output", out_path])
+            [os.path.join(ROOT, "data", "cow_ref.txt"), os.path.join(ROOT, "data", f"{fixture}.txt"),
+             "30", "--engine", engine, "--output", out_path])
         require(rc == 0, f"cli {label}: exit {rc}\n{err}")
-        worst = _check_trace(label, got,
-                             _golden(os.path.join(P2PL_FIXDIR, f"{fixture}_stderr.txt")), want_iters)
-        off = _check_output(label, out_path, os.path.join(P2PL_FIXDIR, f"{fixture}_output.txt"), 1e-5)
-        require(used["knn_dense"] == 1 and used["nn_dense"] >= want_iters,
-                f"cli {label}: dense point-to-plane path not taken ({used})")
+        worst = _check_trace(label, got, _golden(os.path.join(fixdir, f"{fixture}_stderr.txt")),
+                             want_iters)
+        off = _check_output(label, out_path, os.path.join(fixdir, f"{fixture}_output.txt"), 1e-5)
+        require(used["knn_dense"] == clouds and used["nn_dense"] >= want_iters,
+                f"cli {label}: dense {engine} path not taken ({used})")
         _add(total, used)
         say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
 
-    # horse: the grid path (K7 normals, K4 with the normals payload) against
-    # the port's own dense path (K6 normals, K1) on the card
-    label = "p2pl_horse_tr1"
+    label = f"{short}_horse_tr1"
     out_path = os.path.join(tmp, f"{label}_output.txt")
     rc, got, err, seconds, used = _run_cli(
         [os.path.join(ROOT, "data", "horse_ref.txt"), os.path.join(ROOT, "data", "horse_tr1.txt"),
-         "30", "--engine", "point_to_plane", "--output", out_path])
+         "30", "--engine", engine, "--output", out_path])
     require(rc == 0, f"cli {label}: exit {rc}\n{err}")
-    require(used["knn_grid"] == 2 and used["nn_grid"] >= len(got) and used["nn_dense"] >= 1,
-            f"cli {label}: grid point-to-plane path not taken ({used})")
+    require(used["knn_grid"] == 2 * clouds and used["nn_grid"] >= len(got)
+            and used["nn_dense"] >= 1, f"cli {label}: grid {engine} path not taken ({used})")
     _add(total, used)
     model = torch.tensor(_load("horse_ref.txt"), dtype=torch.float32, device="cuda")
     scene_t = torch.tensor(_load("horse_tr1.txt"), dtype=torch.float32, device="cuda")
-    dense = icp_point_to_plane(model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
-                               normals=estimate_normals(model, method="dense"), trace=True)
+    normals = estimate_normals(model, method="dense")
+    scene_normals = estimate_normals(scene_t, method="dense") if clouds == 2 else None
+    dense = run_plane_engine(engine, model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
+                             normals, scene_normals, trace=True)
     n_dense = int(dense.result.iters)
     require(len(got) == n_dense, f"cli {label}: {len(got)} iterations, dense path {n_dense}")
     with contextlib.redirect_stderr(io.StringIO()):
@@ -542,6 +663,113 @@ def phase_cli(tmp: str) -> dict:
     return total
 
 
+def _counted(fn):
+    """(fn's result, launches) with the counts set to 0 just before it and
+    read just after."""
+    import torch
+
+    from icp_tpu_torch.kernels import _build
+
+    _build.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES)
+
+
+def _chunked_entry() -> dict:
+    """K8 through its entry point, ``closest_point_indices_dense(...,
+    distance_impl="chunked")``, at K1's main-path shapes (cow, and the grid
+    seed of horse), against K1 on the same clouds.  No engine takes K8, as
+    no JAX engine takes the chunked form."""
+    import torch
+
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels.nn_dense import closest_point_indices_dense
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    horse_ref = torch.tensor(_load("horse_ref.txt"), **f32)
+    cases = {"cow": (torch.tensor(_load("cow_tr1.txt"), **f32),
+                     torch.tensor(_load("cow_ref.txt"), **f32)),
+             "horse_seed": (_prepare_scene(torch.tensor(_load("horse_tr1.txt"), **f32), 256)[0],
+                            horse_ref[::16])}
+    want = {k: closest_point_indices_dense(s, m) for k, (s, m) in cases.items()}
+    got, used = _counted(lambda: {k: closest_point_indices_dense(s, m, distance_impl="chunked")
+                                  for k, (s, m) in cases.items()})
+    for k in cases:
+        require(torch.equal(got[k], want[k]), f"nn_chunked entry {k}: indices differ from K1")
+    require(used["nn_chunked"] == len(cases) and used["nn_dense"] == 0,
+            f"nn_chunked entry: K8 not taken ({used})")
+    say("path", case="nn_chunked_entry", shapes="2903x2903,49152x3031", idx_equal_k1=True,
+        launches=used)
+    return used
+
+
+def surface(rng, n):
+    """The curved surface of the symmetric engine's tests:
+    z = 0.3 sin(2x) + 0.2 y^2 over [-1, 1]^2."""
+    import numpy as np
+
+    xy = rng.uniform(-1.0, 1.0, (n, 2))
+    return np.column_stack([xy, 0.3 * np.sin(2.0 * xy[:, 0]) + 0.2 * xy[:, 1] ** 2])
+
+
+def rigid(rng, angle):
+    """A rotation by ``angle`` about a seeded axis and a seeded shift."""
+    import numpy as np
+
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    R = np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * (K @ K)
+    return R, rng.standard_normal(3) * 0.05
+
+
+def _bf16_path() -> dict:
+    """K9 through ``icp_symmetric`` with ``nn_method="bf16"``: on the seeded
+    500-point surface (an exact transform) it must register; on cow_tr1 it
+    may stall inside the bf16 band (the JAX package's behaviour too), and
+    only a finite trace is required."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch import ICPConfig, closest_point_indices_bf16, icp_symmetric
+
+    rng = np.random.default_rng(43)
+    model = surface(rng, 500).astype(np.float32)
+    R, t = rigid(rng, 0.1)
+    scene = (model.astype(np.float64) @ R.T + t).astype(np.float32)
+    m_t, s_t = (torch.tensor(a, device="cuda") for a in (model, scene))
+    cfg = ICPConfig(max_iter=40, threshold=1e-10, nn_method="bf16", validate_inputs=False)
+    res, used = _counted(lambda: icp_symmetric(m_t, s_t, cfg))
+    iters = int(res.iters)
+    steps = min(40, 8 * math.ceil(iters / 8))  # the gated loop launches whole chunks
+    require(used["nn_bf16"] == steps and used["knn_dense"] == 2 and used["nn_dense"] == 0,
+            f"bf16 surface: K9 not launched once an iteration ({used}, {iters} iterations)")
+    dev = float(np.median(np.linalg.norm(res.points.cpu().numpy() - model, axis=1)))
+    require(dev < 1e-2, f"bf16 surface: median deviation {dev:.3g}")
+    say("path", case="bf16_symmetric_surface", points=500, iters=iters,
+        median_deviation=f"{dev:.3e}", err=f"{float(res.err):.3e}", launches=used)
+    total = dict(used)
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    cow_ref = torch.tensor(_load("cow_ref.txt"), **f32)
+    cow_tr1 = torch.tensor(_load("cow_tr1.txt"), **f32)
+    tr, used = _counted(lambda: icp_symmetric(cow_ref, cow_tr1,
+                                              ICPConfig(max_iter=30, nn_method="bf16"),
+                                              trace=True))
+    iters = int(tr.result.iters)
+    errs = tr.errs[:iters].tolist()
+    require(iters >= 1 and all(map(math.isfinite, errs)), f"bf16 cow: trace {errs}")
+    require(used["nn_bf16"] >= iters, f"bf16 cow: K9 not taken ({used})")
+    _add(total, used)
+    first = float(closest_point_indices_bf16(cow_tr1, cow_ref)[2].double().mean())
+    last = float(closest_point_indices_bf16(tr.result.points, cow_ref)[2].double().mean())
+    say("path", case="bf16_symmetric_cow_tr1", iters=iters,
+        trace=",".join(f"{e:.6g}" for e in errs), certified_share_first=f"{first:.4f}",
+        certified_share_last=f"{last:.4f}", launches=used)
+    return total
+
+
 def _wall(fn) -> float:
     import torch
 
@@ -553,9 +781,12 @@ def _wall(fn) -> float:
 
 
 def phase_loop_times():
+    """ms/iter and set-up ms of the four engines on cow (dense) and horse
+    (grid); the plane engines get their normals (the model's timed) before
+    the loop."""
     import torch
 
-    from icp_tpu_torch import ICPConfig, icp_point_to_plane
+    from icp_tpu_torch import ICPConfig
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.ops.normals import estimate_normals
 
@@ -579,17 +810,20 @@ def phase_loop_times():
         t_n = statistics.median(_wall(lambda: estimate_normals(model, method=method))
                                 for _ in range(3))
         normals = estimate_normals(model, method=method)
+        scene_normals = estimate_normals(sc, method=method)
 
-        def run_pl(k):
-            cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method=nn)
-            return _wall(lambda: float(icp_point_to_plane(model, sc, cfg, normals=normals).err))
+        for engine in PLANE_CASES:
+            def run_pl(k):
+                cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method=nn)
+                return _wall(lambda: float(run_plane_engine(engine, model, sc, cfg, normals,
+                                                            scene_normals).err))
 
-        run_pl(2)
-        t1 = statistics.median(run_pl(1) for _ in range(3))
-        t21 = statistics.median(run_pl(21) for _ in range(3))
-        say("loop", case=label, engine="point_to_plane", path=nn, normals=method,
-            normals_ms=f"{t_n * 1e3:.3f}", ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}",
-            setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
+            run_pl(2)
+            t1 = statistics.median(run_pl(1) for _ in range(3))
+            t21 = statistics.median(run_pl(21) for _ in range(3))
+            say("loop", case=label, engine=engine, path=nn, normals=method,
+                normals_ms=f"{t_n * 1e3:.3f}", ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}",
+                setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
 
 
 def scale_pair(seed: int, n: int = 1_000_000):
@@ -619,11 +853,15 @@ def phase_scale(seed: int):
     import numpy as np
     import torch
 
-    from icp_tpu_torch import ICPConfig, icp_point_to_plane
+    from icp_tpu_torch import ICPConfig
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
-    from icp_tpu_torch.ops.normals import knn_indices, normals_from_neighbor_indices
+    from icp_tpu_torch.ops.normals import (
+        estimate_normals,
+        knn_indices,
+        normals_from_neighbor_indices,
+    )
 
     n = 1_000_000
     model, scene, s_true = scale_pair(seed, n)
@@ -677,24 +915,32 @@ def phase_scale(seed: int):
     say("scale", normals_points=n, k=NORMAL_K, knn_grid_ms=f"{t_knn * 1e3:.3f}",
         pca_ms=f"{t_pca * 1e3:.3f}", knn_peak_gib=f"{peak_gb:.2f}", rows_checked=16384)
 
-    def run_pl(k):
-        cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method="grid")
-        holder.clear()
-        t = _wall(lambda: holder.update(tr=icp_point_to_plane(model, scene, cfg, normals=normals,
-                                                               trace=True)))
-        return t, holder["tr"]
+    t_sn = _wall(lambda: holder.update(scene_normals=estimate_normals(scene, method="grid")))
+    scene_normals = holder["scene_normals"]
+    require(bool(torch.isfinite(scene_normals).all()), "scale: non-finite scene normals")
+    say("scale", scene_normals_points=n, method="grid", ms=f"{t_sn * 1e3:.3f}")
 
-    run_pl(1)
-    t1, _ = run_pl(1)
-    t10, tr = run_pl(10)
-    errs = tr.errs.tolist()
-    require(int(tr.result.iters) == 10 and all(map(math.isfinite, errs)),
-            f"scale: point-to-plane errors {errs}")
-    require(errs[9] < errs[0], f"scale: point-to-plane error {errs[0]} -> {errs[9]}")
-    require(bool(torch.isfinite(tr.result.points).all()), "scale: bad point-to-plane cloud")
-    say("scale", engine="point_to_plane", points=f"{n}x{n}", err_iter1=f"{errs[0]:.6e}",
-        err_iter10=f"{errs[9]:.6e}", ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}",
-        ten_iters_s=f"{t10:.3f}")
+    for engine in PLANE_CASES:
+        def run_pl(k):
+            cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method="grid")
+            holder.clear()
+            t = _wall(lambda: holder.update(tr=run_plane_engine(
+                engine, model, scene, cfg, normals, scene_normals, trace=True)))
+            return t, holder["tr"]
+
+        run_pl(1)
+        t1, _ = run_pl(1)
+        t10, tr = run_pl(10)
+        errs = tr.errs.tolist()
+        require(int(tr.result.iters) == 10 and all(map(math.isfinite, errs)),
+                f"scale: {engine} errors {errs}")
+        require(errs[9] < errs[0], f"scale: {engine} error {errs[0]} -> {errs[9]}")
+        require(bool(torch.isfinite(tr.result.points).all()), f"scale: bad {engine} cloud")
+        say("scale", engine=engine, points=f"{n}x{n}", err_iter1=f"{errs[0]:.6e}",
+            err_iter10=f"{errs[9]:.6e}", ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}",
+            ten_iters_s=f"{t10:.3f}")
+        del tr
+        holder.clear()
 
 
 def main(argv=None) -> int:

@@ -10,8 +10,11 @@ PyTorch version.
 
 from icp_tpu_torch.config import GRID_AUTO_THRESHOLD, ICPConfig
 from icp_tpu_torch.engine.icp import ICPResult, ICPTrace, icp, icp_fixed_iters, icp_step
+from icp_tpu_torch.engine.gicp import disk_covariances, icp_generalized
 from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
+from icp_tpu_torch.engine.symmetric import icp_symmetric
 from icp_tpu_torch.io.csv import load_matrix, write_matrix
+from icp_tpu_torch.kernels.nn_bf16 import closest_point_indices_bf16
 from icp_tpu_torch.ops.alignment import (
     AlignmentStats,
     Similarity,
@@ -39,6 +42,10 @@ __all__ = [
     "icp_fixed_iters",
     "icp_step",
     "icp_point_to_plane",
+    "icp_symmetric",
+    "icp_generalized",
+    "disk_covariances",
+    "closest_point_indices_bf16",
     "estimate_normals",
     "orient_normals",
     "load_matrix",

@@ -37,7 +37,9 @@ class ICPConfig:
       solver: ``"eigh"``, ``"qcp"``, ``"kabsch"``, ``"qcp_fused"`` (the
         scalar-solve kernel) or ``"auto"``.
       nn_method: ``"bcast"``, ``"matmul"``, ``"pallas"`` (dense kernel),
-        ``"grid"`` (kd-tile kernel) or ``"auto"``.
+        ``"grid"`` (kd-tile kernel), ``"bf16"`` (the approximate bf16
+        prefilter K9 with an exact recheck of the winner, for the dense
+        loops; ``"auto"`` never picks it) or ``"auto"``.
       scene_tile / model_tile: the JAX kernels' tile sizes, kept so one
         config means the same in both packages; the CUDA kernels choose
         their own block shapes and do not read them.

@@ -9,12 +9,12 @@ Reference surface (``src/main.cc:6-25``):
 
 ``--device {cuda,cpu}`` (default ``cuda``) picks where the run happens;
 ``cuda`` on a machine without a CUDA device exits with -1 — the CLI never
-moves to the CPU on its own.  ``--engine point_to_plane`` runs
-``icp_point_to_plane`` with the same stderr trace and ``output.txt``
-(``icp_tpu/engine/cli.py:180-183``).  The JAX CLI's flags are all accepted;
-those whose engines are not ported yet (``--engine gicp``/``symmetric``,
-``--sharded``, ``--checkpoint*``, ``--resume``, ``--metrics*``,
-``--trim`` > 0) exit -1 with a one-line message.
+moves to the CPU on its own.  ``--engine point_to_plane``, ``symmetric``
+and ``gicp`` run ``icp_point_to_plane``, ``icp_symmetric`` and
+``icp_generalized`` with the same stderr trace and ``output.txt``
+(``icp_tpu/engine/cli.py:180-191``).  The JAX CLI's flags are all accepted;
+those not ported yet (``--sharded``, ``--checkpoint*``, ``--resume``,
+``--metrics*``, ``--trim`` > 0) exit -1 with a one-line message.
 """
 
 from __future__ import annotations
@@ -62,8 +62,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> str | None:
     flags = [
-        (args.engine not in ("point_to_point", "point_to_plane"),
-         f"--engine {args.engine}"),
         (args.sharded, "--sharded"),
         (args.checkpoint is not None, "--checkpoint"),
         (bool(args.checkpoint_every), "--checkpoint-every"),
@@ -111,11 +109,14 @@ def main(argv=None) -> int:
     )
     try:
         if args.engine == "point_to_plane":
-            from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
-
-            tr = icp_point_to_plane(model, scene, cfg, trace=True, device=args.device)
+            from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane as run
+        elif args.engine == "gicp":
+            from icp_tpu_torch.engine.gicp import icp_generalized as run
+        elif args.engine == "symmetric":
+            from icp_tpu_torch.engine.symmetric import icp_symmetric as run
         else:
-            tr = icp(model, scene, cfg, trace=True, device=args.device)
+            run = icp
+        tr = run(model, scene, cfg, trace=True, device=args.device)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return -1

@@ -1,0 +1,207 @@
+"""Generalized-ICP, plane to plane (port of ``icp_tpu/engine/gicp.py``;
+Segal et al.).
+
+Each point carries a disk covariance ``C = I - (1 - eps) n n^T``, wide in its
+tangent plane and ``eps`` along its normal.  The residual ``d = y - T p`` of
+a match is weighted by ``M = (C_y + R C_p R^T)^-1``, and the 6-vector
+Gauss-Newton step solves ``sum J^T M J x = sum J^T M d``.  The inverses are
+closed-form adjugates (no batched LU per point on the card), the 6x6 system
+is two matrix products over the (N*3, 6) rows, and the step is Rodrigues'
+rotation, as in ``engine/point_to_plane.py``.  The reported error is the
+mean Mahalanobis residual after the step (over N, or over the weight sum of
+the kd-padded rows in the grid loop).
+
+Two loops, as in JAX:
+  * dense (``_gicp_dense``): NN by ``closest_point_indices``, then the
+    (y, C_y) gather; the scene covariances co-rotate, ``C <- R C R^T``;
+  * grid (``_gicp_grid``): the model normals ride K4's payload slot and
+    ``C_y`` is rebuilt from the emitted normal; the scene covariances are
+    kd-permuted once, with the identity on the padding rows (weight 0).
+
+The float32 einsums of the sums stand where JAX writes
+``Precision.HIGHEST``: they need full-float32 matmuls, PyTorch's default
+(no TF32).  The loops stay on the device (``LoopState.record_on_device``).
+Rigid only; ``trim_fraction > 0``, bucket padding and the sharded variant
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from icp_tpu_torch.config import ICPConfig
+from icp_tpu_torch.engine.icp import LoopState, _validate, as_points
+from icp_tpu_torch.engine.point_to_plane import _gated, _rodrigues, _solve6
+from icp_tpu_torch.ops.alignment import Similarity
+from icp_tpu_torch.ops.distance import closest_point_indices
+from icp_tpu_torch.ops.transform import (
+    apply_similarity,
+    cast_similarity,
+    compose,
+    identity_similarity,
+)
+
+
+def disk_covariances(normals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """(N, 3) unit normals -> (N, 3, 3) plane-disk covariances
+    ``I - (1 - eps) n n^T``."""
+    eye = torch.eye(3, dtype=normals.dtype, device=normals.device)
+    nnT = normals[:, :, None] * normals[:, None, :]
+    return eye[None] - (1.0 - eps) * nnT
+
+
+def _inv3_batched(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverses of (N, 3, 3) by adjugate / det; a determinant
+    below 1e-30 in magnitude divides by 1 instead."""
+    a, b, c = M[:, 0, 0], M[:, 0, 1], M[:, 0, 2]
+    d, e, f = M[:, 1, 0], M[:, 1, 1], M[:, 1, 2]
+    g, h, i = M[:, 2, 0], M[:, 2, 1], M[:, 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(det.abs() < 1e-30, torch.ones_like(det), det)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), b * f - c * e], dim=-1),
+        torch.stack([B, a * i - c * g, -(a * f - c * d)], dim=-1),
+        torch.stack([C, -(a * h - b * g), a * e - b * d], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[:, None, None]
+
+
+def _rotate_covariances(R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """``R C_n R^T`` for every (3, 3) ``C_n``."""
+    return R @ C @ R.T
+
+
+def _gicp_system(p, y, Cy, cov_p, weights=None):
+    """Residuals and the 6x6 normal equations of matched (p, y) under
+    ``M = (C_y + C_p)^-1``, rows weighted by ``weights`` (padding rows 0)
+    -> (sim, p_new, err)."""
+    dt, dev = p.dtype, p.device
+    n = p.shape[0]
+    M = _inv3_batched(Cy + cov_p)
+    if weights is not None:
+        M = M * weights[:, None, None]
+    zeros = torch.zeros_like(p[:, 0])
+    px = torch.stack([
+        torch.stack([zeros, -p[:, 2], p[:, 1]], dim=-1),
+        torch.stack([p[:, 2], zeros, -p[:, 0]], dim=-1),
+        torch.stack([-p[:, 1], p[:, 0], zeros], dim=-1),
+    ], dim=-2)  # [p]_x
+    J = torch.cat([px, -torch.eye(3, dtype=dt, device=dev).expand(n, 3, 3)], dim=-1)
+    Jr = J.reshape(n * 3, 6)
+    A = Jr.T @ (M @ J).reshape(n * 3, 6)
+    b = Jr.T @ (M @ (y - p)[:, :, None]).reshape(n * 3)
+    x = _solve6(A, b)
+    sim = Similarity(s=torch.ones((), dtype=dt, device=dev), R=_rodrigues(x[:3]), t=x[3:])
+    p_new = apply_similarity(p, sim)
+    dn = y - p_new
+    e = (dn * (M @ dn[:, :, None])[:, :, 0]).sum(1)
+    nw = n if weights is None else weights.sum()
+    return sim, p_new, e.sum() / nw
+
+
+def _gicp_dense(model, cov_m, scene, cov_s, *, threshold: float, max_iter: int,
+                nn_method: str, init: Optional[Similarity], trace: bool):
+    dt, dev = scene.dtype, scene.device
+    p, cov_p = scene, cov_s
+    if init is not None:
+        p, cov_p = apply_similarity(scene, init), _rotate_covariances(init.R, cov_s)
+    total = identity_similarity(dt, dev) if init is None else init
+    loop = LoopState(max_iter, max_iter, threshold, False, dev)
+
+    def step():
+        nonlocal p, cov_p, total
+        idx = closest_point_indices(p, model, method=nn_method).to(torch.int64)
+        sim, p_new, err = _gicp_system(p, model[idx], cov_m[idx], cov_p)
+        done = loop.record_on_device(err)
+        cov_p = _gated(done, cov_p, _rotate_covariances(sim.R, cov_p))
+        p = _gated(done, p, p_new)
+        total = _gated(done, total, compose(total, sim))
+
+    loop.run(step)
+    return loop.finish(p, total, dt, trace)
+
+
+def _gicp_grid(model, normals, scene, cov_s, *, threshold: float, max_iter: int,
+               scene_tile_target: int, model_tile_target: int, max_candidates: int,
+               eps: float, init: Optional[Similarity], trace: bool):
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels.nn_grid import (
+        bound_from_indices,
+        build_model_grid,
+        closest_point_indices_grid,
+        initial_bound_indices,
+        next_bound,
+    )
+
+    dt, dev = scene.dtype, scene.device
+    n = scene.shape[0]
+    if init is not None:
+        scene, cov_s = apply_similarity(scene, init), _rotate_covariances(init.R, cov_s)
+    grid = build_model_grid(model, target_tile=model_tile_target, payload=normals)
+    p, w, inv_slots, tn, perm = _prepare_scene(scene, scene_tile_target)
+    eye_pad = torch.eye(3, dtype=dt, device=dev).expand(p.shape[0] - n, 3, 3)
+    cov_p = torch.cat([cov_s, eye_pad])[perm]  # padding rows: identity, weight 0
+    stride = max(1, min(16, model.shape[0] // 4))
+    u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig, stride=stride))
+    total = identity_similarity(dt, dev) if init is None else init
+    loop = LoopState(max_iter, max_iter, threshold, False, dev)
+
+    def step():
+        nonlocal p, cov_p, u, total
+        _, y, nv, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
+                                                 max_candidates=max_candidates)
+        y = y.to(dt)
+        sim, p_new, err = _gicp_system(p, y, disk_covariances(nv.to(dt), eps), cov_p, w)
+        done = loop.record_on_device(err)
+        cov_p = _gated(done, cov_p, _rotate_covariances(sim.R, cov_p))
+        u = _gated(done, u, next_bound(y, p_new))
+        p = _gated(done, p, p_new)
+        total = _gated(done, total, compose(total, sim))
+
+    loop.run(step)
+    return loop.finish(p[inv_slots], total, dt, trace)
+
+
+def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
+                    model_normals=None, scene_normals=None, normal_k: int = 16,
+                    eps: float = 1e-3, init=None, trace: bool = False, device=None):
+    """Generalized (plane-to-plane) ICP.
+
+    Normals of both clouds are estimated by kNN PCA when not given; ``eps``
+    is the across-surface variance (0: the pure plane metric, 1: point to
+    point).  ``init``: warm-start Similarity with a pure rotation.  The
+    dense loop builds the model covariances in ``config.dtype``; the grid
+    loop carries the model normals as float32 payload, as JAX does.
+    Returns ``ICPResult`` (``ICPTrace`` with ``trace=True``); devices as
+    in ``icp``.
+    """
+    from icp_tpu_torch.ops.normals import estimate_normals
+
+    cfg = config or ICPConfig()
+    if cfg.trim_fraction != 0.0:
+        raise NotImplementedError("trimmed GICP (trim_fraction > 0) is not ported yet")
+    model = as_points(model, cfg.dtype, device)
+    scene = as_points(scene, cfg.dtype, model.device)
+    _validate(model, scene, cfg)
+    model_normals = (estimate_normals(model, k=normal_k) if model_normals is None
+                     else as_points(model_normals, cfg.dtype, model.device))
+    scene_normals = (estimate_normals(scene, k=normal_k) if scene_normals is None
+                     else as_points(scene_normals, cfg.dtype, model.device))
+    cov_s = disk_covariances(scene_normals, eps)
+    if init is not None:
+        init = cast_similarity(init, cfg.dtype, model.device)
+    nn_method = cfg.resolved_nn_method(model.device.type,
+                                       max(model.shape[0], scene.shape[0]))
+    kw = dict(threshold=cfg.threshold, max_iter=cfg.max_iter, init=init, trace=trace)
+    if nn_method == "grid":
+        return _gicp_grid(model, model_normals.to(torch.float32), scene, cov_s,
+                          scene_tile_target=cfg.grid_scene_tile,
+                          model_tile_target=cfg.grid_model_tile,
+                          max_candidates=cfg.grid_max_candidates, eps=eps, **kw)
+    return _gicp_dense(model, disk_covariances(model_normals, eps), scene, cov_s,
+                       nn_method=nn_method, **kw)

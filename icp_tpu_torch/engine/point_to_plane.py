@@ -65,12 +65,16 @@ def _gauss_newton_step(p, y, nv, w=None) -> Similarity:
     if w is not None:
         r = r * w
         J = J * w[:, None]
-    A = J.T @ J
-    b = J.T @ r
-    eye6 = torch.eye(6, dtype=p.dtype, device=p.device)
-    x = -torch.linalg.solve_ex(A + _DAMPING * eye6, b).result
+    x = _solve6(J.T @ J, J.T @ r)
     return Similarity(s=torch.ones((), dtype=p.dtype, device=p.device),
                       R=_rodrigues(x[:3]), t=x[3:])
+
+
+def _solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The Gauss-Newton step ``x = -(A + damping I)^-1 b`` of a 6x6 system,
+    with no error check that would wait for the host."""
+    eye6 = torch.eye(6, dtype=A.dtype, device=A.device)
+    return -torch.linalg.solve_ex(A + _DAMPING * eye6, b).result
 
 
 def _gated(done: torch.Tensor, old, new):

@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"nn_dense": 0, "qcp_step": 0, "icp_fused": 0, "nn_grid": 0,
-            "qcp_rotation": 0, "knn_dense": 0, "knn_grid": 0}
+            "qcp_rotation": 0, "knn_dense": 0, "knn_grid": 0, "nn_chunked": 0,
+            "nn_bf16": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "qcp_rotation_launch": [_P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
     "knn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P],
+    "nn_chunked_launch": [_P, _I, _P, _I, _P, _P],
+    "nn_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,18 @@
-"""K1: dense exact nearest neighbour (``csrc/nn_dense.cu``).
+"""K1 and K8: dense exact nearest neighbour (``csrc/nn_dense.cu``,
+``csrc/nn_chunked.cu``).
 
-Port of ``icp_tpu/kernels/nn_pallas.py`` (``_nn_kernel``, the diff-squares
-form).  For every scene point: the model index of the least squared
-distance ``(dx*dx + dy*dy) + dz*dz`` in float32, ties to the lowest index,
-and optionally that distance.  ``nn_dense_plain`` is the same function in
-plain torch, in scene blocks so the N x M matrix never exists beyond one
-block; the wrapper takes it only for CPU tensors.
+Port of ``icp_tpu/kernels/nn_pallas.py``: ``_nn_kernel`` (the diff-squares
+form, ``distance_impl="vpu"``) as K1 and ``_nn_kernel_chunked``
+(``distance_impl="chunked"``, indices only) as K8.  For every scene point:
+the model index of the least squared distance ``(dx*dx + dy*dy) + dz*dz``
+in float32, ties to the lowest index, and optionally (K1) that distance.
+The two kernels compute the same function by different folds: K1 gives a
+scene point one thread, K8 splits the model axis over the 32 lanes of a
+warp and reduces the lanes' (d, idx) pairs at the end.  ``nn_dense_plain``
+and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so
+the N x M matrix never exists beyond one block; the wrappers take them only
+for CPU tensors.  No engine takes K8, as no JAX engine takes the chunked
+form: it is reached through ``distance_impl="chunked"``.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import torch
 from icp_tpu_torch.kernels import _build
 
 _PLAIN_BLOCK_ELEMS = 1 << 24  # distance elements per block of the plain version
+_LANES = 32  # K8's model-axis split: the lanes of a warp
+DISTANCE_IMPLS = ("vpu", "chunked")
 
 
 def check_points(fn: str, name: str, t: torch.Tensor, device=None) -> None:
@@ -29,12 +38,27 @@ def check_points(fn: str, name: str, t: torch.Tensor, device=None) -> None:
         raise ValueError(f"{fn}: unsupported device {t.device}")
 
 
-def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = False):
-    """(N,) int32 nearest-model indices [, (N,) float32 squared distances]."""
-    check_points("nn_dense", "scene", scene)
-    check_points("nn_dense", "model", model, scene.device)
+def _check_pair(fn: str, scene: torch.Tensor, model: torch.Tensor) -> None:
+    check_points(fn, "scene", scene)
+    check_points(fn, "model", model, scene.device)
     if model.shape[0] < 1:
-        raise ValueError("nn_dense: empty model")
+        raise ValueError(f"{fn}: empty model")
+
+
+def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = False,
+             distance_impl: str = "vpu"):
+    """(N,) int32 nearest-model indices [, (N,) float32 squared distances].
+
+    ``distance_impl``: ``"vpu"`` (K1) or ``"chunked"`` (K8, indices only:
+    ``with_dist=True`` raises, as the JAX kernel asserts)."""
+    if distance_impl not in DISTANCE_IMPLS:
+        raise ValueError(f"nn_dense: distance_impl must be one of {DISTANCE_IMPLS}, "
+                         f"got {distance_impl!r}")
+    if distance_impl == "chunked":
+        if with_dist:
+            raise ValueError("nn_dense: distance_impl='chunked' returns indices only")
+        return nn_chunked(scene, model)
+    _check_pair("nn_dense", scene, model)
     if scene.device.type == "cpu":
         return nn_dense_plain(scene, model, with_dist=with_dist)
     n, m = scene.shape[0], model.shape[0]
@@ -68,7 +92,49 @@ def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
     return (idx, d2) if with_dist else idx
 
 
-def closest_point_indices_dense(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
-    """Nearest-model-point indices (clouds cast to contiguous float32)."""
+def nn_chunked(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
+    """K8: (N,) int32 nearest-model indices, equal to K1's."""
+    _check_pair("nn_chunked", scene, model)
+    if scene.device.type == "cpu":
+        return nn_chunked_plain(scene, model)
+    n, m = scene.shape[0], model.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=scene.device)
+    if n:
+        code = _build.lib().nn_chunked_launch(
+            scene.data_ptr(), n, model.data_ptr(), m, idx.data_ptr(),
+            _build.stream_ptr(scene))
+        _build.LAUNCHES["nn_chunked"] += 1
+        _build.check(code, "nn_chunked")
+    return idx
+
+
+def nn_chunked_plain(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8: the model axis split over 32 lanes (row j on
+    lane j % 32), each lane's first minimum over its rows, then the lowest
+    index among the lanes that reach the least distance."""
+    n, m = scene.shape[0], model.shape[0]
+    chunks = -(-m // _LANES)
+    rows = max(1, _PLAIN_BLOCK_ELEMS // (chunks * _LANES))
+    lane = torch.arange(_LANES, device=scene.device)
+    idx = torch.empty(n, dtype=torch.int32, device=scene.device)
+    for lo in range(0, n, rows):
+        p = scene[lo:lo + rows]
+        dx = p[:, None, 0] - model[None, :, 0]
+        dy = p[:, None, 1] - model[None, :, 1]
+        dz = p[:, None, 2] - model[None, :, 2]
+        d = (dx * dx + dy * dy) + dz * dz
+        d = torch.nn.functional.pad(d, (0, chunks * _LANES - m), value=float("inf"))
+        best, chunk = torch.min(d.reshape(-1, chunks, _LANES), dim=1)  # first chunk
+        gidx = chunk * _LANES + lane
+        lane_min = best.amin(1, keepdim=True)
+        key = torch.where(best == lane_min, gidx, torch.full_like(gidx, m))
+        idx[lo:lo + rows] = key.amin(1).clamp(max=m - 1).to(torch.int32)
+    return idx
+
+
+def closest_point_indices_dense(scene: torch.Tensor, model: torch.Tensor, *,
+                                distance_impl: str = "vpu") -> torch.Tensor:
+    """Nearest-model-point indices (clouds cast to contiguous float32);
+    ``distance_impl`` as ``nn_dense``."""
     return nn_dense(scene.to(torch.float32).contiguous(),
-                    model.to(torch.float32).contiguous())
+                    model.to(torch.float32).contiguous(), distance_impl=distance_impl)

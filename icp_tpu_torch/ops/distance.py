@@ -9,6 +9,9 @@ to the LOWEST model index (``src/cpu.cc:5-27``, ``src/GPU/compute.cu:137``).
     PyTorch's default (``allow_tf32 = False``).
   * ``pallas``: the dense CUDA kernel K1 (``kernels/nn_dense.py``); the
     name is the JAX package's config string.
+  * ``bf16``: APPROXIMATE — the bf16 prefilter K9 (``kernels/nn_bf16.py``)
+    with its exact recheck; an index may be any candidate within the bf16
+    cross-term band of the nearest.  Never chosen by ``auto``.
 
 All return int32 indices into the model.
 """
@@ -44,7 +47,7 @@ def closest_point_indices_matmul(scene: torch.Tensor, model: torch.Tensor) -> to
 
 def closest_point_indices(scene: torch.Tensor, model: torch.Tensor, *,
                           method: str = "auto") -> torch.Tensor:
-    """Dispatching wrapper; ``method`` in {auto, bcast, matmul, pallas}.
+    """Dispatching wrapper; ``method`` in {auto, bcast, matmul, pallas, bf16}.
     ``auto`` is the kernel on the card and ``bcast`` elsewhere."""
     if method == "auto":
         method = "pallas" if scene.device.type == "cuda" else "bcast"
@@ -56,4 +59,8 @@ def closest_point_indices(scene: torch.Tensor, model: torch.Tensor, *,
         from icp_tpu_torch.kernels.nn_dense import closest_point_indices_dense
 
         return closest_point_indices_dense(scene, model)
+    if method == "bf16":
+        from icp_tpu_torch.kernels.nn_bf16 import nearest_indices_bf16
+
+        return nearest_indices_bf16(scene, model)
     raise ValueError(f"unknown nn method: {method}")

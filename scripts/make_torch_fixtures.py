@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Regenerate the JAX fixtures that the PyTorch port's point-to-plane runs
-are held against (``tests/fixtures/torch_p2pl/``).
+"""Regenerate the JAX fixtures that the PyTorch port's plane-metric runs are
+held against (``tests/fixtures/torch_p2pl/``, ``torch_sym/``,
+``torch_gicp/``).
 
     JAX_PLATFORMS=cpu python3 scripts/make_torch_fixtures.py
 
 Runs the JAX package's CLI (``python -m icp_tpu.engine.cli``) on the CPU with
-``--engine point_to_plane`` and 30 iterations on the bundled cow pairs, from
-the repository root and with relative paths, and keeps each run's stderr
-trace and ``output.txt``.  The JAX package is imported only by the
-subprocess; the port and ``chip_smoke.py`` read the files.
+``--engine point_to_plane``, ``symmetric`` and ``gicp`` and 30 iterations on
+the bundled cow pairs, from the repository root and with relative paths,
+and keeps each run's stderr trace and ``output.txt``.  The JAX package is
+imported only by the subprocess; the port and ``chip_smoke.py`` read the
+files.
 """
 
 from __future__ import annotations
@@ -20,35 +22,39 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "tests", "fixtures", "torch_p2pl")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+ENGINES = [("point_to_plane", "torch_p2pl"), ("symmetric", "torch_sym"),
+           ("gicp", "torch_gicp")]
 CASES = [("cow_tr1", "cow_ref.txt", "cow_tr1.txt"),
          ("cow_tr2", "cow_ref.txt", "cow_tr2.txt")]
 NB_ITER = "30"
 
 
 def main() -> int:
-    os.makedirs(OUT, exist_ok=True)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    for name, ref, scene in CASES:
-        with tempfile.TemporaryDirectory() as tmp:
-            out_txt = os.path.join(tmp, "output.txt")
-            cmd = [sys.executable, "-m", "icp_tpu.engine.cli",
-                   os.path.join("data", ref), os.path.join("data", scene), NB_ITER,
-                   "--engine", "point_to_plane", "--output", out_txt]
-            r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True)
-            if r.returncode != 0:
-                print(r.stderr, file=sys.stderr)
-                return r.returncode
-            # keep the program's own lines ([load], [ICP], [output]), not
-            # the runtime's warnings
-            lines = [ln for ln in r.stderr.splitlines() if ln.startswith("[")]
-            lines = [ln.replace(out_txt, "output.txt") for ln in lines]
-            with open(os.path.join(OUT, f"{name}_stderr.txt"), "w") as f:
-                f.write("\n".join(lines) + "\n")
-            shutil.copyfile(out_txt, os.path.join(OUT, f"{name}_output.txt"))
-        n_iter = sum(ln.startswith("[ICP]") for ln in lines)
-        print(f"{name}: {n_iter} iterations")
+    for engine, folder in ENGINES:
+        out_dir = os.path.join(FIXTURES, folder)
+        os.makedirs(out_dir, exist_ok=True)
+        for name, ref, scene in CASES:
+            with tempfile.TemporaryDirectory() as tmp:
+                out_txt = os.path.join(tmp, "output.txt")
+                cmd = [sys.executable, "-m", "icp_tpu.engine.cli",
+                       os.path.join("data", ref), os.path.join("data", scene), NB_ITER,
+                       "--engine", engine, "--output", out_txt]
+                r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True)
+                if r.returncode != 0:
+                    print(r.stderr, file=sys.stderr)
+                    return r.returncode
+                # keep the program's own lines ([load], [ICP], [output]), not
+                # the runtime's warnings
+                lines = [ln for ln in r.stderr.splitlines() if ln.startswith("[")]
+                lines = [ln.replace(out_txt, "output.txt") for ln in lines]
+                with open(os.path.join(out_dir, f"{name}_stderr.txt"), "w") as f:
+                    f.write("\n".join(lines) + "\n")
+                shutil.copyfile(out_txt, os.path.join(out_dir, f"{name}_output.txt"))
+            n_iter = sum(ln.startswith("[ICP]") for ln in lines)
+            print(f"{engine} {name}: {n_iter} iterations")
     return 0
 
 

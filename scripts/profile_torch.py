@@ -5,15 +5,16 @@
 
 For each cell — cow_tr1 on the fused path (K3 + K2), horse_tr1 on the grid
 path (K4 + torch + K2), and the 1,000,000-point pair of ``chip_smoke.py``
-on the grid path, each with the point-to-point and the point-to-plane
-engine (dense K1 on cow, grid K4 with the normals payload elsewhere) — it
-times fixed-iteration loops without the profiler (ms/iter from the
-difference of two iteration counts), then runs one loop under
-``torch.profiler`` and prints the device time by kernel, the device's busy
-share of the profiled window (union of kernel intervals over the window's
-wall time) and each launch's time of the hand-written kernels.  The
-point-to-plane cells take their normals from one ``estimate_normals``
-call (K6 on cow, K7 elsewhere), which is profiled the same way.  Chrome
+on the grid path, each with the point-to-point engine and the three plane
+engines (point-to-plane, symmetric, GICP: dense K1 on cow, grid K4 with the
+normals payload elsewhere) — it times fixed-iteration loops without the
+profiler (ms/iter from the difference of two iteration counts), then runs
+one loop under ``torch.profiler`` and prints the device time by kernel, the
+device's busy share of the profiled window (union of kernel intervals over
+the window's wall time) and each launch's time of the hand-written kernels.
+The plane cells take their normals from ``estimate_normals`` calls (K6 on
+cow, K7 elsewhere; the model's is profiled the same way, and symmetric and
+GICP also take the scene's).  Chrome
 traces go to ``DIR`` (default ``chiprun_out/profile``).
 """
 
@@ -29,7 +30,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_kernel",
-        "qcp_rotation_kernel", "knn_dense_kernel", "knn_grid_kernel")
+        "qcp_rotation_kernel", "knn_dense_kernel", "knn_grid_kernel", "nn_chunked_kernel",
+        "nn_bf16_kernel")
 
 
 def _us(event) -> float:
@@ -111,7 +113,7 @@ def main(argv=None) -> int:
     import math
 
     import chip_smoke
-    from icp_tpu_torch import ICPConfig, icp_point_to_plane
+    from icp_tpu_torch import ICPConfig
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.ops.normals import estimate_normals
 
@@ -133,11 +135,14 @@ def main(argv=None) -> int:
         profile_cell(f"{name}_normals", f"method={method}",
                      lambda _: estimate_normals(model, method=method), 0, args.out)
         normals = estimate_normals(model, method=method)
-        profile_cell(f"{name}_p2pl", f"engine=point_to_plane path={nn}",
-                     lambda i: float(icp_point_to_plane(
-                         model, scene, ICPConfig(max_iter=i, threshold=-math.inf, nn_method=nn),
-                         normals=normals).err), k, args.out)
-        del model, scene, normals
+        scene_normals = estimate_normals(scene, method=method)
+        for engine, short in (("point_to_plane", "p2pl"), ("symmetric", "sym"), ("gicp", "gicp")):
+            profile_cell(f"{name}_{short}", f"engine={engine} path={nn}",
+                         lambda i: float(chip_smoke.run_plane_engine(
+                             engine, model, scene,
+                             ICPConfig(max_iter=i, threshold=-math.inf, nn_method=nn),
+                             normals, scene_normals).err), k, args.out)
+        del model, scene, normals, scene_normals
     return 0
 
 

@@ -62,7 +62,8 @@ def test_unequal_counts_exit_255(tmp_path):
     assert "same number of points" in r.stderr
 
 
-@pytest.mark.parametrize("flags", [["--sharded"], ["--engine", "gicp"], ["--trim", "0.1"],
+@pytest.mark.parametrize("flags", [["--sharded"], ["--engine", "gicp", "--sharded"],
+                                   ["--trim", "0.1"],
                                    ["--checkpoint", "ck.npz"]])
 def test_flags_not_ported_exit_255(tmp_path, flags):
     r = run_cli([data_path("cow_ref.txt"), data_path("cow_tr1.txt"), "3", "--device", "cpu",

@@ -1,4 +1,5 @@
-"""K1-K7 on the card against their plain versions (``cuda`` marker).
+"""K1-K9 on the card against their plain versions, and the symmetric and
+GICP grid loops against their dense loops (``cuda`` marker).
 
 These need a CUDA device and ``nvcc``; without a card they skip.  On a
 machine with one:
@@ -10,7 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from icp_tpu_torch.kernels import _build, icp_fused, knn_dense, knn_grid, nn_dense, nn_grid, qcp
+from icp_tpu_torch.kernels import (
+    _build,
+    icp_fused,
+    knn_dense,
+    knn_grid,
+    nn_bf16,
+    nn_dense,
+    nn_grid,
+    qcp,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +142,71 @@ def test_knn_grid_kernel_matches_plain_and_dense(dev, k, cap):
     args = (cand, counts, query.contiguous(), grid.tiles, 60, k)
     assert all(torch.equal(a, b) for a, b in zip(knn_grid.knn_worklist(*args),
                                                  knn_grid.knn_worklist_plain(*args)))
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (37, 31), (300, 2049), (5000, 700)])
+def test_nn_chunked_kernel_matches_plain_and_k1(dev, n, m):
+    s, mo = _cloud(n + 3, n).to(dev), _cloud(m + 4, m, 2.0).to(dev)
+    mo[m // 2:] = mo[: m - m // 2].clone()  # duplicates on other lanes: lowest index wins
+    before = _build.LAUNCHES["nn_chunked"]
+    ik = nn_dense.nn_dense(s, mo, distance_impl="chunked")
+    assert _build.LAUNCHES["nn_chunked"] == before + 1
+    assert torch.equal(ik, nn_dense.nn_chunked_plain(s, mo))
+    assert torch.equal(ik, nn_dense.nn_dense(s, mo))
+
+
+@pytest.mark.parametrize("n,m,offset", [(1, 1, 0.0), (300, 2049, 0.0), (5000, 700, 50.0)])
+def test_nn_bf16_kernel_matches_plain(dev, n, m, offset):
+    s, mo = (_cloud(n + 5, n) + offset).to(dev), (_cloud(m + 6, m, 2.0) + offset).to(dev)
+    mo[m // 2:] = mo[: m - m // 2].clone()  # duplicates: lowest index, second == best
+    before = _build.LAUNCHES["nn_bf16"]
+    got = nn_bf16.nn_bf16(s, mo)
+    assert _build.LAUNCHES["nn_bf16"] == before + 1
+    for a, b in zip(got, nn_bf16.nn_bf16_plain(s, mo)):
+        assert torch.equal(a, b)
+    idx, _, cert = nn_bf16.closest_point_indices_bf16(s, mo)
+    assert torch.equal(idx[cert], nn_dense.nn_dense(s, mo)[cert])
+
+
+def test_nn_bf16_kernel_certifies_a_lattice(dev):
+    """Random clouds certify nothing; beside the sites of a jittered 4^3
+    lattice the margins exceed the bf16 band, so the kernel's certificate
+    is held to K1 on rows that have one."""
+    rng = np.random.default_rng(13)
+    sites = np.stack(np.meshgrid(*[np.arange(4.0)] * 3), -1).reshape(-1, 3)
+    sel = rng.integers(0, len(sites), 3000)
+    mo = torch.tensor(sites + 0.01 * rng.standard_normal(sites.shape), dtype=torch.float32, device=dev)
+    s = torch.tensor(sites[sel] + 0.02 * rng.standard_normal((3000, 3)), dtype=torch.float32,
+                     device=dev)
+    idx, _, cert = nn_bf16.closest_point_indices_bf16(s, mo)
+    assert cert.double().mean() > 0.5
+    assert torch.equal(idx[cert], nn_dense.nn_dense(s, mo)[cert])
+    assert torch.equal(idx[cert].cpu(), torch.tensor(sel, dtype=torch.int32)[cert.cpu()])
+
+
+def _surface(seed, n):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1.0, 1.0, (n, 2))
+    return np.column_stack([xy, 0.3 * np.sin(2.0 * xy[:, 0]) + 0.2 * xy[:, 1] ** 2])
+
+
+@pytest.mark.parametrize("engine", ["symmetric", "gicp"])
+def test_plane_engines_grid_matches_dense_on_the_card(dev, engine):
+    from icp_tpu_torch import ICPConfig, estimate_normals, icp_generalized, icp_symmetric
+
+    model = torch.tensor(_surface(12, 6000), dtype=torch.float32, device=dev)
+    a = 0.1
+    R = torch.tensor([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                      [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+    scene = model @ R.T + 0.02
+    nm, ns = estimate_normals(model), estimate_normals(scene)
+    run = icp_symmetric if engine == "symmetric" else icp_generalized
+    kw = (dict(normals=nm, scene_normals=ns) if engine == "symmetric"
+          else dict(model_normals=nm, scene_normals=ns))
+    base = dict(max_iter=30, threshold=1e-10)
+    _build.reset_counts()
+    grid = run(model, scene, ICPConfig(nn_method="grid", **base), **kw)
+    assert _build.LAUNCHES["nn_grid"] >= int(grid.iters) and _build.LAUNCHES["nn_dense"] >= 1
+    dense = run(model, scene, ICPConfig(nn_method="pallas", **base), **kw)
+    assert int(grid.iters) == int(dense.iters) > 1
+    torch.testing.assert_close(grid.points, dense.points, rtol=0, atol=1e-5)

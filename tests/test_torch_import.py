@@ -13,7 +13,9 @@ REPO = os.path.dirname(PKG)
 
 def test_import_leaves_jax_out():
     code = ("import sys, icp_tpu_torch, icp_tpu_torch.engine.cli, icp_tpu_torch.engine.grid, "
-            "icp_tpu_torch.engine.point_to_plane, icp_tpu_torch.kernels.knn_grid, "
+            "icp_tpu_torch.engine.point_to_plane, icp_tpu_torch.engine.symmetric, "
+            "icp_tpu_torch.engine.gicp, icp_tpu_torch.kernels.nn_bf16, "
+            "icp_tpu_torch.kernels.knn_grid, "
             "icp_tpu_torch.utils.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -50,7 +52,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
                            ("nn_grid.cu", "nn_grid.py:240 _pruned_kernel"),
                            ("qcp.cu", "qcp_pallas.py:32 _qcp_kernel"),
                            ("knn_dense.cu", "knn_pallas.py:59 _knn_kernel"),
-                           ("knn_grid.cu", "knn_grid.py:53 _knn_worklist_kernel")):
+                           ("knn_grid.cu", "knn_grid.py:53 _knn_worklist_kernel"),
+                           ("nn_chunked.cu", "nn_pallas.py:49 _nn_kernel_chunked"),
+                           ("nn_bf16.cu", "nn_bf16.py:60 _nn_bf16_kernel")):
         with open(os.path.join(csrc, name)) as f:
             head = f.read(4000)
         assert f"icp_tpu/kernels/{replaced}" in head, name

@@ -82,3 +82,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         nn_dense.nn_dense(torch.tensor(scene).T.contiguous().T, torch.tensor(model))
     with pytest.raises(ValueError, match="empty"):
         nn_dense.nn_dense(torch.tensor(scene), torch.zeros((0, 3)))
+
+
+def _jax_chunked(scene, model, tn, tm):
+    return np.asarray(nn_pallas._closest_pallas(
+        jnp.asarray(scene), jnp.asarray(model), scene_tile=tn, model_tile=tm,
+        interpret=True, with_dist=False, distance_impl="chunked"))
+
+
+@pytest.mark.parametrize("n,m,tn,tm", [(40, 300, 16, 128), (100, 1000, 32, 256),
+                                       (257, 129, 64, 128)])
+def test_chunked_matches_jax_chunked_kernel(n, m, tn, tm):
+    scene, model = _clouds(n * m, n, m)
+    got = nn_dense.closest_point_indices_dense(torch.tensor(scene), torch.tensor(model),
+                                               distance_impl="chunked")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _jax_chunked(scene, model, tn, tm))
+    np.testing.assert_array_equal(got.numpy(), _jax_idx(scene, model))  # equal to K1
+
+
+def test_chunked_ties_go_to_lowest_index_across_tiles_and_lanes():
+    rng = np.random.default_rng(7)
+    p = rng.standard_normal((16, 3)).astype(np.float32)
+    ones = np.ones((300, 3), np.float32)
+    got = nn_dense.nn_dense(torch.tensor(p), torch.tensor(ones), distance_impl="chunked")
+    np.testing.assert_array_equal(got.numpy(), _jax_chunked(p, ones, 8, 128))
+    assert (got == 0).all()
+    base = rng.standard_normal((97, 3)).astype(np.float32)
+    model = np.concatenate([base, base, base])  # a row's copies sit on other lanes
+    scene = base + np.float32(1e-3)
+    got = nn_dense.nn_chunked_plain(torch.tensor(scene), torch.tensor(model)).numpy()
+    np.testing.assert_array_equal(got, _jax_chunked(scene, model, 32, 128))
+    np.testing.assert_array_equal(got, nn_dense.nn_dense_plain(
+        torch.tensor(scene), torch.tensor(model)).numpy())
+    assert (got < 97).all()
+
+
+def test_chunked_is_indices_only_and_cpu_takes_the_plain_version():
+    scene, model = _clouds(6, 64, 70)
+    s, m = torch.tensor(scene), torch.tensor(model)
+    _build.reset_counts()
+    assert torch.equal(nn_dense.nn_dense(s, m, distance_impl="chunked"),
+                       nn_dense.nn_chunked_plain(s, m))
+    assert _build.LAUNCHES["nn_chunked"] == 0 and _build.LAUNCHES["nn_dense"] == 0
+    with pytest.raises(ValueError, match="indices only"):
+        nn_dense.nn_dense(s, m, with_dist=True, distance_impl="chunked")
+    with pytest.raises(ValueError, match="distance_impl"):
+        nn_dense.nn_dense(s, m, distance_impl="mxu")

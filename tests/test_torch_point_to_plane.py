@@ -141,33 +141,41 @@ def test_options_not_ported_and_default_device(monkeypatch):
         icp_point_to_plane(model, scene)
 
 
-def _fixture_trace(name):
-    with open(os.path.join(FIXDIR, f"{name}_stderr.txt")) as f:
+def _fixture_trace(fixdir, name):
+    with open(os.path.join(fixdir, f"{name}_stderr.txt")) as f:
         return [float(e) for _, e in _TRACE_RE.findall(f.read())]
 
 
-@pytest.mark.parametrize("name,iters", [("cow_tr1", 3), ("cow_tr2", 6)])
-def test_cli_point_to_plane_matches_jax_fixtures(tmp_path, name, iters):
+def check_cli_against_fixtures(tmp_path, engine, fixdir, name, iters):
+    """``--engine engine --device cpu`` on cow_ref + ``name`` (30 iterations)
+    against the JAX CLI's trace and ``output.txt`` in ``fixdir``."""
     r = run_cli([data_path("cow_ref.txt"), data_path(f"{name}.txt"), "30",
-                 "--engine", "point_to_plane", "--device", "cpu"], tmp_path)
+                 "--engine", engine, "--device", "cpu"], tmp_path)
     assert r.returncode == 0, r.stderr
     pairs = _TRACE_RE.findall(r.stderr)
     assert [int(i) for i, _ in pairs] == list(range(iters))
     got = np.array([float(e) for _, e in pairs])
-    want = np.array(_fixture_trace(name))
+    want = np.array(_fixture_trace(fixdir, name))
     assert len(want) == iters
     big = want > 1e-6
     np.testing.assert_allclose(got[big], want[big], rtol=1e-2)
     assert np.all(got[~big] < 1e-5)  # below the convergence threshold, as JAX
     np.testing.assert_allclose(load_matrix(str(tmp_path / "output.txt")),
-                               load_matrix(os.path.join(FIXDIR, f"{name}_output.txt")),
+                               load_matrix(os.path.join(fixdir, f"{name}_output.txt")),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("name,iters", [("cow_tr1", 3), ("cow_tr2", 6)])
+def test_cli_point_to_plane_matches_jax_fixtures(tmp_path, name, iters):
+    check_cli_against_fixtures(tmp_path, "point_to_plane", FIXDIR, name, iters)
 
 
 @pytest.mark.parametrize("engine", ["gicp", "symmetric"])
 def test_cli_other_engines_still_exit_255(tmp_path, engine):
+    """The engines run (``test_torch_symmetric.py``, ``test_torch_gicp.py``);
+    their sharded variants are not ported yet."""
     r = run_cli([data_path("cow_ref.txt"), data_path("cow_tr1.txt"), "3", "--device", "cpu",
-                 "--engine", engine], tmp_path)
+                 "--engine", engine, "--sharded"], tmp_path)
     assert r.returncode == 255 and "not ported yet" in r.stderr
     assert not (tmp_path / "output.txt").exists()
 
