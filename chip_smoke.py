@@ -13,7 +13,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      outputs exactly equal, float64 sums and state blocks within the stated
      tolerances), with the median times of both (CUDA events) and the least
      time the card could take for the same work (``bound_ms``, from this
-     run's inputs);
+     run's inputs); K4's lines give each table's tiles past the capacity,
+     work items and folded pairs, and K6 is also held at k = 32 and on a
+     lattice of exactly equal distances;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
@@ -28,9 +30,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      Then ms/iter of the cow and horse loops of the four engines, and the
      normals' ms;
   5. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
-     jitter, a known similarity): 10 fixed point-to-point grid iterations,
-     the first iteration's correspondences checked against K1 brute force
-     on 65,536 seeded scene rows; K7 normals of both clouds, the model's
+     jitter, a known similarity): K4 on the first and the third grid
+     iteration's tables, each checked against K1 brute force on 65,536
+     seeded scene rows and against the plain version on sampled scene
+     tiles, and timed beside its bound; 10 fixed point-to-point grid
+     iterations; K7 normals of both clouds, the model's
      neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
      iterations of the point-to-plane, symmetric and GICP engines, each
      with a falling error.
@@ -148,12 +152,22 @@ def nbytes(*tensors) -> int:
 
 
 def folded_pairs(counts, cap: int, nj: int, tm: int, tn: int) -> int:
-    """(query, model row) pairs a work-list launch folds for this table: a
-    tile folds its candidates, or every tile past the capacity."""
-    import torch
+    """(query, model row) pairs a work-list launch folds for this table: one
+    scene tile against one model tile per work item (a tile's candidates,
+    or every tile past the capacity)."""
+    from icp_tpu_torch.kernels.nn_grid import work_item_offsets
 
-    c = counts.long()
-    return int(torch.where(c > cap, torch.full_like(c, nj), c.clamp(min=1)).sum()) * tm * tn
+    return int(work_item_offsets(counts, cap, nj)[-1]) * tm * tn
+
+
+def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
+    """The shape of a K4 launch: tiles folding all Nj tiles, mean candidate
+    count, work items, folded (point, model row) pairs."""
+    cap = cand.shape[1]
+    pairs = folded_pairs(counts, cap, nj, tm, tn)
+    return {"fallback_tiles": int((counts > cap).sum()),
+            "mean_count": f"{counts.double().mean().item():.2f}",
+            "items": pairs // (tm * tn), "folded_pairs": pairs}
 
 
 def entry(err, ms, plain_ms, bound_ms_by, library_ms=None) -> dict:
@@ -194,6 +208,20 @@ def _load(name):
 
     with contextlib.redirect_stderr(io.StringIO()):
         return load_matrix(os.path.join(ROOT, "data", name))
+
+
+def tied_lattice(seed: int):
+    """(queries, points) on the card: the 16^3 integer sites, each twice, and
+    the sites moved by seeded half steps, so most neighbour distances tie."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = np.arange(16, dtype=np.float32)
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return (torch.tensor(sites + 0.5 * rng.integers(0, 2, sites.shape), **f32),
+            torch.tensor(np.concatenate([sites[::-1], sites]), **f32))
 
 
 def phase_kernels(seed: int, record: dict):
@@ -322,38 +350,41 @@ def phase_kernels(seed: int, record: dict):
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, horse_ref))
     idx_bf = nn_dense.nn_dense(p0, horse_ref)
     nj, tm = grid.tiles.shape[0], grid.tiles.shape[1]
+    kd = dict(kd_row=grid.kd_row)
     k4_err, k4 = 0.0, None
     for cap in (16, 1):
         cand, counts, over = nn_grid.candidates(p0, u0, grid, scene_tile=tn, cap=cap)
         args = (cand, counts, p0, grid.tiles, tn)
-        dk, ik, yk, _ = nn_grid.nn_grid(*args)
-        dp, ip, yp, _ = nn_grid.nn_grid_plain(*args)
+        dk, ik, yk, _ = nn_grid.nn_grid(*args, **kd)
+        dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, **kd)
         require(torch.equal(ik, ip), f"K4 cap={cap}: indices differ from plain")
         require(torch.equal(ik, idx_bf), f"K4 cap={cap}: indices differ from brute force")
+        require(torch.equal(yk, horse_ref[ik.long()]), f"K4 cap={cap}: y is not the winner")
         err = max(max_abs(dk, dp), max_abs(yk, yp))
         require(err == 0.0, f"K4 cap={cap}: d2/y differ from plain by {err}")
         k4_err = max(k4_err, err)
-        times = (cuda_ms(lambda: nn_grid.nn_grid(*args), 20),
-                 cuda_ms(lambda: nn_grid.nn_grid_plain(*args), 3))
+        times = (cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 20),
+                 cuda_ms(lambda: nn_grid.nn_grid_plain(*args, **kd), 3))
+        shape = k4_table(cand, counts, nj, tm, tn)
+        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p0, grid.tiles)
+                  + p0.shape[0] * (4 + 4 + 12))
         if k4 is None:  # the real table: the numbers of the record
-            pairs = folded_pairs(counts, cand.shape[1], nj, tm, tn)
-            k4 = (*times, bound(PAIR_OPS * pairs, nbytes(cand, counts, p0, grid.tiles)
-                                + p0.shape[0] * (4 + 4 + 12)))
+            k4 = (*times, b)
         say("kernels", kernel="nn_grid", max_candidates=cap, tiles=f"{cand.shape[0]}x{nj}",
-            mean_count=f"{counts.double().mean().item():.2f}", overflow=bool(over),
-            idx_equal=True, max_abs_err=err, ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}")
+            overflow=bool(over), **shape, idx_equal=True, max_abs_err=err,
+            ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}", bound_ms=f"{b[0]:.4f}")
     normals = estimate_normals(horse_ref, method="dense")
     pgrid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)
     cand, counts, _ = nn_grid.candidates(p0, u0, pgrid, scene_tile=tn, cap=16)
     args = (cand, counts, p0, pgrid.tiles, tn, pgrid.payload)
-    dk, ik, yk, plk = nn_grid.nn_grid(*args)
-    dp, ip, yp, plp = nn_grid.nn_grid_plain(*args)
+    dk, ik, yk, plk = nn_grid.nn_grid(*args, kd_row=pgrid.kd_row)
+    dp, ip, yp, plp = nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row)
     require(torch.equal(ik, ip) and torch.equal(ik, idx_bf), "K4 payload: indices differ")
     require(torch.equal(plk[:, :3], normals[ik.long()]), "K4 payload: not the winner's normal")
     err = max(max_abs(dk, dp), max_abs(yk, yp), max_abs(plk, plp))
     require(err == 0.0, f"K4 payload: d2/y/payload differ from plain by {err}")
-    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args), 20),
-             cuda_ms(lambda: nn_grid.nn_grid_plain(*args), 3))
+    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=pgrid.kd_row), 20),
+             cuda_ms(lambda: nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row), 3))
     say("kernels", kernel="nn_grid", payload=3, idx_equal=True, max_abs_err=err,
         ms=f"{pl_ms[0]:.4f}", plain_ms=f"{pl_ms[1]:.4f}")
     record["nn_grid"] = entry(k4_err, *k4)
@@ -394,9 +425,25 @@ def phase_kernels(seed: int, record: dict):
         say("kernels", kernel="knn_dense", shape=f"{n}x{n}", k=NORMAL_K, idx_equal=True,
             ms=f"{k6[label]['ms']:.4f}", plain_ms=f"{k6[label]['plain_ms']:.4f}",
             bound_ms=f"{k6[label]['bound_ms']:.4f}")
+    idx_k6_horse = ik
+    # k = 32 (the longest list) at cow, and a lattice of exactly equal
+    # distances: the 16^3 integer sites, each twice, queried at the sites
+    # moved by seeded half steps, where the lowest index must win every tie.
+    lat_q, lat_p = tied_lattice(seed + 6)
+    for label, q, pts, k in (("cow_k32", cow_ref, cow_ref, 32),
+                             ("lattice", lat_q, lat_p, NORMAL_K)):
+        dk, ik = knn_dense.knn_dense(q, pts, k)
+        dp, ip = knn_dense.knn_dense_plain(q, pts, k)
+        require(torch.equal(ik, ip) and torch.equal(dk, dp), f"K6 {label}: differs from plain")
+        n, m = q.shape[0], pts.shape[0]
+        b = bound(PAIR_OPS * n * m, 12 * (n + m) + 8 * n * k)
+        say("kernels", kernel="knn_dense", case=label, shape=f"{n}x{m}", k=k, equal_plain=True,
+            ties_share=f"{float((dk[:, 1:] == dk[:, :-1]).double().mean()):.4f}",
+            ms=f"{cuda_ms(lambda: knn_dense.knn_dense(q, pts, k), 20):.4f}",
+            plain_ms=f"{cuda_ms(lambda: knn_dense.knn_dense_plain(q, pts, k), 5):.4f}",
+            bound_ms=f"{b[0]:.4f}")
     # the record's numbers are at the main path's shape: cow's normals
     record["knn_dense"] = dict(k6["cow"], max_abs_err=max(v["max_abs_err"] for v in k6.values()))
-    idx_k6_horse = ik
 
     # K7: the horse normals' two launches (seed, exact pass) on the tables
     # knn_grid builds, each against its plain version; the whole path must
@@ -849,12 +896,37 @@ def scale_pair(seed: int, n: int = 1_000_000):
     return torch.tensor(model_np, **f32), torch.tensor(scene_np, **f32), s_true
 
 
+def grid_loop_states(model, scene, iterations: int):
+    """(model grid, scene tile, [(p, u)] of the first ``iterations``
+    point-to-point grid iterations): the kd-sorted scene and its bounds as
+    K4's table sees them, the loop's steps taken with the float64 Horn sums
+    and the eigh solve."""
+    import torch
+
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels import nn_grid
+    from icp_tpu_torch.ops.alignment import Similarity, alignment_from_stats, compute_alignment_stats
+    from icp_tpu_torch.ops.transform import apply_similarity
+
+    grid = nn_grid.build_model_grid(model, target_tile=1024)
+    p, w, _, tn, _ = _prepare_scene(scene, 256)
+    u = nn_grid.bound_from_indices(p, grid, nn_grid.initial_bound_indices(p, model))
+    states = [(p, u)]
+    while len(states) < iterations:
+        _, y, _, _, _ = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn)
+        stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
+        sim = alignment_from_stats(stats, solver="eigh", with_scale=True)
+        p = apply_similarity(p, Similarity(*(v.to(torch.float32) for v in sim)))
+        u = nn_grid.next_bound(y, p)
+        states.append((p, u))
+    return grid, tn, states
+
+
 def phase_scale(seed: int):
     import numpy as np
     import torch
 
     from icp_tpu_torch import ICPConfig
-    from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
     from icp_tpu_torch.ops.normals import (
@@ -867,17 +939,45 @@ def phase_scale(seed: int):
     model, scene, s_true = scale_pair(seed, n)
     rng = np.random.default_rng(seed + 1)
 
-    # First iteration's correspondences against K1 brute force.
-    grid = nn_grid.build_model_grid(model, target_tile=1024)
-    p0, _, _, tn, _ = _prepare_scene(scene, 256)
-    u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, model))
-    idx, _, _, d2, over = nn_grid.closest_point_indices_pruned(p0, grid, u0, scene_tile=tn)
-    rows = torch.tensor(np.sort(rng.choice(p0.shape[0], 65536, replace=False)), device="cuda")
-    idx_bf, d2_bf = nn_dense.nn_dense(p0[rows].contiguous(), model, with_dist=True)
-    mism = int((idx[rows] != idx_bf).sum())
-    require(mism == 0, f"scale: {mism} of 65536 first-iteration matches differ from brute force")
-    require(bool(torch.equal(d2[rows], d2_bf)), "scale: first-iteration distances differ")
-    del grid, p0, u0, idx, d2
+    # K4 on two 1M tables: the first iteration's and the third's (the
+    # loop's steady state).  Each is held against K1 brute force on 65,536
+    # seeded scene rows and against the plain version on 64 seeded scene
+    # tiles and up to 4 tiles that fold all tiles, then timed.
+    grid, tn, states = grid_loop_states(model, scene, 3)
+    nj, tm = grid.tiles.shape[0], grid.model_tile
+    rows = torch.tensor(np.sort(rng.choice(states[0][0].shape[0], 65536, replace=False)),
+                        device="cuda")
+    over_first = None
+    for label, (p, u) in (("first", states[0]), ("third", states[2])):
+        idx, y, _, d2, over = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn)
+        over_first = bool(over) if over_first is None else over_first
+        idx_bf, d2_bf = nn_dense.nn_dense(p[rows].contiguous(), model, with_dist=True)
+        mism = int((idx[rows] != idx_bf).sum())
+        require(mism == 0, f"scale: {mism} of 65536 {label}-iteration matches differ "
+                "from brute force")
+        require(bool(torch.equal(d2[rows], d2_bf)), f"scale: {label}-iteration distances differ")
+        require(bool(torch.equal(y[rows], model[idx_bf.long()])),
+                f"scale: {label}-iteration matched points are not the winners")
+        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=16)
+        args = (cand, counts, p, grid.tiles, tn)
+        outs = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+        ni = cand.shape[0]
+        fall = torch.nonzero(counts > 16).flatten()[:4]
+        pick = torch.tensor(rng.choice(ni, 64, replace=False), device="cuda")
+        sel = torch.unique(torch.cat([pick, fall]))
+        srows = (sel[:, None] * tn + torch.arange(tn, device="cuda")).flatten()
+        sub = nn_grid.nn_grid_plain(cand[sel].contiguous(), counts[sel].contiguous(),
+                                    p[srows].contiguous(), grid.tiles, tn, kd_row=grid.kd_row)
+        for name, a, b in zip(("d2", "idx", "y"), outs, sub):
+            require(torch.equal(a[srows], b), f"scale: K4 {label} {name} differs from plain")
+        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=grid.kd_row), 10)
+        shape = k4_table(cand, counts, nj, tm, tn)
+        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p, grid.tiles)
+                  + p.shape[0] * (4 + 4 + 12))
+        say("scale", kernel="nn_grid", table=label, tiles=f"{ni}x{nj}", **shape,
+            brute_force_rows=65536, plain_tiles=int(sel.numel()), equal_plain=True,
+            ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    del grid, states, p, u, idx, y, d2
 
     def run(k):
         torch.cuda.synchronize()
@@ -893,7 +993,7 @@ def phase_scale(seed: int):
     pts = res.points
     require(pts.shape == (n, 3) and bool(torch.isfinite(pts).all()), "scale: bad output cloud")
     require(math.isfinite(err10) and err10 < err1, f"scale: error {err1} -> {err10}")
-    say("scale", points=f"{n}x{n}", first_iter_checked=65536, first_iter_overflow=bool(over),
+    say("scale", points=f"{n}x{n}", first_iter_checked=65536, first_iter_overflow=over_first,
         err_iter1=f"{err1:.6e}", err_iter10=f"{err10:.6e}",
         s=f"{float(res.transform.s):.6f}", s_inverse_true=f"{1 / s_true:.6f}",
         ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}", ten_iters_s=f"{t10:.3f}")

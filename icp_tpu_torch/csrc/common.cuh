@@ -34,7 +34,7 @@ __device__ __forceinline__ float expdist_rn(float px, float py, float pz,
       __fmul_rn(pz, q.z));
 }
 
-// The k-best list of one thread for the kNN kernels (K6, K7): K slots in
+// The k-best list of one thread for the kd-tile kNN kernel (K7): K slots in
 // registers, ascending by (d, i), of which the first k (k <= K, a run-time
 // value) are live.  `kd`/`ki` mirror slot k-1, so the caller's test "does
 // (d, i) beat the k-th best" needs no run-time index into the list.

@@ -7,79 +7,132 @@
 //
 // What bounds it on the H100: float32 arithmetic — the same 8 operations per
 // (query, point) pair as K1 plus one compare against the k-th best; the
-// bytes are N*12 + M*12 in and N*k*8 out.  The design is K1's: one thread
-// per query point, held in registers; the points staged through shared
-// memory as float4 tiles of 1,024 rows and read by every thread of the
-// block as a broadcast.  Where the TPU kernel extracts the k best of each
-// (tile x tile) block by k masked minima and merges them with its carry,
-// each thread here keeps its k best (d2, index) pairs in registers, sorted,
-// and a pair that beats the k-th best sinks into place through a fully
-// unrolled compare-and-swap chain (TopK in common.cuh).  The list has a
-// compile-time length K in {4, 16, 24, 32}, the smallest that holds k,
-// so it never spills to local memory.  Points are scanned in ascending
-// index and the chain compares (d2, index) lexicographically, so the lowest
-// index wins among equal distances, the order of the JAX kernel's
-// lexicographic extraction.  Distances are sqdist_rn (no contraction), so
-// indices equal the plain version's bit for bit.
+// bytes are N*12 + M*12 in and N*k*8 out.  The design: one warp per query.
+// Lane l takes point rows l, l+32, ... of 1,024-row float4 tiles that the
+// block's 8 warps (8 queries) share in shared memory.  The k-best list
+// lives across the warp, one (d2, index) slot per lane, sorted by lane
+// (k <= 32, so one slot a lane always suffices).  Each batch of 32 distances is filtered against
+// slot k-1 (held in every lane) with one integer compare and one
+// __ballot_sync, four batches a step for independent distance chains; the
+// survivors are inserted in ascending lane order: a ballot of the slots
+// ahead of the survivor and __popc give its position, __shfl_up_sync moves
+// the tail down one slot, and slot k-1 is read back with __shfl_sync.
+// Every lane runs the same instructions (no divergent insertion chain, no
+// per-thread list, no local memory).  An insertion is a chain of dependent
+// shuffles and ballots, and in a cloud stored in scan order a query meets
+// its neighbours gradually (hundreds of insertions for k = 17), so a first,
+// cheap pass bounds the k-th distance (the k-th least of the lanes' minima
+// over a quarter of the rows): the filter then lets through only points
+// within that bound, a few times k of them.  The list ends as the k
+// smallest (d2, index) pairs under that total order, whatever the insertion
+// order: the lowest index wins among equal distances, the order of the JAX
+// kernel's lexicographic extraction (knn_pallas.py:39-56).
+// Distances are sqdist_rn (no contraction), so the outputs equal the plain
+// version's bit for bit.
 #include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-// 64 threads a block: the normals' clouds start at a few thousand points
-// (cow: 46 blocks, where 256 threads would fill 12 of the 132 SMs).
-constexpr int kThreads = 64;
+constexpr int kWarps = 8;  // queries a block
 constexpr int kTile = 1024;
+constexpr int kUnroll = 4;  // 32-row batches a step: independent distance chains
+constexpr int kSeedEvery = 4;  // the bound pass reads one 32-row batch in four
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kEmpty = 0xffffffffu;  // an empty slot: above every distance's bits
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// Distances are compared as their float32 bits: d2 >= 0 orders as an
+// unsigned integer (and +inf, then NaN, above every finite distance, as
+// torch.sort orders them).  Points are scanned in ascending index, so every
+// slot's index is below the candidate's: a candidate beats slot j iff its
+// bits are below slot j's, and ties keep the earlier (lower) index.
+__global__ void __launch_bounds__(kWarps * 32)
 knn_dense_kernel(const float* __restrict__ query, int n, const float* __restrict__ points,
                  int m, int k, float* __restrict__ d2_out, int* __restrict__ idx_out) {
   __shared__ float4 tile[kTile];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = i < n;
+  const int lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool valid = qi < n;  // uniform in the warp
   float px = 0.f, py = 0.f, pz = 0.f;
   if (valid) {
-    px = query[3 * i];
-    py = query[3 * i + 1];
-    pz = query[3 * i + 2];
+    px = query[3 * qi];
+    py = query[3 * qi + 1];
+    pz = query[3 * qi + 2];
   }
-  TopK<K, int> best;
-  best.init(__int_as_float(0x7f800000), INT_MAX);  // +inf
+  // Bound pass: each lane's least distance over rows l, l+128, l+256, ...
+  // (every fourth 32-row batch).  Those 32 minima belong to 32 distinct
+  // points, so the k-th smallest of them bounds the k-th nearest distance
+  // from above: no point beyond it can enter the list.
+  unsigned lim = kEmpty;
+  if (valid) {
+    unsigned lmin = kEmpty;
+    for (int r = lane; r < m; r += 32 * kSeedEvery) {
+      const float4 q = make_float4(__ldg(points + 3 * r), __ldg(points + 3 * r + 1),
+                                   __ldg(points + 3 * r + 2), 0.f);
+      lmin = min(lmin, __float_as_uint(sqdist_rn(px, py, pz, q)));
+    }
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {  // bitonic sort across the warp
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const unsigned other = __shfl_xor_sync(kFull, lmin, stride);
+        const bool up = (lane & size) == 0 || size == 32;
+        const bool low = (lane & stride) == 0;
+        lmin = low == up ? min(lmin, other) : max(lmin, other);
+      }
+    }
+    const unsigned kth = __shfl_sync(kFull, lmin, k - 1);
+    lim = kth == kEmpty ? kEmpty : kth + 1;
+  }
+  unsigned sb = kEmpty;  // this lane's slot: distance bits and index
+  int si = INT_MAX;
+  unsigned kb = lim;  // min(slot k-1's bits, the bound + 1), in every lane
   for (int base = 0; base < m; base += kTile) {
     const int cnt = min(kTile, m - base);
-    for (int r = threadIdx.x; r < cnt; r += kThreads) {
+    for (int r = threadIdx.x; r < cnt; r += blockDim.x) {
       const float* src = points + 3 * (base + r);
       tile[r] = make_float4(src[0], src[1], src[2], 0.f);
     }
     __syncthreads();
     if (valid) {
-      for (int r = 0; r < cnt; ++r) {
-        const float d = sqdist_rn(px, py, pz, tile[r]);
-        if (best.beats_kth(d, base + r)) best.insert(d, base + r, k);
+      for (int b = 0; b < cnt; b += 32 * kUnroll) {
+        unsigned bits[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int r = b + 32 * u + lane;
+          bits[u] = r < cnt ? __float_as_uint(sqdist_rn(px, py, pz, tile[r])) : kEmpty;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          unsigned survivors = __ballot_sync(kFull, bits[u] < kb);
+          while (survivors) {
+            const int src = __ffs(survivors) - 1;
+            survivors &= survivors - 1;
+            const unsigned cb = __shfl_sync(kFull, bits[u], src);
+            const int pos = __popc(__ballot_sync(kFull, sb <= cb));
+            if (pos < k) {  // uniform: it still beats slot k-1
+              const unsigned ub = __shfl_up_sync(kFull, sb, 1);
+              const int ui = __shfl_up_sync(kFull, si, 1);
+              if (lane == pos) {
+                sb = cb;
+                si = base + b + 32 * u + src;
+              } else if (lane > pos) {
+                sb = ub;
+                si = ui;
+              }
+              kb = min(__shfl_sync(kFull, sb, k - 1), lim);
+            }
+          }
+        }
       }
     }
     __syncthreads();
   }
-  if (valid) {
-    float* dst_d = d2_out + static_cast<long long>(i) * k;
-    int* dst_i = idx_out + static_cast<long long>(i) * k;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (j < k) {
-        dst_d[j] = best.d[j];
-        dst_i[j] = best.i[j];
-      }
-    }
+  if (valid && lane < k) {
+    d2_out[static_cast<long long>(qi) * k + lane] = __uint_as_float(sb);
+    idx_out[static_cast<long long>(qi) * k + lane] = si;
   }
-}
-
-template <int K>
-void launch(const float* query, int n, const float* points, int m, int k, float* d2_out,
-            int* idx_out, cudaStream_t stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  knn_dense_kernel<K><<<blocks, kThreads, 0, stream>>>(query, n, points, m, k, d2_out, idx_out);
 }
 
 }  // namespace
@@ -87,14 +140,7 @@ void launch(const float* query, int n, const float* points, int m, int k, float*
 ICP_EXPORT int knn_dense_launch(const float* query, int n, const float* points, int m, int k,
                                 float* d2_out, int* idx_out, cudaStream_t stream) {
   if (n < 1 || k < 1 || k > 32 || k > m) return static_cast<int>(cudaErrorInvalidValue);
-  if (k <= 4) {
-    launch<4>(query, n, points, m, k, d2_out, idx_out, stream);
-  } else if (k <= 16) {
-    launch<16>(query, n, points, m, k, d2_out, idx_out, stream);
-  } else if (k <= 24) {
-    launch<24>(query, n, points, m, k, d2_out, idx_out, stream);
-  } else {
-    launch<32>(query, n, points, m, k, d2_out, idx_out, stream);
-  }
+  const int blocks = (n + kWarps - 1) / kWarps;
+  knn_dense_kernel<<<blocks, kWarps * 32, 0, stream>>>(query, n, points, m, k, d2_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,7 @@
 // (the JAX kernel's scalar prefetch) and stages each candidate tile of
 // (x, y, z, original index) float4 rows in shared memory with a plain
 // synchronous load (double buffering is later work).  Each thread keeps its
-// k best (d2, original index) pairs in registers, as K6 does (TopK in
+// k best (d2, original index) pairs in registers (TopK in
 // common.cuh, compile-time length K in {4, 16, 24, 32}).  The kd order is
 // not index order, so both the test against the k-th best and the insertion
 // chain compare (d2, original index) lexicographically, with the index read

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _P],
     "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P],
     "icp_fused_blocks": [_I],
-    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "qcp_rotation_launch": [_P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
     "knn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P],

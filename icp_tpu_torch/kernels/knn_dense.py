@@ -15,7 +15,7 @@ import torch
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points
 
-MAX_K = 32  # the kernels' longest register list
+MAX_K = 32  # the kernels' longest k-best list
 _PLAIN_BLOCK_ELEMS = 1 << 24  # distance elements per block of the plain version
 
 

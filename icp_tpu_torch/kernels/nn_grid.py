@@ -7,10 +7,12 @@ engine; each iteration, scene tile i keeps model tile j as a candidate when
 the squared box-box distance is at most the tile's largest upper bound on
 its points' nearest-neighbour distances (the previous match's distance).
 The kernel folds each scene tile's candidates, or all tiles when their
-count passes the table's capacity.  The result is exact in every case: the
-lexicographic minimum of (squared distance, original model index).
-A grid built with a payload (the point-to-plane engine's normals) also
-gives the winner's payload row.
+count passes the table's capacity, as work items of one model tile each
+(``work_item_offsets``) that merge by the lexicographic minimum of
+(squared distance, original model index): the result is exact in every
+case.  The winner's point and payload row are read through the grid's
+inverse permutation (``ModelGrid.kd_row``); a grid built with a payload
+(the plane engines' normals) also gives the winner's payload row.
 
 The torch side mirrors the JAX functions so the two build the same
 permutations, tiles and candidate tables: ``kd_order`` sorts with
@@ -86,6 +88,8 @@ class ModelGrid(NamedTuple):
     tile_lo: torch.Tensor  # (Nj, 3) per-tile box minima (real rows only)
     tile_hi: torch.Tensor  # (Nj, 3)
     model_orig: torch.Tensor  # (M, 3) float32 model in its original order
+    kd_row: torch.Tensor  # (M,) int32 kd row (tile * tm + row) of each original
+    #                       index: the inverse of the kd permutation
     model_tile: int
     payload: torch.Tensor | None = None  # (Nj, tm, 4) float32 per-point values
     #                                      in kd order (padding rows and unused
@@ -116,6 +120,8 @@ def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024,
     perm = kd_order(pts_p, lvl, real=real0)
     sorted_pts = pts_p[perm]
     real = perm < m
+    kd_row = torch.empty(m_pad, dtype=torch.int32, device=dev)
+    kd_row[perm] = torch.arange(m_pad, dtype=torch.int32, device=dev)
     oidx = torch.where(real, perm.to(torch.float32),
                        torch.tensor(_BIG, dtype=torch.float32, device=dev))
     tiles = torch.cat([sorted_pts, oidx[:, None]], dim=1).reshape(n_tiles, tm, 4)
@@ -136,6 +142,7 @@ def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024,
         tile_lo=torch.where(r3, tiled, big).amin(1),
         tile_hi=torch.where(r3, tiled, -big).amax(1),
         model_orig=model,
+        kd_row=kd_row[:m].contiguous(),
         model_tile=tm,
         payload=pl_tiles,
         payload_width=width,
@@ -224,15 +231,17 @@ def check_table(fn: str, cand: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"{fn}: query has {query.shape[0]} rows, expected "
                          f"{ni} tiles of {scene_tile}")
     if dev.type == "cuda" and scene_tile > 1024:
-        raise ValueError(f"{fn}: query tiles are one thread per point, at "
-                         "most 1024")
+        raise ValueError(f"{fn}: query tiles hold at most 1024 points on the card")
 
 
 def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
-            tiles: torch.Tensor, scene_tile: int, payload: torch.Tensor | None = None):
+            tiles: torch.Tensor, scene_tile: int, payload: torch.Tensor | None = None,
+            *, kd_row: torch.Tensor):
     """K4: (d2 (N,) float32, idx (N,) int32, y (N, 3) float32, payload rows
     (N, 4) float32 or None) for the kd-sorted, tile-padded scene
-    (Ni * scene_tile rows); ``payload`` is the grid's (Nj, tm, 4)."""
+    (Ni * scene_tile rows); ``payload`` is the grid's (Nj, tm, 4) and
+    ``kd_row`` its inverse permutation (``ModelGrid.kd_row``), through which
+    the winner's point and payload row are read."""
     check_table("nn_grid", cand, counts, scene, tiles, scene_tile)
     if payload is not None and (payload.shape != tiles.shape or payload.dtype != torch.float32
                                 or payload.device != scene.device
@@ -240,8 +249,12 @@ def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
         raise ValueError("nn_grid: payload must be a contiguous float32 tensor "
                          "shaped as the tiles")
     dev = scene.device
+    if kd_row.dtype != torch.int32 or kd_row.device != dev or kd_row.ndim != 1 \
+            or not kd_row.is_contiguous():
+        raise ValueError("nn_grid: kd_row must be a contiguous int32 (M,) tensor "
+                         "beside the scene")
     if dev.type == "cpu":
-        return nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload)
+        return nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
     ni, cap = cand.shape
     nj, tm = tiles.shape[0], tiles.shape[1]
     n = scene.shape[0]
@@ -249,12 +262,14 @@ def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     y = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pl = None if payload is None else torch.empty((n, 4), dtype=torch.float32, device=dev)
+    offsets = torch.empty(ni + 2, dtype=torch.int32, device=dev)  # work items + counter
+    keys = torch.empty(n, dtype=torch.int64, device=dev)  # packed (d2, index) minima
     code = _build.lib().nn_grid_launch(
         cand.data_ptr(), counts.data_ptr(), ni, cap, scene.data_ptr(),
-        scene_tile, nj, tm, tiles.data_ptr(),
-        None if payload is None else payload.data_ptr(), d2.data_ptr(),
-        idx.data_ptr(), y.data_ptr(), None if pl is None else pl.data_ptr(),
-        _build.stream_ptr(scene))
+        scene_tile, nj, tm, tiles.data_ptr(), kd_row.data_ptr(),
+        None if payload is None else payload.data_ptr(), offsets.data_ptr(),
+        keys.data_ptr(), d2.data_ptr(), idx.data_ptr(), y.data_ptr(),
+        None if pl is None else pl.data_ptr(), _build.stream_ptr(scene))
     _build.LAUNCHES["nn_grid"] += 1
     _build.check(code, "nn_grid")
     return d2, idx, y, pl
@@ -268,16 +283,26 @@ def tile_ids(cand: torch.Tensor, nj: int, ti: int, cnt: int):
     return cand[ti, :max(cnt, 1)].to(torch.int64)
 
 
-def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None):
+def work_item_offsets(counts: torch.Tensor, cap: int, nj: int) -> torch.Tensor:
+    """(Ni + 1,) int32: each scene tile's first work item of K4 and, last,
+    the total.  A work item is one model tile of a scene tile's fold list
+    (``tile_ids``); the kernel's plan step computes the same."""
+    c = counts.long()
+    lens = torch.where(c > cap, torch.full_like(c, nj), c.clamp(min=1))
+    zero = torch.zeros(1, dtype=torch.int64, device=counts.device)
+    return torch.cat([zero, lens.cumsum(0)]).to(torch.int32)
+
+
+def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):
     """Plain version of K4: per scene tile, the lexicographic minimum of
-    (diff-squares distance, original index) over its candidate tiles."""
+    (diff-squares distance, original index) over its candidate tiles; the
+    winner's point and payload row are read through ``kd_row``, as the
+    kernel's epilogue reads them (a padding winner reads zeros)."""
     nj = tiles.shape[0]
     dev = scene.device
     n = scene.shape[0]
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
-    y = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    pl = None if payload is None else torch.empty((n, 4), dtype=torch.float32, device=dev)
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
     for ti, cnt in enumerate(counts.tolist()):
         ids = tile_ids(cand, nj, ti, cnt)
@@ -295,9 +320,10 @@ def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None):
         d2[lo:lo + scene_tile] = best
         idx[lo:lo + scene_tile] = torch.where(
             oidx < 16777216.0, oidx, torch.full_like(oidx, -1.0)).to(torch.int32)
-        y[lo:lo + scene_tile] = rows[win, :3]
-        if payload is not None:
-            pl[lo:lo + scene_tile] = payload[ids].reshape(-1, 4)[win]
+    real = (idx >= 0)[:, None]
+    row = kd_row[idx.clamp(min=0).long()].long()
+    y = torch.where(real, tiles.reshape(-1, 4)[row, :3], 0.0)
+    pl = None if payload is None else torch.where(real, payload.reshape(-1, 4)[row], 0.0)
     return d2, idx, y, pl
 
 
@@ -322,7 +348,8 @@ def closest_point_indices_pruned(scene: torch.Tensor, grid: ModelGrid,
         u = torch.cat([u, u[-1:].expand(n_pad - n)])
     scene = scene.contiguous()
     cand, counts, overflow = candidates(scene, u, grid, scene_tile=tn, cap=cap)
-    d2, idx, y, pl = nn_grid(cand, counts, scene, grid.tiles, tn, grid.payload)
+    d2, idx, y, pl = nn_grid(cand, counts, scene, grid.tiles, tn, grid.payload,
+                             kd_row=grid.kd_row)
     pl = None if pl is None else pl[:n, :grid.payload_width]
     return idx[:n], y[:n], pl, d2[:n], overflow
 

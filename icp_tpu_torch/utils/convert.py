@@ -60,11 +60,16 @@ def model_grid_from_jax(grid, device=None):
         payload = np.zeros(rows.shape[:2] + (4,), np.float32)
         payload[..., :width] = rows[..., 4:4 + width]
         payload = points_from_numpy(payload, device=device)
+    oidx = rows[..., 3].reshape(-1)
+    real = np.flatnonzero(oidx < 2.0 ** 24)  # padding rows carry 3e38
+    kd_row = np.zeros(np.asarray(grid.model_orig).shape[0], np.int32)
+    kd_row[oidx[real].astype(np.int64)] = real
     return ModelGrid(
         tiles=points_from_numpy(np.ascontiguousarray(rows[..., :4]), device=device),
         tile_lo=points_from_numpy(grid.tile_lo, device=device),
         tile_hi=points_from_numpy(grid.tile_hi, device=device),
         model_orig=points_from_numpy(grid.model_orig, device=device),
+        kd_row=torch.as_tensor(kd_row).to(device=device),
         model_tile=int(grid.model_tile),
         payload=payload,
         payload_width=width,

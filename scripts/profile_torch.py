@@ -29,9 +29,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_kernel",
-        "qcp_rotation_kernel", "knn_dense_kernel", "knn_grid_kernel", "nn_chunked_kernel",
-        "nn_bf16_kernel")
+# K4 runs as three kernels: plan, fold and epilogue
+OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_plan_kernel",
+        "nn_grid_fold_kernel", "nn_grid_epilogue_kernel", "qcp_rotation_kernel",
+        "knn_dense_kernel", "knn_grid_kernel", "nn_chunked_kernel", "nn_bf16_kernel")
 
 
 def _us(event) -> float:

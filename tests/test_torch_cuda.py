@@ -71,18 +71,47 @@ def test_icp_fused_kernel_matches_plain(dev):
     torch.testing.assert_close(pk.sum(0), pp[0], rtol=1e-12, atol=1e-9)
 
 
-@pytest.mark.parametrize("cap", [16, 1])
-def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap):
+@pytest.mark.parametrize("cap,case", [(16, "random"), (1, "random"), (16, "straggler"),
+                                      (1, "duplicates"), (16, "ragged")])
+def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
+    """``straggler``: one scene tile past the capacity among tiles with one
+    candidate (its fold is cut into many work items); ``duplicates``: 1,024
+    model points and their mirror images across x = 0, which the first kd
+    split (x, the widest axis) puts in other tiles, queried on x = 0, so
+    every nearest distance ties across two work items and the lowest
+    original index must win; ``ragged``: 61-point scene tiles, not a
+    multiple of the points a thread holds."""
     model = _cloud(5, 3000).to(dev)
-    scene = (_cloud(6, 1024) * 1.01).to(dev)
+    tn, n = (61, 61 * 17) if case == "ragged" else (128, 1024)
+    scene = (_cloud(6, n) * 1.01).to(dev)
+    if case == "duplicates":
+        half = model[:1024] * torch.tensor([3.0, 1.0, 1.0], device=dev)
+        model = torch.cat([half, half * torch.tensor([-1.0, 1.0, 1.0], device=dev)])
+        scene = half + 1e-3 * _cloud(7, 1024).to(dev)
+        scene[:, 0] = 0.0
     grid = nn_grid.build_model_grid(model, target_tile=256)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
-    args = (cand, counts, scene, grid.tiles, 128)
-    dk, ik, yk, _ = nn_grid.nn_grid(*args)
-    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args)
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=tn, cap=cap)
+    if case == "straggler":
+        cand[:, 0] = torch.arange(cand.shape[0], device=dev) % grid.tiles.shape[0]
+        counts.fill_(1)
+        counts[3] = cap + 1
+    args = (cand, counts, scene, grid.tiles, tn)
+    before = _build.LAUNCHES["nn_grid"]
+    dk, ik, yk, _ = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+    assert _build.LAUNCHES["nn_grid"] == before + 1
+    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
-    assert torch.equal(ik, nn_dense.nn_dense(scene, model))
+    assert torch.equal(yk, model[ik.long()])
+    if case == "straggler":  # only the tile that folds every tile is exact
+        rows = slice(3 * tn, 4 * tn)
+        assert torch.equal(ik[rows], nn_dense.nn_dense(scene[rows].contiguous(), model))
+    else:
+        assert torch.equal(ik, nn_dense.nn_dense(scene, model))
+    if case == "duplicates":
+        tile = grid.kd_row.long() // grid.model_tile
+        assert (tile[:1024] != tile[1024:]).all()
+        assert int(ik.max()) < 1024
 
 
 @pytest.mark.parametrize("cap", [16, 1])
@@ -95,9 +124,9 @@ def test_nn_grid_payload_matches_plain(dev, cap):
     cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
     args = (cand, counts, scene, grid.tiles, 128, grid.payload)
     before = _build.LAUNCHES["nn_grid"]
-    dk, ik, yk, pk = nn_grid.nn_grid(*args)
+    dk, ik, yk, pk = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
     assert _build.LAUNCHES["nn_grid"] == before + 1
-    dp, ip, yp, pp = nn_grid.nn_grid_plain(*args)
+    dp, ip, yp, pp = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(yk, yp) and torch.equal(pk, pp)
     assert torch.equal(pk[:, :3], normals[ik.long()])
 
@@ -113,10 +142,21 @@ def test_qcp_rotation_kernel_matches_plain(dev):
     torch.testing.assert_close(out.cpu(), qcp.qcp_rotation_plain(packed), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("n,m,k", [(1, 17, 17), (700, 2049, 5), (3000, 1500, 17), (300, 900, 32)])
+@pytest.mark.parametrize("n,m,k", [(1, 17, 17), (700, 2049, 5), (3000, 1500, 17), (300, 900, 32),
+                                   (500, 1000, 1), (257, 20, 17), (129, 1001, 32),
+                                   ("lattice", None, 17)])
 def test_knn_dense_kernel_matches_plain(dev, n, m, k):
-    q, p = _cloud(n + 1, n).to(dev), _cloud(m + 2, m, 1.5).to(dev)
-    p[m // 2:] = p[: m - m // 2].clone()  # duplicates: lowest index wins
+    """k 1, 17 and 32; m < 32 and m not a multiple of 32; ``lattice``: an
+    integer lattice, every point twice, queried at its sites and half-way
+    between them, so many distances are exactly equal."""
+    if n == "lattice":
+        g = np.arange(8, dtype=np.float32)
+        lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+        p = torch.tensor(np.concatenate([lattice[::-1], lattice])).to(dev)
+        q = torch.tensor(np.concatenate([lattice[::3], lattice[::5] + 0.5])).to(dev)
+    else:
+        q, p = _cloud(n + 1, n).to(dev), _cloud(m + 2, m, 1.5).to(dev)
+        p[m // 2:] = p[: m - m // 2].clone()  # duplicates: lowest index wins
     before = _build.LAUNCHES["knn_dense"]
     dk, ik = knn_dense.knn_dense(q, p, k)
     assert _build.LAUNCHES["knn_dense"] == before + 1

@@ -155,3 +155,67 @@ def test_payload_slot_matches_jax_kernel(max_candidates):
     assert pl.shape == (scene.shape[0], 3)
     np.testing.assert_array_equal(pl.numpy(), np.asarray(jpl))
     np.testing.assert_array_equal(pl.numpy(), normals[idx.numpy()])
+
+
+@pytest.mark.parametrize("m,target", [(900, 128), (2903, 1024), (5000, 256)])
+def test_kd_row_inverts_the_kd_permutation(m, target):
+    """``ModelGrid.kd_row`` maps each original index to its kd row: the same
+    on the port's own grid and on one carried from JAX's ``build_model_grid``,
+    and the tile row it names holds that point and that index."""
+    model = _sphere(m, seed=m + 1)
+    own = tg.build_model_grid(torch.tensor(model), target_tile=target)
+    carried = model_grid_from_jax(jg.build_model_grid(jnp.asarray(model), target_tile=target))
+    assert own.kd_row.dtype == torch.int32 and own.kd_row.shape == (m,)
+    assert torch.equal(own.kd_row, carried.kd_row)
+    rows = own.tiles.reshape(-1, 4)[own.kd_row.long()]
+    np.testing.assert_array_equal(rows[:, 3].numpy(), np.arange(m, dtype=np.float32))
+    np.testing.assert_array_equal(rows[:, :3].numpy(), model)
+
+
+def _decode_item(cand, counts, offsets, item):
+    """(scene tile, model tile) of work item ``item``, as K4's fold kernel
+    decodes it: the last scene tile whose first item is <= item, then the
+    model tile at ``item - first`` of its fold list."""
+    ti = int(torch.searchsorted(offsets[:-1], torch.tensor(item, dtype=offsets.dtype),
+                                right=True)) - 1
+    c = item - int(offsets[ti])
+    return ti, c if int(counts[ti]) > cand.shape[1] else int(cand[ti, c])
+
+
+@pytest.mark.parametrize("cap", [16, 3, 1])
+def test_work_items_cover_each_fold_list(cap):
+    """K4's work items, on JAX's own candidate table: each scene tile's
+    items, decoded as the kernel decodes them, are its fold list (its
+    candidates, or every tile past the capacity), one model tile each."""
+    scene, _, jgrid, tgrid, u = _grid_case(seed=11)
+    jc, jn, _ = jg._candidates(jnp.asarray(scene), jnp.asarray(u), jgrid, scene_tile=60, cap=cap)
+    cand, counts = torch.tensor(np.asarray(jc)), torch.tensor(np.asarray(jn))
+    nj = tgrid.tiles.shape[0]
+    offsets = tg.work_item_offsets(counts, cap, nj)
+    assert offsets.dtype == torch.int32 and offsets.shape == (counts.shape[0] + 1,)
+    folds = [tg.tile_ids(cand, nj, ti, c).tolist() for ti, c in enumerate(counts.tolist())]
+    assert int(offsets[-1]) == sum(map(len, folds))
+    got = [[] for _ in folds]
+    for item in range(int(offsets[-1])):
+        ti, j = _decode_item(cand, counts, offsets, item)
+        got[ti].append(j)
+    assert got == folds
+    if cap == 1:
+        assert (counts > cap).any()  # the straggler tiles are cut too
+
+
+def test_plain_reads_the_winner_through_kd_row():
+    """K4's plain version reads the winner's point and payload row through
+    ``kd_row`` (the kernel's epilogue lookup): they are the model point and
+    the normal of the original index it returns."""
+    scene, model, _, _, u = _grid_case(seed=12)
+    normals = np.random.default_rng(13).standard_normal((model.shape[0], 3))
+    grid = tg.build_model_grid(torch.tensor(model), target_tile=128,
+                               payload=torch.tensor(normals))
+    cand, counts, _ = tg.candidates(torch.tensor(scene), torch.tensor(u), grid,
+                                    scene_tile=60, cap=4)
+    _, idx, y, pl = tg.nn_grid(cand, counts, torch.tensor(scene), grid.tiles, 60,
+                               grid.payload, kd_row=grid.kd_row)
+    np.testing.assert_array_equal(y.numpy(), model[idx.numpy()])
+    np.testing.assert_array_equal(pl[:, :3].numpy(), normals.astype(np.float32)[idx.numpy()])
+    assert not pl[:, 3].any()

@@ -35,7 +35,7 @@ def _within_ulps(got, want, ulps=4):
     assert np.all(np.abs(got - want) <= tol), float(np.abs(got - want).max())
 
 
-@pytest.mark.parametrize("k", [1, 5, 17])
+@pytest.mark.parametrize("k", [1, 5, 17, 32])
 def test_knn_dense_plain_matches_jax(k):
     q, p = _cloud(1, 300), _cloud(2, 700, 1.2)
     jd, ji = knn_pallas(jnp.asarray(q), jnp.asarray(p), k, query_tile=64, point_tile=256)
