@@ -7,15 +7,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
   1. device: the card, and ``nvidia-smi``'s name and power limit;
   2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
-     process per source, all at once;
+     process per source, all at once, and ptxas's registers, stack frames
+     and spills are printed (K1's and K7's kernels must have neither);
   3. kernels: K1-K9 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices and float32
      outputs exactly equal, float64 sums and state blocks within the stated
      tolerances), with the median times of both (CUDA events) and the least
      time the card could take for the same work (``bound_ms``, from this
-     run's inputs); K4's lines give each table's tiles past the capacity,
-     work items and folded pairs, and K6 is also held at k = 32 and on a
-     lattice of exactly equal distances;
+     run's inputs); K4's and K7's lines give each table's tiles past the
+     capacity, work items and folded pairs (K7: horse's seed, exact and
+     capacity-1 tables, the exact pass also without its seed bound), and
+     K6 is also held at k = 32 and on a lattice of exactly equal distances;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
@@ -33,8 +35,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      jitter, a known similarity): K4 on the first and the third grid
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
-     tiles, and timed beside its bound; 10 fixed point-to-point grid
-     iterations; K7 normals of both clouds, the model's
+     tiles, and timed beside its bound; K1 on the 1M bound seed against
+     its plain version on 65,536 seeded rows; 10 fixed point-to-point grid
+     iterations; K7 on the 1M model's seed and exact tables against its
+     plain version on sampled tiles; K7 normals of both clouds, the model's
      neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
      iterations of the point-to-plane, symmetric and GICP engines, each
      with a falling error.
@@ -170,6 +174,20 @@ def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "items": pairs // (tm * tn), "folded_pairs": pairs}
 
 
+def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
+    """The shape of a K7 launch: tiles folding all Nj tiles, mean candidate
+    count, work items (and the scratch slots of the tiles of more than
+    one), folded (query, model row) pairs."""
+    from icp_tpu_torch.kernels.knn_grid import knn_work_items
+
+    cap = cand.shape[1]
+    first, slots = knn_work_items(counts, cap, nj)
+    return {"fallback_tiles": int((counts > cap).sum()),
+            "mean_count": f"{counts.double().mean().item():.2f}",
+            "items": int(first[-1]), "merge_slots": int(slots[-1]),
+            "folded_pairs": folded_pairs(counts, cap, nj, tm, tn)}
+
+
 def entry(err, ms, plain_ms, bound_ms_by, library_ms=None) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
             "bound_by": bound_ms_by[1], "library_ms": library_ms}
@@ -197,10 +215,21 @@ def phase_build():
     say("build", seconds=f"{time.perf_counter() - t0:.2f}",
         nvcc_seconds=f"{_build.build_info['seconds']:.2f}",
         cached=_build.build_info["cached"])
-    regs = re.findall(r"Function properties for (\S+)|Used (\d+) registers",
-                      _build.build_info.get("ptxas", ""))
+    log = _build.build_info.get("ptxas", "")
+    regs = re.findall(r"Function properties for (\S+)|Used (\d+) registers", log)
     if regs:
         print("[build] ptxas: " + " ".join(a or b for a, b in regs), flush=True)
+    # stack frame and spill bytes of each kernel: a list indexed at run
+    # time would show here (K1's and K7's must have none)
+    frames = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+                        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    if frames:
+        print("[build] ptxas stack/spill bytes: " + " ".join(
+            f"{name}={f}/{st}/{ld}" for name, f, st, ld in frames), flush=True)
+        bad = [name for name, f, st, ld in frames
+               if ("_nn_dense_cu" in name or "_knn_grid_cu" in name)
+               and (f, st, ld) != ("0", "0", "0")]
+        require(not bad, f"K1/K7 kernels with a stack frame or spills: {bad}")
 
 
 def _load(name):
@@ -224,6 +253,67 @@ def tied_lattice(seed: int):
             torch.tensor(np.concatenate([sites[::-1], sites]), **f32))
 
 
+def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
+                phase: str = "kernels") -> dict:
+    """K7's seed and exact launches (and, with ``cap1``, the exact pass on
+    a capacity-1 table) for the kd-sorted query ``q`` against ``kgrid``:
+    each held bit for bit against its plain version (on the query tiles
+    ``sample(cand, counts)`` picks, where given), timed beside its bound;
+    the exact pass also without its bound, and each line gives its table's
+    tiles past the capacity, work items and folded pairs."""
+    import torch
+
+    from icp_tpu_torch.kernels import knn_grid, nn_grid
+
+    nj, tm = kgrid.tiles.shape[0], kgrid.model_tile
+    bd2 = nn_grid.tile_box_dists(q, kgrid, scene_tile=tn)
+    seed_tab = knn_grid.seed_table(bd2, NORMAL_K, tm)
+    d_seed, _ = knn_grid.knn_worklist(*seed_tab, q, kgrid.tiles, tn, NORMAL_K)
+    kth = d_seed[:, NORMAL_K - 1].contiguous()
+    tables = {"seed": (seed_tab, None),
+              "exact": (knn_grid.cull_table(bd2, kth, tn, min(cap, nj)), kth)}
+    if cap1:
+        tables["exact_cap1"] = (knn_grid.cull_table(bd2, kth, tn, 1), kth)
+    del bd2
+    heavy = q.shape[0] > 100_000
+    out = {}
+    for label, ((cand, counts), kb) in tables.items():
+        args = (cand, counts, q, kgrid.tiles, tn, NORMAL_K)
+        dk, ik = knn_grid.knn_worklist(*args, bound=kb)
+        if sample is None:
+            dp, ip = knn_grid.knn_worklist_plain(*args, bound=kb)
+            rows = slice(None)
+        else:
+            sel = sample(cand, counts)
+            rows = (sel[:, None] * tn + torch.arange(tn, device=q.device)).flatten()
+            dp, ip = knn_grid.knn_worklist_plain(
+                cand[sel].contiguous(), counts[sel].contiguous(), q[rows].contiguous(),
+                kgrid.tiles, tn, NORMAL_K, None if kb is None else kb[rows].contiguous())
+        require(torch.equal(ik[rows], ip), f"K7 {label}: indices differ from plain")
+        err = max_abs(dk[rows], dp)
+        require(err == 0.0, f"K7 {label}: d2 differs from plain by {err}")
+        if kb is not None:  # the bound changes nothing but the work
+            d0, i0 = knn_grid.knn_worklist(*args)
+            require(torch.equal(i0, ik) and torch.equal(d0, dk),
+                    f"K7 {label}: the result depends on the bound")
+        ms = cuda_ms(lambda: knn_grid.knn_worklist(*args, bound=kb), 5 if heavy else 10)
+        plain_ms = None
+        if sample is None and label != "exact_cap1":
+            plain_ms = cuda_ms(lambda: knn_grid.knn_worklist_plain(*args, bound=kb), 2, warmup=1)
+        shape = k7_table(cand, counts, nj, tm, tn)
+        ops = PAIR_OPS * shape["folded_pairs"]
+        nbts = nbytes(cand, counts, q, kgrid.tiles, kb) + 8 * q.shape[0] * NORMAL_K
+        b = bound(ops, nbts)
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ops": ops,
+                      "bytes": nbts}
+        say(phase, kernel="knn_grid", launch=label, tiles=f"{cand.shape[0]}x{nj}", query_tile=tn,
+            capacity=cand.shape[1], **shape, with_bound=kb is not None,
+            checked_tiles="all" if sample is None else int(sel.numel()), equal_plain=True,
+            ms=f"{ms:.4f}", plain_ms="not timed" if plain_ms is None else f"{plain_ms:.4f}",
+            bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    return out
+
+
 def phase_kernels(seed: int, record: dict):
     import numpy as np
     import torch
@@ -232,7 +322,6 @@ def phase_kernels(seed: int, record: dict):
     from icp_tpu_torch.kernels import (
         icp_fused,
         knn_dense,
-        knn_grid,
         nn_bf16,
         nn_dense,
         nn_grid,
@@ -260,7 +349,9 @@ def phase_kernels(seed: int, record: dict):
         require(torch.equal(ik, ip), f"K1 {label}: indices differ from plain")
         k1[label] = (max_abs(dk, dp), cuda_ms(lambda: nn_dense.nn_dense(s, m), 20),
                      cuda_ms(lambda: nn_dense.nn_dense_plain(s, m), 5))
+        require(torch.equal(dk, dp), f"K1 {label}: d2 differs from plain")
         say("kernels", kernel="nn_dense", shape=f"{s.shape[0]}x{m.shape[0]}",
+            chunk_rows=nn_dense.chunk_rows(s.shape[0], m.shape[0]),
             idx_equal=True, d2_max_abs_err=k1[label][0],
             ms=f"{k1[label][1]:.4f}", plain_ms=f"{k1[label][2]:.4f}")
     n, m = p0.shape[0], sub.shape[0]
@@ -445,40 +536,25 @@ def phase_kernels(seed: int, record: dict):
     # the record's numbers are at the main path's shape: cow's normals
     record["knn_dense"] = dict(k6["cow"], max_abs_err=max(v["max_abs_err"] for v in k6.values()))
 
-    # K7: the horse normals' two launches (seed, exact pass) on the tables
-    # knn_grid builds, each against its plain version; the whole path must
-    # equal K6 on the same cloud (the JAX contract knn_grid == knn_pallas).
+    # K7: the horse normals' two launches (seed, exact pass with the seed's
+    # k-th distance as each point's bound) on the tables knn_grid builds,
+    # and the exact pass on a capacity-1 table (every tile past it folds all
+    # tiles), each against its plain version; the whole path must equal K6
+    # on the same cloud (the JAX contract knn_grid == knn_pallas).
     kgrid = nn_grid.build_model_grid(horse_ref, target_tile=256)  # the normals' tiles
     q7, _, _, tn7, _ = _prepare_scene(horse_ref, 64)
     q7 = q7.contiguous()
-    nj7, tm7 = kgrid.tiles.shape[0], kgrid.model_tile
-    bd2 = nn_grid.tile_box_dists(q7, kgrid, scene_tile=tn7)
-    seed_tab = knn_grid.seed_table(bd2, NORMAL_K, tm7)
-    d_seed, _ = knn_grid.knn_worklist(*seed_tab, q7, kgrid.tiles, tn7, NORMAL_K)
-    tables = {"seed": seed_tab,
-              "exact": knn_grid.cull_table(bd2, d_seed[:, NORMAL_K - 1], tn7, min(32, nj7))}
-    k7_err, k7_ms, k7_plain, k7_ops, k7_bytes = 0.0, 0.0, 0.0, 0, 0
-    for label, (cand, counts) in tables.items():
-        args = (cand, counts, q7, kgrid.tiles, tn7, NORMAL_K)
-        dk, ik = knn_grid.knn_worklist(*args)
-        dp, ip = knn_grid.knn_worklist_plain(*args)
-        require(torch.equal(ik, ip), f"K7 {label}: indices differ from plain")
-        err = max_abs(dk, dp)
-        require(err == 0.0, f"K7 {label}: d2 differs from plain by {err}")
-        ms = cuda_ms(lambda: knn_grid.knn_worklist(*args), 10)
-        plain_ms = cuda_ms(lambda: knn_grid.knn_worklist_plain(*args), 2, warmup=1)
-        k7_err, k7_ms, k7_plain = max(k7_err, err), k7_ms + ms, k7_plain + plain_ms
-        k7_ops += PAIR_OPS * folded_pairs(counts, cand.shape[1], nj7, tm7, tn7)
-        k7_bytes += nbytes(cand, counts, q7, kgrid.tiles) + 8 * q7.shape[0] * NORMAL_K
-        say("kernels", kernel="knn_grid", launch=label, tiles=f"{cand.shape[0]}x{nj7}",
-            query_tile=tn7, mean_count=f"{counts.double().mean().item():.2f}",
-            fallback_tiles=int((counts > cand.shape[1]).sum()), idx_equal=True,
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    k7 = k7_launches(q7, kgrid, tn7, 32, cap1=True)
+    k7_err = max(v["max_abs_err"] for v in k7.values())
+    main7 = [k7["seed"], k7["exact"]]
     idx_k7 = knn_indices(horse_ref, NORMAL_K, method="grid")
     require(torch.equal(idx_k7, idx_k6_horse), "K7: horse neighbours differ from K6")
-    record["knn_grid"] = entry(k7_err, k7_ms, k7_plain, bound(k7_ops, k7_bytes))
+    record["knn_grid"] = entry(k7_err, sum(v["ms"] for v in main7),
+                               sum(v["plain_ms"] for v in main7),
+                               bound(sum(v["ops"] for v in main7),
+                                     sum(v["bytes"] for v in main7)))
     say("kernels", kernel="knn_grid", shape="48485x48485", k=NORMAL_K, equal_to_knn_dense=True,
-        ms=f"{k7_ms:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
+        ms=f"{record['knn_grid']['ms']:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
 
     # K8: K1's shapes (cow 2,903^2, the grid seed 49,152 x 3,031); indices
     # equal to K1's and to the plain version's, with K1's time beside.
@@ -927,6 +1003,7 @@ def phase_scale(seed: int):
     import torch
 
     from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
     from icp_tpu_torch.ops.normals import (
@@ -977,7 +1054,20 @@ def phase_scale(seed: int):
         say("scale", kernel="nn_grid", table=label, tiles=f"{ni}x{nj}", **shape,
             brute_force_rows=65536, plain_tiles=int(sel.numel()), equal_plain=True,
             ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
-    del grid, states, p, u, idx, y, d2
+    # K1 on the 1M bound seed (the kd-sorted scene x every 16th model
+    # point), held against its plain version on 65,536 seeded scene rows.
+    p = states[0][0]
+    sub = model[::16].contiguous()
+    ik, dk = nn_dense.nn_dense(p, sub, with_dist=True)
+    ip, dp = nn_dense.nn_dense_plain(p[rows].contiguous(), sub, with_dist=True)
+    require(torch.equal(ik[rows], ip) and torch.equal(dk[rows], dp),
+            "scale: K1 seed differs from plain")
+    ms = cuda_ms(lambda: nn_dense.nn_dense(p, sub), 5)
+    b = bound(PAIR_OPS * p.shape[0] * sub.shape[0], 12 * (p.shape[0] + sub.shape[0]) + 4 * p.shape[0])
+    say("scale", kernel="nn_dense", shape=f"{p.shape[0]}x{sub.shape[0]}",
+        chunk_rows=nn_dense.chunk_rows(p.shape[0], sub.shape[0]), plain_rows=65536,
+        equal_plain=True, ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    del grid, states, p, u, idx, y, d2, ik, dk
 
     def run(k):
         torch.cuda.synchronize()
@@ -998,6 +1088,20 @@ def phase_scale(seed: int):
         s=f"{float(res.transform.s):.6f}", s_inverse_true=f"{1 / s_true:.6f}",
         ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}", ten_iters_s=f"{t10:.3f}")
     del res, pts
+
+    # K7 on the 1M model's seed and exact tables (the normals' tiles), each
+    # against its plain version on 64 seeded query tiles and up to 4 tiles
+    # past the capacity.
+    kgrid = nn_grid.build_model_grid(model, target_tile=256)
+    q7, _, _, tn7, _ = _prepare_scene(model, 64)
+
+    def sample(cand, counts):
+        fall = torch.nonzero(counts > cand.shape[1]).flatten()[:4]
+        pick = torch.tensor(rng.choice(cand.shape[0], 64, replace=False), device="cuda")
+        return torch.unique(torch.cat([pick, fall]))
+
+    k7_launches(q7.contiguous(), kgrid, tn7, 32, sample=sample, phase="scale")
+    del kgrid, q7
 
     # K7 normals of the 1M model; their neighbours against K6 on seeded rows.
     torch.cuda.reset_peak_memory_stats()

@@ -11,9 +11,6 @@
 
 #define ICP_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Sentinel of the grid kernel's carry (icp_tpu/kernels/nn_grid.py _BIG).
-#define ICP_BIG 3.0e38f
-
 // Diff-squares distance (dx*dx + dy*dy) + dz*dz, the order of
 // icp_tpu/kernels/nn_pallas.py _nn_kernel and nn_grid.py _pruned_kernel.
 __device__ __forceinline__ float sqdist_rn(float px, float py, float pz,
@@ -34,52 +31,26 @@ __device__ __forceinline__ float expdist_rn(float px, float py, float pz,
       __fmul_rn(pz, q.z));
 }
 
-// The k-best list of one thread for the kd-tile kNN kernel (K7): K slots in
-// registers, ascending by (d, i), of which the first k (k <= K, a run-time
-// value) are live.  `kd`/`ki` mirror slot k-1, so the caller's test "does
-// (d, i) beat the k-th best" needs no run-time index into the list.
-template <int K, typename I>
-struct TopK {
-  float d[K];
-  I i[K];
-  float kd;
-  I ki;
+// cp.async: a copy from device memory to shared memory that the issuing
+// thread does not wait for; commit closes a group of copies, and
+// wait<N> returns once at most N of this thread's groups are in flight.
+// The 16-byte form needs both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
 
-  __device__ __forceinline__ void init(float big_d, I big_i) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      d[j] = big_d;
-      i[j] = big_i;
-    }
-    kd = big_d;
-    ki = big_i;
-  }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 
-  __device__ __forceinline__ bool beats_kth(float dc, I ic) const {
-    return dc < kd || (dc == kd && ic < ki);
-  }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-  // Insert (dc, ic), which beats slot k-1: a fully unrolled compare-and-swap
-  // chain over the live slots (a run-time index into d[] or i[] would put
-  // the list in local memory).  The candidate sinks to its place and every
-  // later live entry moves down one slot; slot k-1's entry drops out.
-  __device__ __forceinline__ void insert(float dc, I ic, int k) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const bool lt = j < k && (dc < d[j] || (dc == d[j] && ic < i[j]));
-      const float td = lt ? d[j] : dc;
-      const I ti = lt ? i[j] : ic;
-      d[j] = lt ? dc : d[j];
-      i[j] = lt ? ic : i[j];
-      dc = td;
-      ic = ti;
-      if (j == k - 1) {
-        kd = d[j];
-        ki = i[j];
-      }
-    }
-  }
-};
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Deterministic block sum of K doubles per thread: a warp-shuffle tree,
 // then the warps' sums added in warp order by thread k.  No atomics, so a

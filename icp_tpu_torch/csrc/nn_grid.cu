@@ -52,18 +52,6 @@ __device__ __forceinline__ int n_items(int cnt, int cap, int nj) {
   return cnt > cap ? nj : max(cnt, 1);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // offsets[0..ni): each scene tile's first work item; offsets[ni]: the total;
 // offsets[ni + 1]: the fold's work counter, zeroed.
 __global__ void __launch_bounds__(1024)

@@ -7,8 +7,10 @@ form, ``distance_impl="vpu"``) as K1 and ``_nn_kernel_chunked``
 the model index of the least squared distance ``(dx*dx + dy*dy) + dz*dz``
 in float32, ties to the lowest index, and optionally (K1) that distance.
 The two kernels compute the same function by different folds: K1 gives a
-scene point one thread, K8 splits the model axis over the 32 lanes of a
-warp and reduces the lanes' (d, idx) pairs at the end.  ``nn_dense_plain``
+thread four scene points and splits the model into chunks folded by
+separate blocks, whose minima merge by a 64-bit ``atomicMin`` on (distance
+bits, index); K8 splits the model axis over the 32 lanes of a warp and
+reduces the lanes' (d, idx) pairs at the end.  ``nn_dense_plain``
 and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so
 the N x M matrix never exists beyond one block; the wrappers take them only
 for CPU tensors.  No engine takes K8, as no JAX engine takes the chunked
@@ -16,6 +18,8 @@ form: it is reached through ``distance_impl="chunked"``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -65,12 +69,21 @@ def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = Fals
     idx = torch.empty(n, dtype=torch.int32, device=scene.device)
     d2 = torch.empty(n, dtype=torch.float32, device=scene.device) if with_dist else None
     if n:
+        keys = torch.empty(n, dtype=torch.int64, device=scene.device)  # merged (d2, index)
         code = _build.lib().nn_dense_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, idx.data_ptr(),
+            scene.data_ptr(), n, model.data_ptr(), m, keys.data_ptr(), idx.data_ptr(),
             None if d2 is None else d2.data_ptr(), _build.stream_ptr(scene))
         _build.LAUNCHES["nn_dense"] += 1
         _build.check(code, "nn_dense")
     return (idx, d2) if with_dist else idx
+
+
+def chunk_rows(n: int, m: int) -> int:
+    """The model rows of one of K1's chunks for an (n, m) launch on the
+    current card (the C launcher's choice: one wave of blocks)."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().nn_dense_chunk_rows(n, m, ctypes.addressof(out)), "nn_dense")
+    return out.value
 
 
 def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time K4 (kd-tile NN) and K6 (dense kNN) of one checkout on one CUDA card.
+"""Time K1 (dense NN), K4 (kd-tile NN), K6 (dense kNN) and K7 (kd-tile kNN)
+of one checkout on one CUDA card.
 
     python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
 
@@ -8,12 +9,19 @@ this one), so two versions can be timed in one call on one card, in turns
 (parent, change, change, parent).  The tables and clouds come from this
 checkout's ``chip_smoke.py`` and ``data/``:
 
+  * K1 at cow (2,903^2), on horse's grid seed (49,152 x 3,031) and on the
+    1M pair's seed (1,015,808 x 62,500);
   * K4 on horse's first-iteration candidate table (capacity 16 and 1, and
     with the 3-wide normals payload), and on the 1,000,000-point pair's
     first- and third-iteration tables;
   * K6 at cow (2,903^2) and horse (48,485^2) with k 17, cow with k 32, and
     a lattice of equal distances (4,096 x 8,192, k 17);
-  * the point-to-point grid loop's ms/iter at horse and at 1M.
+  * K7's seed and exact launches of the horse and the 1M model's normals
+    (k 17), each as that checkout's ``knn_grid`` makes it (with the seed
+    bound where its ``knn_worklist`` takes one), and the 1M ``knn_indices``
+    wall time;
+  * the point-to-point grid loop's ms/iter and set-up + first iteration
+    at horse and at 1M.
 
 Kernel times are medians of CUDA events; loop times are host clocks around
 runs that end in ``torch.cuda.synchronize()``, the difference of two
@@ -25,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -54,8 +63,8 @@ def main(argv=None) -> int:
     cs = _smoke()
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
-    from icp_tpu_torch.kernels import knn_dense, nn_grid
-    from icp_tpu_torch.ops.normals import estimate_normals
+    from icp_tpu_torch.kernels import knn_dense, knn_grid, nn_dense, nn_grid
+    from icp_tpu_torch.ops.normals import estimate_normals, knn_indices
 
     import icp_tpu_torch
 
@@ -72,6 +81,8 @@ def main(argv=None) -> int:
                 "mean_count": round(counts.double().mean().item(), 3)}
 
     def loop_ms(model, scene, k):
+        """(ms/iter, set-up + first iteration ms) of the point-to-point grid
+        loop."""
         def run(i):
             return cs._wall(lambda: float(icp_fixed_iters(model, scene, n_iters=i,
                                                           solver="qcp_fused",
@@ -79,13 +90,39 @@ def main(argv=None) -> int:
         run(2)
         t1 = statistics.median(run(1) for _ in range(3))
         tk = statistics.median(run(k + 1) for _ in range(3))
-        return (tk - t1) / k * 1e3
+        return (tk - t1) / k * 1e3, t1 * 1e3
+
+    bounded = "bound" in inspect.signature(knn_grid.knn_worklist).parameters
+
+    def k7_ms(cloud, reps):
+        """K7's seed and exact launches of ``cloud``'s normals, as this
+        checkout's knn_grid makes them."""
+        grid = nn_grid.build_model_grid(cloud, target_tile=256)
+        q, _, _, tn, _ = _prepare_scene(cloud, 64)
+        q = q.contiguous()
+        bd2 = nn_grid.tile_box_dists(q, grid, scene_tile=tn)
+        seed = knn_grid.seed_table(bd2, 17, grid.model_tile)
+        d_seed, _ = knn_grid.knn_worklist(*seed, q, grid.tiles, tn, 17)
+        kth = d_seed[:, 16].contiguous()
+        cand, counts = knn_grid.cull_table(bd2, kth, tn, min(32, bd2.shape[1]))
+        del bd2
+        kw = {"bound": kth} if bounded else {}
+        return {"seed_ms": cs.cuda_ms(lambda: knn_grid.knn_worklist(*seed, q, grid.tiles, tn, 17),
+                                      reps),
+                "exact_ms": cs.cuda_ms(lambda: knn_grid.knn_worklist(
+                    cand, counts, q, grid.tiles, tn, 17, **kw), reps),
+                "fallback_tiles": int((counts > cand.shape[1]).sum())}
 
     horse_ref = torch.tensor(cs._load("horse_ref.txt"), **f32)
     horse_tr1 = torch.tensor(cs._load("horse_tr1.txt"), **f32)
     cow_ref = torch.tensor(cs._load("cow_ref.txt"), **f32)
+    cow_tr1 = torch.tensor(cs._load("cow_tr1.txt"), **f32)
     p0, _, _, tn, _ = _prepare_scene(horse_tr1, 256)
     p0 = p0.contiguous()
+    sub = horse_ref[::16].contiguous()
+    out["k1_cow_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(cow_tr1, cow_ref), 20)
+    out["k1_grid_seed_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(p0, sub), 20)
+    out["k7_horse"] = k7_ms(horse_ref, 10)
     normals = estimate_normals(horse_ref, method="dense")
     grid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, horse_ref))
@@ -99,15 +136,21 @@ def main(argv=None) -> int:
                                    ("cow_k32", cow_ref, cow_ref, 32, 20),
                                    ("lattice", lat_q, lat_p, 17, 20)):
         out[f"k6_{label}_ms"] = cs.cuda_ms(lambda: knn_dense.knn_dense(q, pts, k), reps)
-    out["horse_p2p_ms_per_iter"] = loop_ms(horse_ref, horse_tr1, 20)
+    out["horse_p2p_ms_per_iter"], out["horse_p2p_first_iter_ms"] = loop_ms(horse_ref, horse_tr1, 20)
     del grid, p0, u0, normals
 
     model, scene, _ = cs.scale_pair(0)
     mgrid, mtn, states = cs.grid_loop_states(model, scene, 3)
     for label, (p, u) in (("first", states[0]), ("third", states[2])):
         out[f"k4_1M_{label}"] = k4_ms(mgrid, p, u, mtn, 16, reps=10)
-    del mgrid, states
-    out["1M_p2p_ms_per_iter"] = loop_ms(model, scene, 9)
+    p, sub = states[0][0], model[::16].contiguous()
+    out["k1_1M_seed_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(p, sub), 5)
+    del mgrid, states, p, sub
+    out["k7_1M"] = k7_ms(model, 5)
+    knn_indices(model, 17, method="grid")
+    out["1M_knn_indices_ms"] = statistics.median(
+        cs._wall(lambda: knn_indices(model, 17, method="grid")) * 1e3 for _ in range(3))
+    out["1M_p2p_ms_per_iter"], out["1M_p2p_first_iter_ms"] = loop_ms(model, scene, 9)
     print(json.dumps(out), flush=True)
     return 0
 

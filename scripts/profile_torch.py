@@ -29,10 +29,13 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# K4 runs as three kernels: plan, fold and epilogue
-OURS = ("nn_dense_kernel", "qcp_step_kernel", "icp_fused_kernel", "nn_grid_plan_kernel",
-        "nn_grid_fold_kernel", "nn_grid_epilogue_kernel", "qcp_rotation_kernel",
-        "knn_dense_kernel", "knn_grid_kernel", "nn_chunked_kernel", "nn_bf16_kernel")
+# K1 runs as a fold and an epilogue, K4 as a plan, a fold and an epilogue,
+# K7 as a plan, a fold and a merge
+OURS = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel", "qcp_step_kernel",
+        "icp_fused_kernel", "nn_grid_plan_kernel", "nn_grid_fold_kernel",
+        "nn_grid_epilogue_kernel", "qcp_rotation_kernel", "knn_dense_kernel",
+        "knn_grid_plan_kernel", "knn_grid_fold_kernel", "knn_grid_merge_kernel",
+        "nn_chunked_kernel", "nn_bf16_kernel")
 
 
 def _us(event) -> float:

@@ -48,6 +48,27 @@ def test_nn_dense_kernel_matches_plain(dev, n, m):
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
 
 
+@pytest.mark.parametrize("n,m", [(1, 1), (1, 5000), (700, 3001), (4099, 1000)])
+def test_nn_dense_kernel_across_model_chunks(dev, n, m):
+    """K1's model chunks merge by the lowest index of the least distance:
+    each of the first rows is repeated one chunk later (other blocks fold
+    it), m is not a multiple of the chunk, and a scene row whose distances
+    all overflow keeps index 0 and d2 = +inf."""
+    s, mo = _cloud(n + 7, n).to(dev), _cloud(m + 8, m, 2.0).to(dev)
+    chunk = nn_dense.chunk_rows(n, m)
+    r = max(0, min(chunk, m - chunk))  # rows repeated in the next chunk
+    assert chunk % 128 == 0 and (r == 0 or m % chunk)
+    mo[chunk:chunk + r] = mo[:r].clone()
+    s[0] = torch.tensor([3e38, -3e38, 3e38], device=dev)
+    before = _build.LAUNCHES["nn_dense"]
+    ik, dk = nn_dense.nn_dense(s, mo, with_dist=True)
+    assert _build.LAUNCHES["nn_dense"] == before + 1
+    ip, dp = nn_dense.nn_dense_plain(s, mo, with_dist=True)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert int(ik[0]) == 0 and torch.isinf(dk[0])
+    assert not bool(((ik >= chunk) & (ik < chunk + r)).any())  # the lower copy wins
+
+
 def test_qcp_step_kernel_matches_plain(dev):
     p, y = _cloud(1, 500).double(), _cloud(2, 500).double()
     from icp_tpu_torch.ops.alignment import compute_alignment_stats
@@ -182,6 +203,63 @@ def test_knn_grid_kernel_matches_plain_and_dense(dev, k, cap):
     args = (cand, counts, query.contiguous(), grid.tiles, 60, k)
     assert all(torch.equal(a, b) for a, b in zip(knn_grid.knn_worklist(*args),
                                                  knn_grid.knn_worklist_plain(*args)))
+
+
+def _k7_tables(pts, query, k, cap, tn=64):
+    grid = nn_grid.build_model_grid(pts, target_tile=128)
+    bd2 = nn_grid.tile_box_dists(query, grid, scene_tile=tn)
+    d_seed, _ = knn_grid.knn_worklist(*knn_grid.seed_table(bd2, k, grid.model_tile), query,
+                                      grid.tiles, tn, k)
+    kth = d_seed[:, k - 1].contiguous()
+    return grid, knn_grid.cull_table(bd2, kth, tn, cap), kth
+
+
+@pytest.mark.parametrize("case", ["straggler", "duplicates"])
+def test_knn_worklist_kernel_with_and_without_the_bound(dev, case):
+    """K7's exact pass equals its plain version with the seed bound and
+    without it.  ``straggler``: capacity 1, so the query tiles past it fold
+    all 128 tiles, cut into work items whose partial lists the merge joins;
+    ``duplicates``: 2,048 points and their mirror images across x = 0 (other
+    kd tiles), queried on that plane, so every distance ties across two
+    work items and the lowest original index must win."""
+    from icp_tpu_torch.engine.grid import _prepare_scene
+
+    k = 17
+    if case == "straggler":
+        pts = _cloud(13, 20000).to(dev)
+        cap = 1
+    else:
+        half = _cloud(14, 2048).to(dev) * torch.tensor([3.0, 1.0, 1.0], device=dev)
+        pts = torch.cat([half, half * torch.tensor([-1.0, 1.0, 1.0], device=dev)])
+        cap = 32
+    query, _, _, tn, _ = _prepare_scene(pts[:4096] if case == "straggler" else pts[:2048], 64)
+    query = query.contiguous()
+    if case == "duplicates":
+        query[:, 0] = 0.0
+    grid, (cand, counts), kth = _k7_tables(pts, query, k, cap, tn)
+    nj = grid.tiles.shape[0]
+    first, slots = knn_grid.knn_work_items(counts, cap, nj)
+    if case == "straggler":
+        over = counts > cap
+        assert nj == 128 and bool(over.any())
+        per = knn_grid.item_tiles(nj)[1]
+        assert per < nj and bool(((first[1:] - first[:-1])[over] == -(-nj // per)).all())
+    else:
+        tile = grid.kd_row.long() // grid.model_tile
+        assert (tile[:2048] != tile[2048:]).all()
+    assert int(slots[-1]) > 0  # some lists are merged from partial lists
+    args = (cand, counts, query, grid.tiles, tn, k)
+    want = knn_grid.knn_worklist_plain(*args, bound=kth)
+    before = _build.LAUNCHES["knn_grid"]
+    for kb in (kth, None):
+        got = knn_grid.knn_worklist(*args, bound=kb)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.LAUNCHES["knn_grid"] == before + 2
+    d2, idx = knn_grid.knn_grid(query, grid, k, scene_tile=tn, max_candidates=cap)
+    dd, di = knn_dense.knn_dense(query, pts, k)
+    assert torch.equal(idx, di) and torch.equal(d2, dd)
+    if case == "duplicates":
+        assert torch.equal(di[:, 0] % 2048, di[:, 1] % 2048) and bool((di[:, 0] < 2048).all())
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (37, 31), (300, 2049), (5000, 700)])

@@ -134,3 +134,102 @@ def test_knn_worklist_plain_seed_phase_matches_jax():
     d2, idx = tkg.knn_worklist(torder, tcounts, torch.tensor(query), tgrid.tiles, tn, k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
     _within_ulps(d2.numpy(), jd)
+
+
+def _exact_table(pts, query, k, cap, tn=64):
+    """The exact pass's table and bound as ``knn_grid`` builds them, on the
+    port's own grid of ``pts``."""
+    grid = tg.build_model_grid(torch.tensor(pts), target_tile=128)
+    q = torch.tensor(query)
+    bd2 = tg.tile_box_dists(q, grid, scene_tile=tn)
+    d_seed, _ = tkg.knn_worklist(*tkg.seed_table(bd2, k, grid.model_tile), q, grid.tiles, tn, k)
+    kth = d_seed[:, k - 1].contiguous()
+    cand, counts = tkg.cull_table(bd2, kth, tn, min(cap, bd2.shape[1]))
+    return grid, q, cand, counts, kth
+
+
+@pytest.mark.parametrize("k,max_candidates", [(8, 16), (17, 16), (5, 1)])
+def test_knn_worklist_plain_bound_changes_nothing_and_matches_jax(k, max_candidates):
+    """The exact pass with the seed's k-th distance as each point's bound
+    equals it without, and JAX's knn_grid (interpret mode)."""
+    pts, query, jgrid, _ = _grid_case(60 + k, n_query=640)
+    grid, q, cand, counts, kth = _exact_table(pts, query, k, max_candidates)
+    if max_candidates == 1:
+        assert (counts > 1).any()  # tiles that fold every tile
+    args = (cand, counts, q, grid.tiles, 64, k)
+    with_bound = tkg.knn_worklist_plain(*args, bound=kth)
+    without = tkg.knn_worklist_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(with_bound, without))
+    assert all(torch.equal(a, b) for a, b in zip(tkg.knn_worklist(*args, bound=kth), with_bound))
+    jd, ji = jkg.knn_grid(jnp.asarray(query), jgrid, k, scene_tile=64,
+                          max_candidates=max_candidates)
+    np.testing.assert_array_equal(with_bound[1].numpy(), np.asarray(ji))
+    _within_ulps(with_bound[0].numpy(), jd)
+
+
+def test_knn_worklist_plain_rows_beyond_the_bound_are_no_candidates():
+    """A bound below a query's k-th distance leaves places that no row
+    within it fills: +inf and index -1, as the kernel writes them."""
+    pts, query, _, _ = _grid_case(70, n_query=128)
+    grid, q, cand, counts, kth = _exact_table(pts, query, 6, 16)
+    d_full, i_full = tkg.knn_worklist_plain(cand, counts, q, grid.tiles, 64, 6)
+    tight = d_full[:, 2].contiguous()  # only the three nearest are within it
+    d2, idx = tkg.knn_worklist_plain(cand, counts, q, grid.tiles, 64, 6, bound=tight)
+    within = d_full <= tight[:, None]
+    assert torch.equal(idx[within], i_full[within]) and torch.equal(d2[within], d_full[within])
+    assert (idx[~within] == -1).all() and torch.isinf(d2[~within]).all()
+    assert within[:, :3].all()
+    with pytest.raises(ValueError, match="bound"):
+        tkg.knn_worklist_plain(cand, counts, q, grid.tiles, 64, 6, bound=tight[:-1])
+
+
+def _decode_k7_item(cand, counts, first, nj, item):
+    """(query tile, its model tiles) of K7's work item ``item``, as the fold
+    kernel decodes it: the last tile whose first item is <= item, then
+    ``per`` consecutive tiles of its fold list from ``(item - first) * per``."""
+    ti = int(torch.searchsorted(first[:-1], torch.tensor(item, dtype=first.dtype),
+                                right=True)) - 1
+    g, gf = tkg.item_tiles(nj)
+    cnt = int(counts[ti])
+    per = gf if cnt > cand.shape[1] else g
+    fold = tg.tile_ids(cand, nj, ti, cnt).tolist()
+    c = item - int(first[ti])
+    return ti, fold[c * per:(c + 1) * per]
+
+
+@pytest.mark.parametrize("cap,max_split", [(16, 64), (3, 64), (1, 64), (1, 3)])
+def test_work_items_cover_each_fold_list(monkeypatch, cap, max_split):
+    """K7's plan on JAX's own exact-pass table: each query tile's items,
+    decoded as the kernel decodes them, are its fold list once, in order;
+    the tiles of more than one item get one scratch slot per item, and the
+    others none.  ``max_split`` 3 cuts a list of all tiles into longer
+    items than a candidate list's."""
+    monkeypatch.setattr(tkg, "MAX_SPLIT", max_split)
+    pts, query, jgrid, tgrid = _grid_case(80, n_query=640)
+    query = query[np.argsort(query[:, 0], kind="stable")]  # slabs: counts 5-11
+    q8 = jnp.zeros((640, 8), jnp.float32).at[:, :3].set(jnp.asarray(query))
+    bd2 = np.asarray(jg.tile_box_dists(q8, jgrid, scene_tile=64))
+    u = torch.tensor(np.repeat(np.geomspace(1e-3, 1.0, 10), 64), dtype=torch.float32)
+    cand, counts = tkg.cull_table(torch.tensor(bd2), u, 64, cap)
+    counts[::3] = torch.tensor([0, 2, 4, 1], dtype=torch.int32)  # tiles of one item
+    nj = tgrid.tiles.shape[0]
+    first, slots = tkg.knn_work_items(counts, cap, nj)
+    assert first.dtype == slots.dtype == torch.int32
+    assert first.shape == slots.shape == (counts.shape[0] + 1,)
+    folds = [tg.tile_ids(cand, nj, ti, c).tolist() for ti, c in enumerate(counts.tolist())]
+    got = [[] for _ in folds]
+    for item in range(int(first[-1])):
+        ti, tiles = _decode_k7_item(cand, counts, first, nj, item)
+        assert tiles
+        got[ti].extend(tiles)
+    assert got == folds
+    n_items = (first[1:] - first[:-1]).tolist()
+    n_slots = (slots[1:] - slots[:-1]).tolist()
+    assert n_slots == [n if n > 1 else 0 for n in n_items]
+    assert 1 in n_items and max(n_items) > 1
+    if cap == 1:
+        over = counts > cap
+        assert over.any()
+        g, gf = tkg.item_tiles(nj)
+        assert gf == (max(g, -(-nj // max_split)))
+        assert {n_items[t] for t in torch.nonzero(over).flatten().tolist()} == {-(-nj // gf)}

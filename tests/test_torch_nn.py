@@ -57,6 +57,18 @@ def test_dense_distances_match_jax_kernel():
     np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=3e-7)
 
 
+def test_dense_row_without_a_finite_distance_gets_index_0_and_inf():
+    """A scene row whose every distance overflows: index 0 and d2 = +inf,
+    as the JAX kernel gives (K1's chunks emit no key for it)."""
+    scene, model = _clouds(8, 9, 300)
+    scene[4] = [3e38, -3e38, 3e38]
+    idx, d2 = nn_dense.nn_dense(torch.tensor(scene), torch.tensor(model), with_dist=True)
+    jidx, jd2 = nn_pallas.closest_point_with_distances_pallas(
+        jnp.asarray(scene), jnp.asarray(model), interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert int(idx[4]) == 0 and np.isinf(float(d2[4])) and np.isinf(float(jd2[4]))
+
+
 @pytest.mark.parametrize("method", ["bcast", "matmul"])
 def test_plain_methods_agree_with_kernel_path(method):
     scene, model = _clouds(3, 200, 500)
