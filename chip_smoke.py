@@ -8,16 +8,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card, and ``nvidia-smi``'s name and power limit;
   2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
      process per source, all at once, and ptxas's registers, stack frames
-     and spills are printed (K1's and K7's kernels must have neither);
-  3. kernels: K1-K9 at the shapes of the main paths, each against its plain
+     and spills are printed (K1/K10's, K7's and K9's kernels must have
+     neither);
+  3. kernels: K1-K10 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices and float32
      outputs exactly equal, float64 sums and state blocks within the stated
-     tolerances), with the median times of both (CUDA events) and the least
-     time the card could take for the same work (``bound_ms``, from this
-     run's inputs); K4's and K7's lines give each table's tiles past the
-     capacity, work items and folded pairs (K7: horse's seed, exact and
-     capacity-1 tables, the exact pass also without its seed bound), and
-     K6 is also held at k = 32 and on a lattice of exactly equal distances;
+     tolerances; K9, whose cross term the tensor cores accumulate, as
+     ``hold_k9`` says), with the median times of both (CUDA events) and the
+     least time the card could take for the same work (``bound_ms``, from
+     this run's inputs); K4's and K7's lines give each table's tiles past
+     the capacity, work items and folded pairs (K7: horse's seed, exact and
+     capacity-1 tables, the exact pass also without its seed bound), K6 is
+     also held at k = 32 and on a lattice of exactly equal distances, and
+     K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
@@ -25,10 +28,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      fixtures; ``--engine point_to_plane``, ``symmetric`` and ``gicp`` on
      cow_tr1 30 and cow_tr2 30 against the JAX CLI's fixtures, and on
      horse_tr1 30 (grid path, K7 normals) against the port's own dense
-     path; the lane-chunked NN (K8) through its entry point at K1's shapes
-     against K1; the bf16 prefilter (K9) through ``icp_symmetric`` with
-     ``nn_method="bf16"`` on a seeded surface and on cow_tr1.  The launch
-     counts of each run are read with the counts set to 0 just before it.
+     path; the lane-chunked NN (K8) and the ``"mxu"`` form (K10) through
+     their entry point at K1's shapes, against K1 and the plain version; the
+     bf16 prefilter (K9) through ``icp_symmetric`` with ``nn_method="bf16"``
+     on a seeded surface and on cow_tr1.  The launch counts of each run are
+     read with the counts set to 0 just before it.  Then two repairs: the
+     cow_tr1 CLI case and an ``icp_symmetric`` cow_tr1 run under the
+     caller's ``torch.set_float32_matmul_precision("high")`` (same
+     iterations and a bit-equal trace as under ``"highest"``, and the
+     caller's setting back afterwards), and ``icp_fixed_iters`` with a NaN
+     coordinate on the fused and the grid path (every iteration runs).
      Then ms/iter of the cow and horse loops of the four engines, and the
      normals' ms;
   5. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
@@ -77,6 +86,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "knn_grid": ("icp_tpu_torch/csrc/knn_grid.cu", "icp_tpu/kernels/knn_grid.py:53"),
     "nn_chunked": ("icp_tpu_torch/csrc/nn_chunked.cu", "icp_tpu/kernels/nn_pallas.py:49"),
     "nn_bf16": ("icp_tpu_torch/csrc/nn_bf16.cu", "icp_tpu/kernels/nn_bf16.py:60"),
+    "nn_dense_mxu": ("icp_tpu_torch/csrc/nn_dense.cu", "icp_tpu/kernels/nn_pallas.py:105"),
 }
 # (fixture, model file, scene file, nb_iter, iterations, output atol, extra flags)
 CLI_CASES = [
@@ -155,6 +165,49 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def sqdist(p, y):
+    """Row-wise float32 diff-squares distance (dx*dx + dy*dy) + dz*dz."""
+    d = p - y
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def hold_k9(label: str, s, m, outs) -> dict:
+    """K9's (idx, best, second, d_exact) on the centred clouds ``s``, ``m``
+    against its plain version.  The tensor cores accumulate the three exact
+    bf16 products of the cross term in their own way, which need not round
+    as the plain version's (x + y) + z does, so every output need not be
+    bit-equal (``equal`` says whether it was).  Held always:
+      1. d_exact bit-equal to the diff-squares distance to model[idx];
+      2. best and second within delta = 3 * 2^-20 * Pmax * Mmax of the plain
+         version's (``cross_term_slack``, ~21,800x below B);
+      3. idx equal to the plain index on every row whose plain margin
+         second - best exceeds 2 delta;
+      4. certified rows equal K1, and d_exact >= K1's distance."""
+    import torch
+
+    from icp_tpu_torch.kernels import nn_bf16, nn_dense
+
+    idx, best, second, dex = outs
+    ip, bp, sp, dp = nn_bf16.nn_bf16_plain(s, m)
+    equal = all(torch.equal(a, b) for a, b in zip(outs, (ip, bp, sp, dp)))
+    delta = float(nn_bf16.cross_term_slack(s, m))
+    require(torch.equal(dex, sqdist(s, m[idx.long()])),
+            f"K9 {label}: d_exact is not the distance to model[idx]")
+    fin = torch.isfinite(sp)
+    require(torch.equal(torch.isinf(second), ~fin), f"K9 {label}: second's infinities differ")
+    err = max(max_abs(best, bp), max_abs(second[fin], sp[fin]))
+    require(err <= delta, f"K9 {label}: best/second {err:.3e} from plain, above {delta:.3e}")
+    clear = (sp - bp) > 2 * delta
+    require(torch.equal(idx[clear], ip[clear]), f"K9 {label}: an index with a clear margin differs")
+    ik1, d1 = nn_dense.nn_dense(s, m, with_dist=True)
+    cert = (second - best) > 2.0 * nn_bf16.cross_term_bound(s, m)
+    require(torch.equal(idx[cert], ik1[cert]), f"K9 {label}: a certified index is not the NN")
+    require(bool((dex >= d1).all()), f"K9 {label}: d_exact below the NN distance")
+    return {"equal": equal, "best_share": float((best == bp).double().mean()),
+            "idx_share": float((idx == ip).double().mean()), "delta": delta, "max_abs_err": err,
+            "k1_share": float((idx == ik1).double().mean())}
+
+
 def folded_pairs(counts, cap: int, nj: int, tm: int, tn: int) -> int:
     """(query, model row) pairs a work-list launch folds for this table: one
     scene tile against one model tile per work item (a tile's candidates,
@@ -220,16 +273,18 @@ def phase_build():
     if regs:
         print("[build] ptxas: " + " ".join(a or b for a, b in regs), flush=True)
     # stack frame and spill bytes of each kernel: a list indexed at run
-    # time would show here (K1's and K7's must have none)
+    # time would show here (K1/K10's, K7's and K9's must have none)
     frames = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
                         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
     if frames:
         print("[build] ptxas stack/spill bytes: " + " ".join(
             f"{name}={f}/{st}/{ld}" for name, f, st, ld in frames), flush=True)
+        held = ("_nn_dense_cu", "_knn_grid_cu", "_nn_bf16_cu")
+        for src in held:
+            require(any(src in name for name, *_ in frames), f"ptxas reported no {src} kernel")
         bad = [name for name, f, st, ld in frames
-               if ("_nn_dense_cu" in name or "_knn_grid_cu" in name)
-               and (f, st, ld) != ("0", "0", "0")]
-        require(not bad, f"K1/K7 kernels with a stack frame or spills: {bad}")
+               if any(src in name for src in held) and (f, st, ld) != ("0", "0", "0")]
+        require(not bad, f"K1/K10, K7 or K9 kernels with a stack frame or spills: {bad}")
 
 
 def _load(name):
@@ -357,6 +412,37 @@ def phase_kernels(seed: int, record: dict):
     n, m = p0.shape[0], sub.shape[0]
     record["nn_dense"] = entry(max(v[0] for v in k1.values()), *k1["horse_seed"][1:],
                                bound(PAIR_OPS * n * m, 12 * n + 12 * m + 4 * n))
+
+    # K10, the "mxu" form: K1's shapes, indices and distances bit-equal to
+    # its plain version, timed beside K1 with the same pair bound; where its
+    # index differs from K1's, the two candidates' diff-squares distances
+    # must lie within 4 ulp of the expansion's terms.
+    k10 = {}
+    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse_seed", p0, sub)):
+        ik, dk = nn_dense.nn_dense(s, m, with_dist=True, distance_impl="mxu")
+        ip, dp = nn_dense.nn_dense_plain(s, m, with_dist=True, distance_impl="mxu")
+        require(torch.equal(ik, ip), f"K10 {label}: indices differ from plain")
+        require(torch.equal(dk, dp), f"K10 {label}: distances differ from plain")
+        ik1 = nn_dense.nn_dense(s, m)
+        off = torch.nonzero(ik != ik1).flatten()
+        if off.numel():
+            ps = s[off]
+            gap = (sqdist(ps, m[ik[off].long()]).double()
+                   - sqdist(ps, m[ik1[off].long()]).double()).abs()
+            tol = 4 * 2.0 ** -24 * (float(sqdist(m, torch.zeros_like(m)).max())
+                                    + sqdist(ps, torch.zeros_like(ps)).double())
+            require(bool((gap <= tol).all()), f"K10 {label}: an index off K1's by more than 4 ulp")
+        n, m_rows = s.shape[0], m.shape[0]
+        b = bound(PAIR_OPS * n * m_rows, 12 * n + 12 * m_rows + 4 * n)
+        k10[label] = entry(0.0, cuda_ms(lambda: nn_dense.nn_dense(s, m, distance_impl="mxu"), 20),
+                           cuda_ms(lambda: nn_dense.nn_dense_plain(s, m, distance_impl="mxu"), 5),
+                           b)
+        say("kernels", kernel="nn_dense_mxu", shape=f"{n}x{m_rows}",
+            chunk_rows=nn_dense.chunk_rows(n, m_rows, "mxu"), equal_plain=True,
+            idx_equal_k1_share=f"{float((ik == ik1).double().mean()):.6f}",
+            ms=f"{k10[label]['ms']:.4f}", plain_ms=f"{k10[label]['plain_ms']:.4f}",
+            k1_ms=f"{cuda_ms(lambda: nn_dense.nn_dense(s, m), 20):.4f}", bound_ms=f"{b[0]:.4f}")
+    record["nn_dense_mxu"] = k10["horse_seed"]
 
     # K2: statistics of a seeded random correspondence set, as one row
     # (grid engine) and as 23 rows (fused path), from a non-identity state.
@@ -575,10 +661,10 @@ def phase_kernels(seed: int, record: dict):
                                  bound(PAIR_OPS * n * m, 12 * n + 12 * m + 4 * n))
 
     # K9: cow (tr1 onto ref) and horse 48,485^2 (tr1 onto ref), centred as
-    # closest_point_indices_bf16 centres them; all four outputs bit-equal
-    # to the plain version's, certified rows equal to K1 on the same clouds.
-    # Neither certifies a row (their extent is far above their spacing), so
-    # a jittered 4^3 lattice with 8,192 scene points beside its sites, where
+    # closest_point_indices_bf16 centres them, held to its plain version by
+    # hold_k9; certified rows equal K1 on the same clouds.  Neither
+    # certifies a row (their extent is far above their spacing), so a
+    # jittered 4^3 lattice with 8,192 scene points beside its sites, where
     # the margins exceed the bf16 band, holds the certificate itself.
     rng = np.random.default_rng(seed + 9)
     sites = np.stack(np.meshgrid(*[np.arange(4.0)] * 3), -1).reshape(-1, 3)
@@ -591,16 +677,11 @@ def phase_kernels(seed: int, record: dict):
         c = m.mean(0)
         sc, mc = (s - c).contiguous(), (m - c).contiguous()
         outs = nn_bf16.nn_bf16(sc, mc)
-        for name, a, b in zip(("idx", "best", "second", "d_exact"), outs,
-                              nn_bf16.nn_bf16_plain(sc, mc)):
-            require(torch.equal(a, b), f"K9 {label}: {name} differs from plain")
+        held = hold_k9(label, sc, mc, outs)
         idx, dex, cert = nn_bf16.closest_point_indices_bf16(s, m)
         require(torch.equal(idx, outs[0]), f"K9 {label}: entry point differs from the kernel")
-        ik1, d1 = nn_dense.nn_dense(sc, mc, with_dist=True)
-        require(torch.equal(idx[cert], ik1[cert]), f"K9 {label}: a certified index is not the NN")
         require(label != "lattice" or float(cert.double().mean()) > 0.5,
                 f"K9 lattice: only {int(cert.sum())} of {cert.numel()} rows certified")
-        require(bool((dex >= d1).all()), f"K9 {label}: d_exact below the NN distance")
         heavy = s.shape[0] > 10_000
         ms = cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), 5 if heavy else 20)
         plain_ms = cuda_ms(lambda: nn_bf16.nn_bf16_plain(sc, mc), 2 if heavy else 5, warmup=1)
@@ -608,16 +689,21 @@ def phase_kernels(seed: int, record: dict):
         # product on the tensor cores (K padded to 16: 32 operations a
         # pair) while the float32 units add the norm and make the fold's
         # two compares (3 a pair), or the bytes, whichever takes longest.
-        # The all-float32 form this kernel has (8 operations a pair) is
-        # printed beside it.
+        # The all-float32 form (8 operations a pair) is printed beside it.
         n, m_rows = s.shape[0], m.shape[0]
         pairs, io_bytes = n * m_rows, 12 * n + 12 * m_rows + 16 * n
         tc_ms, f32_ms = 32 * pairs / PEAK_BF16 * 1e3, 3 * pairs / PEAK_FLOPS * 1e3
-        k9[label] = entry(0.0, ms, plain_ms,
+        k9[label] = entry(held["max_abs_err"], ms, plain_ms,
                           slower(max(tc_ms, f32_ms), io_bytes / PEAK_BYTES * 1e3))
-        say("kernels", kernel="nn_bf16", shape=f"{n}x{m_rows}", outputs_equal_plain=True,
+        chunks, _, scratch = nn_bf16.plan(n, m_rows)
+        say("kernels", kernel="nn_bf16", shape=f"{n}x{m_rows}", chunks=chunks,
+            partial_triples_bytes=chunks * n * 12, scratch_bytes=scratch,
+            outputs_equal_plain=held["equal"],
+            best_bit_equal_share=f"{held['best_share']:.6f}",
+            idx_equal_plain_share=f"{held['idx_share']:.6f}", delta=f"{held['delta']:.3e}",
+            max_abs_err=f"{held['max_abs_err']:.3e}",
             certified_share=f"{float(cert.double().mean()):.4f}",
-            idx_equal_k1_share=f"{float((idx == ik1).double().mean()):.4f}",
+            idx_equal_k1_share=f"{held['k1_share']:.4f}",
             ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{k9[label]['bound_ms']:.6f}",
             tensor_core_product_ms=f"{tc_ms:.6f}", float32_add_compares_ms=f"{f32_ms:.6f}",
             all_float32_bound_ms=f"{bound(PAIR_OPS * pairs, io_bytes)[0]:.6f}")
@@ -711,7 +797,10 @@ def phase_cli(tmp: str) -> dict:
     for engine, (folder, short, pairs) in PLANE_CASES.items():
         _add(total, _plane_engine_cli(tmp, engine, folder, short, pairs))
     _add(total, _chunked_entry())
+    _add(total, _mxu_entry())
     _add(total, _bf16_path())
+    _full_float32_under_tf32(tmp)
+    _fixed_mode_nan()
     return total
 
 
@@ -825,6 +914,97 @@ def _chunked_entry() -> dict:
     say("path", case="nn_chunked_entry", shapes="2903x2903,49152x3031", idx_equal_k1=True,
         launches=used)
     return used
+
+
+def _mxu_entry() -> dict:
+    """K10 through its entry point, ``closest_point_indices_dense(...,
+    distance_impl="mxu")``, at K1's main-path shapes (cow, and the grid seed
+    of horse): equal to its plain version, beside K1.  No engine takes it,
+    as no JAX engine takes the ``"mxu"`` form."""
+    import torch
+
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels.nn_dense import closest_point_indices_dense, nn_dense_plain
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    cases = {"cow": (torch.tensor(_load("cow_tr1.txt"), **f32),
+                     torch.tensor(_load("cow_ref.txt"), **f32)),
+             "horse_seed": (_prepare_scene(torch.tensor(_load("horse_tr1.txt"), **f32), 256)[0]
+                            .contiguous(), torch.tensor(_load("horse_ref.txt"), **f32)[::16]
+                            .contiguous())}
+    k1 = {k: closest_point_indices_dense(s, m) for k, (s, m) in cases.items()}
+    got, used = _counted(lambda: {k: closest_point_indices_dense(s, m, distance_impl="mxu")
+                                  for k, (s, m) in cases.items()})
+    for k, (s, m) in cases.items():
+        require(torch.equal(got[k], nn_dense_plain(s, m, distance_impl="mxu")),
+                f"nn_dense_mxu entry {k}: indices differ from plain")
+    require(used["nn_dense_mxu"] == len(cases) and used["nn_dense"] == 0,
+            f"nn_dense_mxu entry: K10 not taken ({used})")
+    say("path", case="nn_dense_mxu_entry", shapes="2903x2903,49152x3031", idx_equal_plain=True,
+        idx_equal_k1_share=",".join(f"{float((got[k] == k1[k]).double().mean()):.6f}"
+                                    for k in cases), launches=used)
+    return used
+
+
+def _full_float32_under_tf32(tmp: str) -> None:
+    """The caller's ``torch.set_float32_matmul_precision("high")`` (TF32 on
+    the card) changes nothing inside the package: the cow_tr1 CLI case (7
+    iterations) and an ``icp_symmetric`` cow_tr1 run (3) give the same
+    iterations, trace and cloud as under ``"highest"``, and the caller's
+    setting reads ``"high"`` afterwards."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp_symmetric
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    cow_ref = torch.tensor(_load("cow_ref.txt"), **f32)
+    cow_tr1 = torch.tensor(_load("cow_tr1.txt"), **f32)
+    runs = {}
+    for prec in ("highest", "high"):
+        out_path = os.path.join(tmp, f"tf32_{prec}_output.txt")
+        torch.set_float32_matmul_precision(prec)
+        try:
+            rc, got, err, _, _ = _run_cli([os.path.join(ROOT, "data", "cow_ref.txt"),
+                                           os.path.join(ROOT, "data", "cow_tr1.txt"), "10",
+                                           "--output", out_path])
+            sym = icp_symmetric(cow_ref, cow_tr1, ICPConfig(max_iter=30), trace=True)
+            torch.cuda.synchronize()
+            after = torch.get_float32_matmul_precision()
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        require(rc == 0 and after == prec, f"tf32 {prec}: exit {rc}, caller's setting {after}")
+        with open(out_path) as f:
+            cloud = f.read()
+        runs[prec] = (_TRACE_RE.findall(err), cloud, sym)
+    (t0, c0, s0), (t1, c1, s1) = runs["highest"], runs["high"]
+    n0, n1 = int(s0.result.iters), int(s1.result.iters)
+    require(len(t0) == len(t1) == 7 and t0 == t1 and c0 == c1,
+            f"tf32: CLI cow_tr1 {len(t1)} iterations under high, {len(t0)} under highest")
+    require(n0 == n1 == 3 and torch.equal(s0.errs[:n0], s1.errs[:n1])
+            and torch.equal(s0.result.points, s1.result.points),
+            f"tf32: icp_symmetric cow_tr1 {n1} iterations under high, {n0} under highest")
+    say("repair", case="full_float32_under_high", cli_iters=len(t1), sym_iters=n1,
+        trace_bit_equal=True, output_bit_equal=True, caller_setting_after="high")
+
+
+def _fixed_mode_nan() -> None:
+    """``icp_fixed_iters(n_iters=10)`` with one NaN coordinate runs all 10
+    iterations on the fused path (K3 + K2) and on the grid path (K1 seed,
+    K4, K2), as JAX's ``fori_loop``; the error is NaN."""
+    import numpy as np
+
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    model = _load("cow_ref.txt")
+    scene = _load("cow_tr1.txt").copy()
+    scene[5, 1] = np.nan
+    for nn, kernel in (("pallas", "icp_fused"), ("grid", "nn_grid")):
+        res, used = _counted(lambda: icp_fixed_iters(model, scene, n_iters=10, solver="qcp_fused",
+                                                     nn_method=nn))
+        iters, err = int(res.iters), float(res.err)
+        require(iters == 10 and math.isnan(err) and used["qcp_step"] == 10
+                and used[kernel] == 10, f"fixed mode {nn}: {iters} iterations, err {err} ({used})")
+        say("repair", case="fixed_iters_nan", path=nn, iters=iters, err=err, launches=used)
 
 
 def surface(rng, n):

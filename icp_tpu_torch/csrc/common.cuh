@@ -31,6 +31,34 @@ __device__ __forceinline__ float expdist_rn(float px, float py, float pz,
       __fmul_rn(pz, q.z));
 }
 
+// |m|^2 = (x*x + y*y) + z*z, the norm of the "mxu" form below.
+__device__ __forceinline__ float norm3_rn(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+// Expansion form |m|^2 - 2 p.m against q = (mx, my, mz, |m|^2), with
+// p.m = (px*mx + py*my) + pz*mz: the distance of nn_pallas.py _nn_kernel's
+// distance_impl "mxu" (its |p|^2 is added back after the argmin).  2 p.m is
+// exact, so this rounds as |m|^2 - 2 * p.m in plain float32 arithmetic.
+__device__ __forceinline__ float mxudist_rn(float px, float py, float pz, float4 q) {
+  const float c = __fadd_rn(__fadd_rn(__fmul_rn(px, q.x), __fmul_rn(py, q.y)),
+                            __fmul_rn(pz, q.z));
+  return __fsub_rn(q.w, __fmul_rn(2.f, c));
+}
+
+// A float's bits mapped so that unsigned integer order is float order,
+// negative values included (-0 sorts just below +0; no distance here is
+// -0), and its inverse.  +inf maps to 0xff800000, below every NaN and below
+// the all-ones word the merge keys use for "empty".
+__device__ __forceinline__ unsigned ordered_bits(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float from_ordered_bits(unsigned u) {
+  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
 // cp.async: a copy from device memory to shared memory that the issuing
 // thread does not wait for; commit closes a group of copies, and
 // wait<N> returns once at most N of this thread's groups are in flight.

@@ -1,18 +1,29 @@
-// K1: dense exact nearest neighbour — for every scene point the model index
-// of the least squared distance, ties to the lowest index.
+// K1 and K10: dense exact nearest neighbour — for every scene point the
+// model index of the least distance, ties to the lowest index.
 //
-// Replaces icp_tpu/kernels/nn_pallas.py:99 _nn_kernel (the distance_impl
-// "vpu" form its entry points use by default).
+// K1 replaces icp_tpu/kernels/nn_pallas.py:99 _nn_kernel in its
+// distance_impl "vpu" form (the one its entry points use by default): the
+// diff-squares distance (dx*dx + dy*dy) + dz*dz.  K10 replaces the same
+// kernel in its "mxu" form (nn_pallas.py:105-118): the expansion
+// |m|^2 - 2 p.m, whose |p|^2 term cannot change the argmin and is added back
+// after the fold when distances are asked for (nn_pallas.py:263-265), with
+// no clamp, so that value can be slightly negative.  The JAX package runs
+// that form on the TPU's matrix unit at Precision.HIGHEST; here it feeds an
+// argmin, so it stays on the float32 units, never TF32 or bf16 tensor
+// cores.  One kernel body serves both, with the form as a template
+// parameter (Form below).
 //
-// What bounds it on the H100: float32 arithmetic — 3 subtractions, 3
-// multiplications, 2 additions and a compare per (scene, model) pair; the
-// bytes are N*12 + M*12 in and N*4 (+ N*4) out.  Under --fmad=false each
-// of the 8 roundings is its own instruction, against the bound's 8 at the
-// float32 peak (which only multiply-adds reach); a strict-< fold adds a
-// compare and two selects a pair (~11 issue slots).  This one takes the
-// least of four rows' distances first (3 min instructions a point) and
-// compares row by row only when that least beats the point's best: ~9
-// issue slots a pair, so ~1.2x the printed bound is this form's floor.
+// What bounds it on the H100: float32 arithmetic — K1: 3 subtractions, 3
+// multiplications, 2 additions and a compare per (scene, model) pair; K10:
+// 3 multiplications, 2 additions, the exact doubling and a subtraction (the
+// row's |m|^2, 5 operations, once for the thread's four points).  The bytes
+// are N*12 + M*12 in and N*4 (+ N*4) out.  Under --fmad=false each rounding
+// is its own instruction, against the bound's 8 at the float32 peak (which
+// only multiply-adds reach); a strict-< fold adds a compare and two selects
+// a pair (~11 issue slots).  This one takes the least of four rows'
+// distances first (3 min instructions a point) and compares row by row only
+// when that least beats the point's best: ~9 issue slots a pair, so ~1.2x
+// the printed bound is this form's floor.
 //
 // The design, one C call: a memset of the keys, then two kernels.
 //  1. fold: a grid of (scene block x model chunk) blocks, so that small
@@ -27,15 +38,17 @@
 //     16-byte aligned (a stage of 128 rows is 1,536 bytes), else 4.  Four
 //     rows are read as three float4 loads and folded as a group (above):
 //     in ascending row order with strict <, so a chunk keeps the lowest
-//     index of its least distance; the chunks' minima merge into the point's 64-bit key by
-//     atomicMin: d2's float bits (d2 >= 0 orders as an unsigned integer)
-//     in the high word, the model index in the low word, so the lowest
-//     index of the least distance wins in any order.  A chunk emits a key
-//     only when it found d2 < +inf: NaN never wins, and a point with no
-//     finite distance keeps the empty key.
-//  2. epilogue (a thread a point): writes the index and, when asked, d2
-//     from the key; the empty key gives index 0 and d2 = +inf, as the
-//     plain version and the JAX kernel give for such rows.
+//     index of its least distance; the chunks' minima merge into the
+//     point's 64-bit key by atomicMin: the distance's bits in the high
+//     word, mapped so that unsigned order is float order (ordered_bits in
+//     common.cuh: K10's distance is negative for most pairs, K1's never),
+//     the model index in the low word, so the lowest index of the least
+//     distance wins in any order.  A chunk emits a key only when it found a
+//     distance < +inf: NaN never wins, and a point with no such distance
+//     keeps the empty key, which the map cannot produce.
+//  2. epilogue (a thread a point): writes the index and, when asked, the
+//     distance from the key (K10: plus |p|^2); the empty key gives index 0
+//     and +inf, as the plain version and the JAX kernel give for such rows.
 #include "common.cuh"
 
 namespace {
@@ -47,6 +60,22 @@ constexpr int kStages = 4;        // ring depth: 6 KB of shared memory
 constexpr int kStageFloats = 3 * kStageRows;
 constexpr unsigned long long kEmpty = ~0ull;
 
+// The distance forms (the C entry points' `form`): 0 diff-squares (K1),
+// 1 expansion (K10).
+enum Form : int { kDiff = 0, kExpansion = 1 };
+
+// A model row for the fold: (x, y, z) and, for the expansion form, |m|^2.
+template <int F>
+__device__ __forceinline__ float4 model_row(float x, float y, float z) {
+  return make_float4(x, y, z, F == kExpansion ? norm3_rn(x, y, z) : 0.f);
+}
+
+template <int F>
+__device__ __forceinline__ float dist(float px, float py, float pz, float4 q) {
+  return F == kExpansion ? mxudist_rn(px, py, pz, q) : sqdist_rn(px, py, pz, q);
+}
+
+template <int F>
 __global__ void __launch_bounds__(kThreads)
 nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __restrict__ model,
                      int m, int chunk_rows, bool aligned16, unsigned long long* __restrict__ keys) {
@@ -80,10 +109,10 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
     for (int t = 4 * n16 + threadIdx.x; t < nf; t += kThreads) cp_async4(dst + t, src + t);
   };
   auto fold = [&](float x, float y, float z, int r) {
-    const float4 q = make_float4(x, y, z, 0.f);
+    const float4 q = model_row<F>(x, y, z);
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const float d = sqdist_rn(px[p], py[p], pz[p], q);
+      const float d = dist<F>(px[p], py[p], pz[p], q);
       if (d < best[p]) {
         best[p] = d;
         bi[p] = r;
@@ -110,8 +139,8 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
     for (int g = 0; g < groups; ++g) {  // rows 4g..4g+3 are floats 12g..12g+11
       const float4 a = buf4[3 * g], c = buf4[3 * g + 1], e = buf4[3 * g + 2];
       const int r = r0 + 4 * g;
-      const float4 q[4] = {make_float4(a.x, a.y, a.z, 0.f), make_float4(a.w, c.x, c.y, 0.f),
-                           make_float4(c.z, c.w, e.x, 0.f), make_float4(e.y, e.z, e.w, 0.f)};
+      const float4 q[4] = {model_row<F>(a.x, a.y, a.z), model_row<F>(a.w, c.x, c.y),
+                           model_row<F>(c.z, c.w, e.x), model_row<F>(e.y, e.z, e.w)};
       // the four distances of each point, and their least: only when it
       // beats a point's best (rarely) are they compared one by one, in row
       // order, so the result is the eager strict-< fold's
@@ -120,7 +149,7 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
 #pragma unroll
       for (int p = 0; p < P; ++p) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) d[p][u] = sqdist_rn(px[p], py[p], pz[p], q[u]);
+        for (int u = 0; u < 4; ++u) d[p][u] = dist<F>(px[p], py[p], pz[p], q[u]);
         hit |= fminf(fminf(d[p][0], d[p][1]), fminf(d[p][2], d[p][3])) < best[p];
       }
       if (hit) {
@@ -144,40 +173,54 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
                         + threadIdx.x;
     if (i < n && best[p] < inf) {
       const unsigned long long key =
-          (static_cast<unsigned long long>(__float_as_uint(best[p])) << 32)
+          (static_cast<unsigned long long>(ordered_bits(best[p])) << 32)
           | static_cast<unsigned>(bi[p]);
       atomicMin(keys + i, key);
     }
   }
 }
 
+// add_pn: the expansion form's distance is |m|^2 - 2 p.m; |p|^2 goes back on.
 __global__ void nn_dense_epilogue_kernel(const unsigned long long* __restrict__ keys, int n,
+                                         const float* __restrict__ scene, bool add_pn,
                                          int* __restrict__ idx_out, float* __restrict__ d2_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const unsigned long long key = keys[i];
   idx_out[i] = key == kEmpty ? 0 : static_cast<int>(static_cast<unsigned>(key));
-  if (d2_out)
-    d2_out[i] = key == kEmpty ? __int_as_float(0x7f800000)
-                              : __uint_as_float(static_cast<unsigned>(key >> 32));
+  if (!d2_out) return;
+  if (key == kEmpty) {
+    d2_out[i] = __int_as_float(0x7f800000);
+    return;
+  }
+  const float d = from_ordered_bits(static_cast<unsigned>(key >> 32));
+  d2_out[i] = add_pn ? __fadd_rn(d, norm3_rn(scene[3 * i], scene[3 * i + 1], scene[3 * i + 2]))
+                     : d;
+}
+
+using FoldKernel = void (*)(const float*, int, const float*, int, int, bool,
+                            unsigned long long*);
+
+FoldKernel fold_kernel(int form) {
+  return form == kExpansion ? nn_dense_fold_kernel<kExpansion> : nn_dense_fold_kernel<kDiff>;
 }
 
 // Model rows a chunk: one wave of resident fold blocks, at least one chunk
 // and at most one a 128-row stage; a multiple of the stage.
-int chunk_rows_for(int n, int m, int* out) {
-  static int waves[64];  // the wave of each device, asked once
+int chunk_rows_for(int n, int m, int form, int* out) {
+  static int waves[2][64];  // the wave of each form and device, asked once
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int wave = dev < 64 ? waves[dev] : 0;
+  int wave = dev < 64 ? waves[form][dev] : 0;
   if (wave == 0) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nn_dense_fold_kernel, kThreads, 0);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_kernel(form), kThreads, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
     wave = sms * (per_sm > 0 ? per_sm : 1);
-    if (dev < 64) waves[dev] = wave;
+    if (dev < 64) waves[form][dev] = wave;
   }
   const long long scene_blocks = (n + kThreads * kPoints - 1) / (kThreads * kPoints);
   const long long stages = (m + kStageRows - 1) / kStageRows;
@@ -188,31 +231,35 @@ int chunk_rows_for(int n, int m, int* out) {
   return 0;
 }
 
+bool valid(int n, int m, int form) { return n >= 1 && m >= 1 && (form == kDiff || form == kExpansion); }
+
 }  // namespace
 
-// The model rows of one chunk of the fold for an (n, m) launch.
-ICP_EXPORT int nn_dense_chunk_rows(int n, int m, int* chunk_rows) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return chunk_rows_for(n, m, chunk_rows);
+// The model rows of one chunk of the fold for an (n, m) launch of `form`.
+ICP_EXPORT int nn_dense_chunk_rows(int n, int m, int form, int* chunk_rows) {
+  if (!valid(n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+  return chunk_rows_for(n, m, form, chunk_rows);
 }
 
-// keys: n 64-bit words of scratch; d2_out may be null.
-ICP_EXPORT int nn_dense_launch(const float* scene, int n, const float* model, int m,
+// form: 0 diff-squares (K1), 1 expansion (K10); keys: n 64-bit words of
+// scratch; d2_out may be null.
+ICP_EXPORT int nn_dense_launch(const float* scene, int n, const float* model, int m, int form,
                                unsigned long long* keys, int* idx_out, float* d2_out,
                                cudaStream_t stream) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
   int chunk_rows = 0;
-  int code = chunk_rows_for(n, m, &chunk_rows);
+  int code = chunk_rows_for(n, m, form, &chunk_rows);
   if (code != 0) return code;
   cudaError_t e = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * n, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool aligned16 = reinterpret_cast<unsigned long long>(model) % 16 == 0;
   const dim3 grid((n + kThreads * kPoints - 1) / (kThreads * kPoints),
                   (m + chunk_rows - 1) / chunk_rows);
-  nn_dense_fold_kernel<<<grid, kThreads, 0, stream>>>(scene, n, model, m, chunk_rows, aligned16,
-                                                      keys);
+  fold_kernel(form)<<<grid, kThreads, 0, stream>>>(scene, n, model, m, chunk_rows, aligned16,
+                                                   keys);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  nn_dense_epilogue_kernel<<<(n + 255) / 256, 256, 0, stream>>>(keys, n, idx_out, d2_out);
+  nn_dense_epilogue_kernel<<<(n + 255) / 256, 256, 0, stream>>>(keys, n, scene, form == kExpansion,
+                                                                idx_out, d2_out);
   return static_cast<int>(cudaGetLastError());
 }

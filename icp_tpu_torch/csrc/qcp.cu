@@ -31,8 +31,11 @@
 // --fmad=false, so the two agree to the last bits.
 //
 // Loop control ctl (int32): [0] iterations done, [1] done flag, [2] bound.
-// Once done is set the kernel writes the identity step and returns, so a
-// later apply of the step is an exact no-op.
+// The flag rises at the bound and, when `converge` is set (icp), also when
+// !(err >= threshold), so a NaN error stops the loop; with `converge` 0
+// (icp_fixed_iters, JAX's fori_loop) only the bound raises it.  Once done
+// is set the kernel writes the identity step and returns, so a later apply
+// of the step is an exact no-op.
 #include "common.cuh"
 
 namespace {
@@ -157,7 +160,7 @@ __device__ void qcp_rotation(double S[3][3], double gp, double gy,
 __global__ void qcp_step_kernel(const double* __restrict__ partials, int n_rows,
                                 double* state, int* ctl, double* errs,
                                 int with_scale, double threshold,
-                                double err_factor) {
+                                double err_factor, int converge) {
   double* out = state;  // (32,) block, updated in place by this one thread
   if (ctl[1]) {
     out[0] = 1.0;
@@ -219,7 +222,7 @@ __global__ void qcp_step_kernel(const double* __restrict__ partials, int n_rows,
   const int it = ctl[0];
   errs[it] = err;
   ctl[0] = it + 1;
-  if (!(err >= threshold) || it + 1 >= ctl[2]) ctl[1] = 1;
+  if (it + 1 >= ctl[2] || (converge && !(err >= threshold))) ctl[1] = 1;
 }
 
 // K5: one thread; `in` and `out` are the (1, 16) float64 slot blocks.
@@ -245,9 +248,9 @@ ICP_EXPORT int qcp_rotation_launch(const double* in, double* out, cudaStream_t s
 
 ICP_EXPORT int qcp_step_launch(const double* partials, int n_rows, double* state,
                                int* ctl, double* errs, int with_scale,
-                               double threshold, double err_factor,
+                               double threshold, double err_factor, int converge,
                                cudaStream_t stream) {
   qcp_step_kernel<<<1, 1, 0, stream>>>(partials, n_rows, state, ctl, errs,
-                                       with_scale, threshold, err_factor);
+                                       with_scale, threshold, err_factor, converge);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,8 @@ import sys
 
 import numpy as np
 
+from icp_tpu_torch.utils.precision import in_full_float32
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -73,6 +75,7 @@ def _not_ported(args) -> str | None:
     return next((name for on, name in flags if on), None)
 
 
+@in_full_float32
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if len(argv) < 3:

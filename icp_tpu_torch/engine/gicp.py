@@ -19,10 +19,11 @@ Two loops, as in JAX:
     kd-permuted once, with the identity on the padding rows (weight 0).
 
 The float32 einsums of the sums stand where JAX writes
-``Precision.HIGHEST``: they need full-float32 matmuls, PyTorch's default
-(no TF32).  The loops stay on the device (``LoopState.record_on_device``).
-Rigid only; ``trim_fraction > 0``, bucket padding and the sharded variant
-are not ported yet.
+``Precision.HIGHEST``: they need full-float32 matmuls, which
+``icp_generalized`` runs under (``utils.precision.full_float32``).  The
+loops stay on the device (``LoopState.record_on_device``).  Rigid only;
+``trim_fraction > 0``, bucket padding and the sharded variant are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from icp_tpu_torch.ops.transform import (
     compose,
     identity_similarity,
 )
+from icp_tpu_torch.utils.precision import in_full_float32
 
 
 def disk_covariances(normals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -167,6 +169,7 @@ def _gicp_grid(model, normals, scene, cov_s, *, threshold: float, max_iter: int,
     return loop.finish(p[inv_slots], total, dt, trace)
 
 
+@in_full_float32
 def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
                     model_normals=None, scene_normals=None, normal_k: int = 16,
                     eps: float = 1e-3, init=None, trace: bool = False, device=None):

@@ -68,7 +68,8 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
               solver: str, with_scale: bool, reference_compat: bool,
               scene_tile_target: int = 256, model_tile_target: int = 1024,
               max_candidates: int = 16, bound_stride: int = 16,
-              init: Optional[Similarity] = None, trace: bool = False):
+              init: Optional[Similarity] = None, trace: bool = False,
+              converge: bool = True):
     dt, dev = scene.dtype, scene.device
     if init is not None:
         scene = apply_similarity(scene, init)
@@ -77,7 +78,7 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
     stride = max(1, min(bound_stride, model.shape[0] // 4))
     u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig,
                                                           stride=stride))
-    loop = LoopState(bound, length, threshold, reference_compat, dev)
+    loop = LoopState(bound, length, threshold, reference_compat, dev, converge)
 
     if solver == "qcp_fused":
         state = identity_state(dev) if init is None else pack_total_state(init, dev)
@@ -89,8 +90,7 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
             y = y.to(dt)
             stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
             qcp_step(pack_stats(stats), state, loop.ctl, loop.errs,
-                     with_scale=with_scale, threshold=threshold,
-                     err_factor=loop.err_factor)
+                     **loop.step_kw(with_scale))
             p = apply_similarity(p, step_similarity(state, dt))
             u = next_bound(y, p)
 

@@ -11,7 +11,10 @@ the convergence test runs inside the scalar-solve kernel K2, which writes
 ``errs[it]``, advances the iteration count and raises a done flag; after
 that every launch is an exact no-op.  The host launches iterations in
 chunks of ``_CHUNK`` and reads the flag once per chunk, so iteration counts
-and the NaN-tailed error buffer are those of the JAX loop.  The plain
+and the NaN-tailed error buffer are those of the JAX loop.  In fixed mode
+(``icp_fixed_iters``) no error stops the loop: only the bound raises the
+flag, so a NaN error runs on to ``n_iters`` as JAX's ``fori_loop`` does,
+while ``icp`` stops after it (``not err >= threshold``).  The plain
 solvers (``eigh``, ``qcp``, ``kabsch``: the CPU default, or chosen
 explicitly, and ``qcp_fused`` with the ``bcast``/``matmul`` NN) record each
 error on the host instead — ``torch.linalg.eigh`` synchronises with the
@@ -35,6 +38,8 @@ no card and no ``device`` they raise rather than move to the CPU.
 Accumulating the Horn sums and solving in float64 is a deliberate numerics
 choice: the JAX kernels' float32 closed-form residual cancels to noise near
 convergence and can stop the grid path one iteration early on cow.
+Every entry point runs under ``utils.precision.full_float32``: float32
+matmuls in full float32 whatever the caller set (no TF32).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from icp_tpu_torch.ops.transform import (
     compose,
     identity_similarity,
 )
+from icp_tpu_torch.utils.precision import in_full_float32
 
 # Iterations launched between two reads of the device's done flag.
 _CHUNK = 8
@@ -94,15 +100,22 @@ class ICPTrace(NamedTuple):
 
 class LoopState:
     """Device-side loop control of one run: ``ctl`` = [iterations done,
-    done flag, bound] (int32) and the float64 error buffer."""
+    done flag, bound] (int32) and the float64 error buffer.  ``converge``
+    False is fixed mode: only the bound ends the loop."""
 
     def __init__(self, bound: int, length: int, threshold: float,
-                 reference_compat: bool, device):
+                 reference_compat: bool, device, converge: bool = True):
         self.bound = bound
         self.ctl = new_loop_control(bound, device)
         self.errs = new_err_buffer(length, device)
         self.threshold = threshold
+        self.converge = converge
         self.err_factor = 2.0 if reference_compat else 1.0
+
+    def step_kw(self, with_scale: bool) -> dict:
+        """K2's loop arguments for this run."""
+        return dict(with_scale=with_scale, threshold=self.threshold,
+                    err_factor=self.err_factor, converge=self.converge)
 
     def run(self, step: Callable[[], None]) -> None:
         """Call ``step`` until the done flag is up, reading it once per
@@ -122,12 +135,12 @@ class LoopState:
     def record(self, err_sum: torch.Tensor, n: torch.Tensor) -> None:
         """Host-side bookkeeping of the plain-solver paths."""
         err = float(self.err_factor * err_sum / n)
-        record_error(self.ctl, self.errs, err, self.threshold)
+        record_error(self.ctl, self.errs, err, self.threshold, self.converge)
 
     def record_on_device(self, err: torch.Tensor) -> torch.Tensor:
         """K2's bookkeeping in tensor ops, with no host read: errs[it] = err,
-        it += 1, done when ``not err >= threshold`` or at the bound; nothing
-        changes once done.  Returns the done flag as it stood before this
+        it += 1, done at the bound or, in convergence mode, when ``not err
+        >= threshold``; nothing changes once done.  Returns the done flag as it stood before this
         iteration (a 0-d bool tensor): the caller gates its update by it, so
         the launches after convergence are exact no-ops."""
         done = self.ctl[1] != 0
@@ -135,7 +148,9 @@ class LoopState:
         slot = it.clamp(max=self.errs.numel() - 1).reshape(1)
         new_err = err.to(self.errs.dtype).reshape(1)
         self.errs.index_copy_(0, slot, torch.where(done, self.errs[slot], new_err))
-        stop = ~(err >= self.threshold) | (it + 1 >= self.bound)
+        stop = it + 1 >= self.bound
+        if self.converge:
+            stop = stop | ~(err >= self.threshold)
         self.ctl[:2] = torch.stack([torch.where(done, it, it + 1),
                                     (done | stop).to(torch.int64)]).to(torch.int32)
         return done
@@ -174,6 +189,7 @@ def as_points(x, dtype, device=None) -> torch.Tensor:
     return t.to(dtype=dtype, device=target_device(x, device))
 
 
+@in_full_float32
 def icp_step(p: torch.Tensor, model: torch.Tensor, *, solver: str,
              nn_method: str, with_scale: bool, reference_compat: bool,
              acc_dtype=None):
@@ -192,11 +208,11 @@ def icp_step(p: torch.Tensor, model: torch.Tensor, *, solver: str,
 
 def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
                solver: str, nn_method: str, with_scale: bool,
-               reference_compat: bool, init: Optional[Similarity], trace: bool):
+               reference_compat: bool, init: Optional[Similarity], trace: bool,
+               converge: bool = True):
     dt, dev = scene.dtype, scene.device
-    loop = LoopState(bound, length, threshold, reference_compat, dev)
-    step_kw = dict(with_scale=with_scale, threshold=threshold,
-                   err_factor=loop.err_factor)
+    loop = LoopState(bound, length, threshold, reference_compat, dev, converge)
+    step_kw = loop.step_kw(with_scale)
     if fused_path_available(solver, nn_method, 0.0, model.shape[0]):
         prep = prepare_fused_inputs(scene, model)
         state = identity_state(dev) if init is None else pack_total_state(init, dev)
@@ -258,6 +274,7 @@ def check_finite(name: str, *tensors) -> None:
                 f"(shape {tuple(t.shape)}, dtype {t.dtype})")
 
 
+@in_full_float32
 def icp(model, scene, config: Optional[ICPConfig] = None, *, trace: bool = False,
         guard=False, init: Optional[Similarity] = None, n_iters=None, device=None):
     """Register ``scene`` onto ``model``, both (N, 3).
@@ -317,17 +334,19 @@ def icp(model, scene, config: Optional[ICPConfig] = None, *, trace: bool = False
     return out
 
 
+@in_full_float32
 def icp_fixed_iters(model, scene, *, n_iters: int, solver: str = "eigh",
                     nn_method: str = "bcast", with_scale: bool = True,
                     reference_compat: bool = True, device=None) -> ICPResult:
     """Exactly ``n_iters`` float32 iterations with no convergence exit (the
-    benchmark workload).  ``nn_method="grid"`` runs the grid engine with
+    benchmark workload, JAX's ``fori_loop``): a NaN or any other error does
+    not stop it.  ``nn_method="grid"`` runs the grid engine with
     ``ICPConfig``'s default tiles.  Devices as in ``icp``."""
     model = as_points(model, torch.float32, device)
     scene = as_points(scene, torch.float32, model.device)
     kw = dict(threshold=-math.inf, bound=n_iters, length=n_iters, solver=solver,
               with_scale=with_scale, reference_compat=reference_compat,
-              init=None, trace=False)
+              init=None, trace=False, converge=False)
     if nn_method == "grid":
         from icp_tpu_torch.engine.grid import _icp_grid
 

@@ -39,6 +39,7 @@ from icp_tpu_torch.ops.transform import (
     compose,
     identity_similarity,
 )
+from icp_tpu_torch.utils.precision import in_full_float32
 
 _DAMPING = 1e-9
 
@@ -148,6 +149,7 @@ def _icp_p2pl_grid(model, normals, scene, *, threshold: float, max_iter: int,
     return loop.finish(p[inv_slots], total, dt, trace)
 
 
+@in_full_float32
 def icp_point_to_plane(model, scene, config: Optional[ICPConfig] = None, *,
                        normals=None, normal_k: int = 16, init=None,
                        trace: bool = False, device=None):

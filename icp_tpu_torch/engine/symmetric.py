@@ -47,6 +47,7 @@ from icp_tpu_torch.ops.transform import (
     compose,
     identity_similarity,
 )
+from icp_tpu_torch.utils.precision import in_full_float32
 
 
 def _sym_step(p, pn, y, nv, w=None):
@@ -135,6 +136,7 @@ def _icp_sym_grid(model, normals, scene, scene_normals, *, threshold: float,
     return loop.finish(p[inv_slots], total, dt, trace)
 
 
+@in_full_float32
 def icp_symmetric(model, scene, config: Optional[ICPConfig] = None, *,
                   normals=None, scene_normals=None, normal_k: int = 16, init=None,
                   trace: bool = False, device=None):

@@ -36,16 +36,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"nn_dense": 0, "qcp_step": 0, "icp_fused": 0, "nn_grid": 0,
             "qcp_rotation": 0, "knn_dense": 0, "knn_grid": 0, "nn_chunked": 0,
-            "nn_bf16": 0}
+            "nn_bf16": 0, "nn_dense_mxu": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (all return the launch's cudaError_t).
 _SIGNATURES = {
-    "nn_dense_launch": [_P, _I, _P, _I, _P, _P, _P, _P],
-    "nn_dense_chunk_rows": [_I, _I, _P],
-    "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _P],
+    "nn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "nn_dense_chunk_rows": [_I, _I, _I, _P],
+    "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _I, _P],
     "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P],
     "icp_fused_blocks": [_I],
     "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -55,7 +55,8 @@ _SIGNATURES = {
     "knn_grid_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                         _P],
     "nn_chunked_launch": [_P, _I, _P, _I, _P, _P],
-    "nn_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "nn_bf16_plan": [_I, _I, _P, _P, _P],
+    "nn_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -158,7 +159,9 @@ def check(code: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current PyTorch stream of ``t``'s device, as a pointer."""
+    """The current PyTorch stream of ``t``'s device, as a pointer (read
+    without building a ``torch.cuda.Stream``, which costs ~8 us a call on
+    the host: the wrappers of the small launches are host-bound)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -82,13 +82,10 @@ def fused_partials(prep: FusedInputs, state: torch.Tensor,
 
 
 def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
-                   errs: torch.Tensor, *, with_scale: bool = True,
-                   threshold: float, err_factor: float) -> None:
+                   errs: torch.Tensor, **step_kw) -> None:
     """One ICP iteration, in place on ``state``, ``ctl`` and ``errs``: K3
-    then K2 on the same stream."""
-    partials = fused_partials(prep, state, ctl)
-    qcp_step(partials, state, ctl, errs, with_scale=with_scale,
-             threshold=threshold, err_factor=err_factor)
+    then K2 on the same stream (``step_kw``: K2's loop arguments)."""
+    qcp_step(fused_partials(prep, state, ctl), state, ctl, errs, **step_kw)
 
 
 def fused_partials_plain(prep: FusedInputs, state: torch.Tensor) -> torch.Tensor:

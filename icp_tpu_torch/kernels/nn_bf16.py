@@ -17,13 +17,21 @@ nearest neighbour; elsewhere the index may be any candidate within the
   * it bounds the true nearest-neighbour distance from above;
   * a certified index is the exact nearest neighbour.
 
-``nn_bf16_plain`` is the same function in plain torch (the same roundings
-in the same order); the wrapper takes it only for CPU tensors.  The JAX
+``nn_bf16_plain`` is the same function in plain torch, with the cross term
+rounded as ``(x + y) + z`` by round-to-nearest adds; the wrapper takes it
+only for CPU tensors.  The kernel forms the cross term on the tensor cores,
+whose float32 accumulation of the three exact bf16 products need not round
+so: its ``best`` and ``second`` may differ from the plain version's by an
+ulp of the cross term (``cross_term_slack``), and its index where two
+candidates are that close.  The promises above hold either way.  The JAX
 kernel's tile sizes do not change the function, and the entry point
 accepts and ignores them.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -45,6 +53,27 @@ def cross_term_bound(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
     return pmax * _BF16_BOUND_FACTOR * mmax  # the factor is a power of 2: exact
 
 
+def cross_term_slack(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
+    """``3 * 2^-20 * max|p| * max|m|``: the most by which the kernel's
+    ``best`` or ``second`` may differ from the plain version's, a few ulp
+    of the doubled cross term (``|2 p.m| <= 6 max|p| max|m|``); about
+    21,800x below the certificate's ``B``."""
+    pmax = scene.to(torch.float32).abs().amax()
+    mmax = model.to(torch.float32).abs().amax()
+    return pmax * (3.0 * 2.0 ** -20) * mmax
+
+
+@functools.lru_cache(maxsize=64)
+def plan(n: int, m: int, device_index: int = 0):
+    """(model chunks, rows a chunk, scratch bytes) of an (n, m) launch on
+    card ``device_index`` (the C launcher's choice: about one wave); kept
+    per shape, so a loop asks the library once."""
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
+    _build.check(_build.lib().nn_bf16_plan(n, m, *(ctypes.addressof(v) for v in out)),
+                 "nn_bf16")
+    return tuple(v.value for v in out)
+
+
 def nn_bf16(scene: torch.Tensor, model: torch.Tensor):
     """K9: (idx (N,) int32, best (N,) float32, second (N,) float32,
     d_exact (N,) float32) for float32 (N, 3) and (M, 3) clouds."""
@@ -59,9 +88,10 @@ def nn_bf16(scene: torch.Tensor, model: torch.Tensor):
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     best, second, dex = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
     if n:
+        scratch = torch.empty(plan(n, m, dev.index)[2] // 4, dtype=torch.int32, device=dev)
         code = _build.lib().nn_bf16_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, idx.data_ptr(), best.data_ptr(),
-            second.data_ptr(), dex.data_ptr(), _build.stream_ptr(scene))
+            scene.data_ptr(), n, model.data_ptr(), m, scratch.data_ptr(), idx.data_ptr(),
+            best.data_ptr(), second.data_ptr(), dex.data_ptr(), _build.stream_ptr(scene))
         _build.LAUNCHES["nn_bf16"] += 1
         _build.check(code, "nn_bf16")
     return idx, best, second, dex

@@ -1,20 +1,23 @@
-"""K1 and K8: dense exact nearest neighbour (``csrc/nn_dense.cu``,
+"""K1, K10 and K8: dense exact nearest neighbour (``csrc/nn_dense.cu``,
 ``csrc/nn_chunked.cu``).
 
-Port of ``icp_tpu/kernels/nn_pallas.py``: ``_nn_kernel`` (the diff-squares
-form, ``distance_impl="vpu"``) as K1 and ``_nn_kernel_chunked``
-(``distance_impl="chunked"``, indices only) as K8.  For every scene point:
-the model index of the least squared distance ``(dx*dx + dy*dy) + dz*dz``
-in float32, ties to the lowest index, and optionally (K1) that distance.
-The two kernels compute the same function by different folds: K1 gives a
-thread four scene points and splits the model into chunks folded by
-separate blocks, whose minima merge by a 64-bit ``atomicMin`` on (distance
-bits, index); K8 splits the model axis over the 32 lanes of a warp and
-reduces the lanes' (d, idx) pairs at the end.  ``nn_dense_plain``
-and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so
-the N x M matrix never exists beyond one block; the wrappers take them only
-for CPU tensors.  No engine takes K8, as no JAX engine takes the chunked
-form: it is reached through ``distance_impl="chunked"``.
+Port of ``icp_tpu/kernels/nn_pallas.py``: ``_nn_kernel`` in its two
+distance forms, the diff-squares ``(dx*dx + dy*dy) + dz*dz``
+(``distance_impl="vpu"``, K1) and the expansion ``|m|^2 - 2 p.m``
+(``distance_impl="mxu"``, K10), and ``_nn_kernel_chunked``
+(``distance_impl="chunked"``, indices only, K8).  For every scene point:
+the model index of the least distance in float32, ties to the lowest index,
+and optionally (K1, K10) the squared distance; K10's is ``d + |p|^2`` with
+no clamp, as JAX's (it can be slightly negative).  K1 and K10 are one CUDA
+kernel with the form as a template parameter: a thread holds four scene
+points and the model is split into chunks folded by separate blocks, whose
+minima merge by a 64-bit ``atomicMin`` on (order-preserving distance bits,
+index).  K8 splits the model axis over the 32 lanes of a warp and reduces
+the lanes' (d, idx) pairs at the end.  ``nn_dense_plain`` and
+``nn_chunked_plain`` are their plain torch versions, in scene blocks so the
+N x M matrix never exists beyond one block; the wrappers take them only for
+CPU tensors.  No engine takes K8 or K10, as no JAX engine takes the chunked
+or the ``"mxu"`` form: they are reached through ``distance_impl``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from icp_tpu_torch.kernels import _build
 
 _PLAIN_BLOCK_ELEMS = 1 << 24  # distance elements per block of the plain version
 _LANES = 32  # K8's model-axis split: the lanes of a warp
-DISTANCE_IMPLS = ("vpu", "chunked")
+DISTANCE_IMPLS = ("vpu", "mxu", "chunked")
+_FORMS = {"vpu": 0, "mxu": 1}  # the C entry points' distance form
+_COUNTS = {"vpu": "nn_dense", "mxu": "nn_dense_mxu"}  # the launch count of each form
 
 
 def check_points(fn: str, name: str, t: torch.Tensor, device=None) -> None:
@@ -53,8 +58,9 @@ def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = Fals
              distance_impl: str = "vpu"):
     """(N,) int32 nearest-model indices [, (N,) float32 squared distances].
 
-    ``distance_impl``: ``"vpu"`` (K1) or ``"chunked"`` (K8, indices only:
-    ``with_dist=True`` raises, as the JAX kernel asserts)."""
+    ``distance_impl``: ``"vpu"`` (K1), ``"mxu"`` (K10: the expansion form;
+    its distance is ``|m|^2 - 2 p.m + |p|^2``) or ``"chunked"`` (K8,
+    indices only: ``with_dist=True`` raises, as the JAX kernel asserts)."""
     if distance_impl not in DISTANCE_IMPLS:
         raise ValueError(f"nn_dense: distance_impl must be one of {DISTANCE_IMPLS}, "
                          f"got {distance_impl!r}")
@@ -64,44 +70,68 @@ def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = Fals
         return nn_chunked(scene, model)
     _check_pair("nn_dense", scene, model)
     if scene.device.type == "cpu":
-        return nn_dense_plain(scene, model, with_dist=with_dist)
+        return nn_dense_plain(scene, model, with_dist=with_dist, distance_impl=distance_impl)
     n, m = scene.shape[0], model.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=scene.device)
     d2 = torch.empty(n, dtype=torch.float32, device=scene.device) if with_dist else None
     if n:
         keys = torch.empty(n, dtype=torch.int64, device=scene.device)  # merged (d2, index)
         code = _build.lib().nn_dense_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, keys.data_ptr(), idx.data_ptr(),
-            None if d2 is None else d2.data_ptr(), _build.stream_ptr(scene))
-        _build.LAUNCHES["nn_dense"] += 1
-        _build.check(code, "nn_dense")
+            scene.data_ptr(), n, model.data_ptr(), m, _FORMS[distance_impl], keys.data_ptr(),
+            idx.data_ptr(), None if d2 is None else d2.data_ptr(), _build.stream_ptr(scene))
+        _build.LAUNCHES[_COUNTS[distance_impl]] += 1
+        _build.check(code, _COUNTS[distance_impl])
     return (idx, d2) if with_dist else idx
 
 
-def chunk_rows(n: int, m: int) -> int:
-    """The model rows of one of K1's chunks for an (n, m) launch on the
-    current card (the C launcher's choice: one wave of blocks)."""
+def chunk_rows(n: int, m: int, distance_impl: str = "vpu") -> int:
+    """The model rows of one of K1's (K10's) chunks for an (n, m) launch on
+    the current card (the C launcher's choice: one wave of blocks)."""
     out = ctypes.c_int()
-    _build.check(_build.lib().nn_dense_chunk_rows(n, m, ctypes.addressof(out)), "nn_dense")
+    _build.check(_build.lib().nn_dense_chunk_rows(n, m, _FORMS[distance_impl],
+                                                  ctypes.addressof(out)), "nn_dense")
     return out.value
 
 
+def _norm3(x: torch.Tensor) -> torch.Tensor:
+    """``(x*x + y*y) + z*z`` of each row, elementwise in that order."""
+    return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+
+
 def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
-                   with_dist: bool = False):
-    """Plain version of K1: same distance order, first index of the minimum."""
+                   with_dist: bool = False, distance_impl: str = "vpu"):
+    """Plain version of K1 (``"vpu"``) and K10 (``"mxu"``): the same
+    distance in the same rounding order, elementwise (no matmul, so the card
+    rounds it as the kernel does), the first index of the minimum.  K10's:
+    ``d = mn - 2c`` with ``mn = (mx*mx + my*my) + mz*mz`` and
+    ``c = (px*mx + py*my) + pz*mz``; a NaN ``d`` never wins, a row with no
+    ``d < +inf`` gets index 0 and +inf, and the distance returned is
+    ``d + pn`` (``pn = (px*px + py*py) + pz*pz``)."""
+    if distance_impl not in _FORMS:
+        raise ValueError(f"nn_dense_plain: distance_impl must be one of {tuple(_FORMS)}, "
+                         f"got {distance_impl!r}")
     n, m = scene.shape[0], model.shape[0]
     rows = max(1, _PLAIN_BLOCK_ELEMS // m)
     idx = torch.empty(n, dtype=torch.int32, device=scene.device)
     d2 = torch.empty(n, dtype=torch.float32, device=scene.device)
+    mn = _norm3(model)
     for lo in range(0, n, rows):
         p = scene[lo:lo + rows]
-        dx = p[:, None, 0] - model[None, :, 0]
-        dy = p[:, None, 1] - model[None, :, 1]
-        dz = p[:, None, 2] - model[None, :, 2]
-        d = (dx * dx + dy * dy) + dz * dz
+        if distance_impl == "mxu":
+            c = (p[:, None, 0] * model[None, :, 0] + p[:, None, 1] * model[None, :, 1]) \
+                + p[:, None, 2] * model[None, :, 2]
+            d = mn[None, :] - 2.0 * c
+            d = torch.where(torch.isnan(d), float("inf"), d)
+        else:
+            dx = p[:, None, 0] - model[None, :, 0]
+            dy = p[:, None, 1] - model[None, :, 1]
+            dz = p[:, None, 2] - model[None, :, 2]
+            d = (dx * dx + dy * dy) + dz * dz
         best, arg = torch.min(d, dim=1)  # first index of the minimum
         idx[lo:lo + rows] = arg.to(torch.int32)
         d2[lo:lo + rows] = best
+    if distance_impl == "mxu":
+        d2 = torch.where(d2 < float("inf"), d2 + _norm3(scene), float("inf"))
     return (idx, d2) if with_dist else idx
 
 

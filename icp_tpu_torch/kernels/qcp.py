@@ -12,8 +12,11 @@ K2 reads a (P, 18) float64 array of partial sums — rows of
 order — and updates the state block, the loop control and the error buffer
 in place: it solves the step, composes it onto the cumulative transform,
 writes ``errs[it] = err_factor * residual / n``, advances the iteration
-count and raises the done flag when ``err < threshold`` (or NaN) or the
-bound is reached.  Once done, it writes the identity step and returns.
+count and raises the done flag when the bound is reached or, in
+convergence mode (``converge=True``, ``icp``), when ``not err >=
+threshold`` (a NaN error stops it too); in fixed mode (``converge=False``,
+``icp_fixed_iters``) only the bound does.  Once done, it writes the
+identity step and returns.
 
 Loop control ``ctl``: int32 ``[iterations done, done flag, bound]``.
 
@@ -93,17 +96,18 @@ def new_err_buffer(length: int, device=None) -> torch.Tensor:
 
 def qcp_step(partials: torch.Tensor, state: torch.Tensor, ctl: torch.Tensor,
              errs: torch.Tensor, *, with_scale: bool = True,
-             threshold: float = -math.inf, err_factor: float = 2.0) -> None:
+             threshold: float = -math.inf, err_factor: float = 2.0,
+             converge: bool = True) -> None:
     """One alignment step, in place on ``state``, ``ctl`` and ``errs``."""
     _check(partials, state, ctl, errs)
     if partials.device.type == "cpu":
         qcp_step_plain(partials, state, ctl, errs, with_scale=with_scale,
-                       threshold=threshold, err_factor=err_factor)
+                       threshold=threshold, err_factor=err_factor, converge=converge)
         return
     code = _build.lib().qcp_step_launch(
         partials.data_ptr(), partials.shape[0], state.data_ptr(),
         ctl.data_ptr(), errs.data_ptr(), int(with_scale), float(threshold),
-        float(err_factor), _build.stream_ptr(partials))
+        float(err_factor), int(converge), _build.stream_ptr(partials))
     _build.LAUNCHES["qcp_step"] += 1
     _build.check(code, "qcp_step")
 
@@ -126,17 +130,18 @@ def _check(partials, state, ctl, errs) -> None:
 
 
 def record_error(ctl: torch.Tensor, errs: torch.Tensor, err: float,
-                 threshold: float) -> None:
+                 threshold: float, converge: bool = True) -> None:
     """The loop bookkeeping of K2, on the host: errs[it] = err, it += 1, and
-    done when ``not err >= threshold`` or the bound is reached."""
+    done when the bound is reached or (``converge``) ``not err >=
+    threshold``."""
     it, _, bound = ctl.tolist()
     errs[it] = err
-    done = int(not err >= threshold or it + 1 >= bound)
+    done = int(it + 1 >= bound or (converge and not err >= threshold))
     ctl.copy_(torch.tensor([it + 1, done, bound], dtype=torch.int32))
 
 
 def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
-                   threshold=-math.inf, err_factor=2.0) -> None:
+                   threshold=-math.inf, err_factor=2.0, converge=True) -> None:
     """Plain version of K2 (same operation order, Python float64)."""
     if int(ctl[1]):
         step = [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
@@ -149,7 +154,7 @@ def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
     prev = state[0].tolist()
     out, resid, n = _alignment_update(a, prev, with_scale)
     state.copy_(torch.tensor([out], dtype=torch.float64))
-    record_error(ctl, errs, err_factor * resid / n, threshold)
+    record_error(ctl, errs, err_factor * resid / n, threshold, converge)
 
 
 def _mx(a: float, b: float) -> float:

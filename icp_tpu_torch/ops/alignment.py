@@ -10,6 +10,13 @@ Solvers: ``eigh`` (``torch.linalg.eigh`` on Horn's N), ``qcp`` (Newton on
 the quartic characteristic polynomial + adjugate eigenvector, in tensor
 ops), ``kabsch`` (3x3 SVD) and ``qcp_fused`` (the rotation-solve CUDA
 kernel K5 of ``kernels/qcp.py``, the port of ``horn_rotation_pallas``).
+
+A non-finite Horn matrix (a NaN or Inf coordinate upstream) gives a NaN
+rotation, as the JAX solvers give, and not the exception that
+``torch.linalg.eigh`` and ``torch.linalg.svd`` raise on it: the solvers run
+on a sanitised input and ``torch.where`` puts the NaN back, on the device,
+with no host read.  ``icp(..., guard=True)`` then raises
+``FloatingPointError`` through its finite check.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from icp_tpu_torch.utils.precision import in_full_float32
 
 
 class AlignmentStats(NamedTuple):
@@ -44,9 +53,8 @@ def compute_alignment_stats(p: torch.Tensor, y: torch.Tensor, acc_dtype=None,
     (default: ``p.dtype``).  ``weights`` (N,): optional per-row weights;
     ``n`` becomes their sum.
 
-    The 3x3 cross term is a matmul; in float32 on the card it relies on
-    PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
-    The engines accumulate in float64, where TF32 does not apply."""
+    The 3x3 cross term is a matmul: in float32 it needs full float32, which
+    the entry points guarantee (``utils.precision.full_float32``)."""
     acc_dtype = p.dtype if acc_dtype is None else acc_dtype
     pa = p.to(acc_dtype)
     ya = y.to(acc_dtype)
@@ -97,10 +105,19 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r) for r in rows])
 
 
+def _finite_or_nan(x: torch.Tensor, solve):
+    """``solve(x)``, or NaN of its shape where ``x`` is not all finite: the
+    solve runs on the identity instead, so it cannot raise, and the check
+    stays on the device."""
+    finite = torch.isfinite(x).all()
+    out = solve(torch.where(finite, x, torch.eye(x.shape[0], dtype=x.dtype, device=x.device)))
+    return torch.where(finite, out, torch.full_like(out, float("nan")))
+
+
 def max_eigvec_eigh(N: torch.Tensor) -> torch.Tensor:
-    """Largest-eigenvalue unit eigenvector (eigenvalues ascend)."""
-    _, vecs = torch.linalg.eigh(N)
-    return vecs[:, -1]
+    """Largest-eigenvalue unit eigenvector (eigenvalues ascend); NaN for a
+    non-finite N."""
+    return _finite_or_nan(N, lambda a: torch.linalg.eigh(a)[1][:, -1])
 
 
 def _adjugate4(A: torch.Tensor) -> torch.Tensor:
@@ -148,12 +165,17 @@ def max_eigvec_qcp(N: torch.Tensor, S: torch.Tensor, gp: torch.Tensor,
 
 
 def rotation_kabsch(S: torch.Tensor) -> torch.Tensor:
-    """Kabsch/Umeyama rotation from S = sum p' y'^T, reflection corrected."""
-    U, _, Vh = torch.linalg.svd(S)
-    V = Vh.T
-    d = torch.sign(torch.linalg.det(V @ U.T))
-    D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
-    return V @ D @ U.T
+    """Kabsch/Umeyama rotation from S = sum p' y'^T, reflection corrected;
+    NaN for a non-finite S."""
+
+    def solve(a):
+        U, _, Vh = torch.linalg.svd(a)
+        V = Vh.T
+        d = torch.sign(torch.linalg.det(V @ U.T))
+        D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
+        return V @ D @ U.T
+
+    return _finite_or_nan(S, solve)
 
 
 def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
@@ -188,6 +210,7 @@ def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
     return Similarity(s=s, R=R, t=t)
 
 
+@in_full_float32
 def find_alignment(p: torch.Tensor, y: torch.Tensor, *, solver: str = "eigh",
                    with_scale: bool = True,
                    acc_dtype=None) -> Tuple[Similarity, torch.Tensor]:

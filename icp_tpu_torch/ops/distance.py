@@ -5,8 +5,9 @@ to the LOWEST model index (``src/cpu.cc:5-27``, ``src/GPU/compute.cu:137``).
 
   * ``bcast``: plain torch broadcast form in scene blocks (the N x M matrix
     never exists beyond one block).
-  * ``matmul``: ``||m||^2 - 2 s.m`` expansion; needs full-float32 matmuls,
-    PyTorch's default (``allow_tf32 = False``).
+  * ``matmul``: ``||m||^2 - 2 s.m`` expansion in a torch matmul, as JAX
+    computes it outside any Pallas kernel; it needs full-float32 matmuls,
+    which the entry points guarantee (``utils.precision.full_float32``).
   * ``pallas``: the dense CUDA kernel K1 (``kernels/nn_dense.py``); the
     name is the JAX package's config string.
   * ``bf16``: APPROXIMATE — the bf16 prefilter K9 (``kernels/nn_bf16.py``)

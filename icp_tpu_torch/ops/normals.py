@@ -18,6 +18,7 @@ import math
 import torch
 
 from icp_tpu_torch.engine.icp import as_points
+from icp_tpu_torch.utils.precision import in_full_float32
 
 # Smallest cloud at which ``method="auto"`` takes the grid kNN (K7).  This is
 # the JAX package's value, kept so that the port takes the same branches as
@@ -69,6 +70,7 @@ def normals_from_neighbor_indices(points: torch.Tensor, idx: torch.Tensor) -> to
     return _smallest_eigvec_sym3(C)
 
 
+@in_full_float32
 def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
                 grid_scene_tile: int = 64, grid_model_tile: int = 256,
                 grid_max_candidates: int = 32) -> torch.Tensor:
@@ -100,6 +102,7 @@ def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
     return idx_sorted[inv_slots]
 
 
+@in_full_float32
 def estimate_normals(points, k: int = 16, method: str = "auto",
                      grid_scene_tile: int = 64, grid_model_tile: int = 256,
                      grid_max_candidates: int = 32, device=None) -> torch.Tensor:

@@ -3,9 +3,10 @@
 Port of ``icp_tpu/ops/transform.py`` (reference ``CPU::err_compute``,
 ``src/cpu.cc:29-40``, and ``err_compute_alignment``, ``src/cpu.cc:93-103``).
 The (N, 3) @ (3, 3) apply is a torch matmul, as the JAX package left it to
-XLA.  In float32 on the card it relies on PyTorch's default
-``torch.backends.cuda.matmul.allow_tf32 = False``: TF32 would put a ~1e-3
-relative error on every coordinate and an error floor under convergence.
+XLA.  In float32 it needs full float32, which every entry point sets for
+its duration whatever the caller chose (``utils.precision.full_float32``):
+TF32 would put a ~1e-3 relative error on every coordinate and an error
+floor under convergence.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1 (dense NN), K4 (kd-tile NN), K6 (dense kNN) and K7 (kd-tile kNN)
-of one checkout on one CUDA card.
+"""Time K1 (dense NN), K4 (kd-tile NN), K6 (dense kNN), K7 (kd-tile kNN),
+K9 (bf16-prefilter NN) and K10 (K1's "mxu" form) of one checkout on one
+CUDA card.
 
-    python3 scripts/kernel_ab.py [--root DIR] [--label NAME]
+    python3 scripts/kernel_ab.py [--root DIR] [--label NAME] [--sections LIST]
 
 ``--root`` names the checkout whose ``icp_tpu_torch`` is measured (default:
 this one), so two versions can be timed in one call on one card, in turns
@@ -10,7 +11,10 @@ this one), so two versions can be timed in one call on one card, in turns
 checkout's ``chip_smoke.py`` and ``data/``:
 
   * K1 at cow (2,903^2), on horse's grid seed (49,152 x 3,031) and on the
-    1M pair's seed (1,015,808 x 62,500);
+    1M pair's seed (1,015,808 x 62,500), and K10 beside it at cow and the
+    grid seed where the checkout has it;
+  * K9 at cow (2,903^2), horse (48,485^2) and the jittered 4^3 lattice
+    (8,192 x 64) of ``chip_smoke.py``, centred as its entry point centres;
   * K4 on horse's first-iteration candidate table (capacity 16 and 1, and
     with the 3-wide normals payload), and on the 1,000,000-point pair's
     first- and third-iteration tables;
@@ -23,10 +27,14 @@ checkout's ``chip_smoke.py`` and ``data/``:
   * the point-to-point grid loop's ms/iter and set-up + first iteration
     at horse and at 1M.
 
-Kernel times are medians of CUDA events; loop times are host clocks around
+Kernel times are medians of CUDA events, after a second of matrix products
+that brings the card from its idle clock (~345 MHz) to its working one;
+loop times are host clocks around
 runs that end in ``torch.cuda.synchronize()``, the difference of two
-iteration counts.  Prints one JSON line, with the card's name and power limit, and exits 1
-without a card.
+iteration counts.  ``--sections`` picks ``dense`` (K1, K10, K9) and
+``grid`` (K4, K6, K7, the loops and the 1M pair; the longest part); default
+both.  Prints one JSON line, with the card's name and power limit, and exits
+1 without a card.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import json
 import os
 import statistics
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,7 +62,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
+    ap.add_argument("--sections", default="dense,grid")
     args = ap.parse_args(argv)
+    sections = set(args.sections.split(","))
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -63,7 +75,7 @@ def main(argv=None) -> int:
     cs = _smoke()
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
-    from icp_tpu_torch.kernels import knn_dense, knn_grid, nn_dense, nn_grid
+    from icp_tpu_torch.kernels import knn_dense, knn_grid, nn_bf16, nn_dense, nn_grid
     from icp_tpu_torch.ops.normals import estimate_normals, knn_indices
 
     import icp_tpu_torch
@@ -71,6 +83,12 @@ def main(argv=None) -> int:
     out = {"label": args.label, "package": os.path.dirname(icp_tpu_torch.__file__),
            "card": cs.phase_device()}
     f32 = dict(dtype=torch.float32, device="cuda")
+    warm = torch.ones((4096, 4096), **f32)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        warm @ warm
+    torch.cuda.synchronize()
+    del warm
 
     def k4_ms(grid, p, u, tn, cap, payload=False, reps=20):
         cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=cap)
@@ -120,8 +138,26 @@ def main(argv=None) -> int:
     p0, _, _, tn, _ = _prepare_scene(horse_tr1, 256)
     p0 = p0.contiguous()
     sub = horse_ref[::16].contiguous()
-    out["k1_cow_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(cow_tr1, cow_ref), 20)
-    out["k1_grid_seed_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(p0, sub), 20)
+    if "dense" in sections:
+        mxu = "mxu" in getattr(nn_dense, "DISTANCE_IMPLS", ())
+        for label, s, m in (("cow", cow_tr1, cow_ref), ("grid_seed", p0, sub)):
+            out[f"k1_{label}_ms"] = cs.cuda_ms(lambda: nn_dense.nn_dense(s, m), 50)
+            if mxu:
+                out[f"k10_{label}_ms"] = cs.cuda_ms(
+                    lambda: nn_dense.nn_dense(s, m, distance_impl="mxu"), 50)
+        rng = np.random.default_rng(9)  # chip_smoke.py's lattice (its seed 0 + 9)
+        sites = np.stack(np.meshgrid(*[np.arange(4.0)] * 3), -1).reshape(-1, 3)
+        lat_m = torch.tensor(sites + 0.01 * rng.standard_normal(sites.shape), **f32)
+        lat_s = torch.tensor(sites[rng.integers(0, len(sites), 8192)]
+                             + 0.02 * rng.standard_normal((8192, 3)), **f32)
+        for label, s, m, reps in (("cow", cow_tr1, cow_ref, 50), ("horse", horse_tr1, horse_ref, 20),
+                                  ("lattice", lat_s, lat_m, 50)):
+            c = m.mean(0)
+            sc, mc = (s - c).contiguous(), (m - c).contiguous()
+            out[f"k9_{label}_ms"] = cs.cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), reps)
+    if "grid" not in sections:
+        print(json.dumps(out), flush=True)
+        return 0
     out["k7_horse"] = k7_ms(horse_ref, 10)
     normals = estimate_normals(horse_ref, method="dense")
     grid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's loops, on one CUDA card.
 
-    python3 scripts/profile_torch.py [--out DIR]
+    python3 scripts/profile_torch.py [--out DIR] [--root DIR] [--cells LIST]
 
 For each cell — cow_tr1 on the fused path (K3 + K2), horse_tr1 on the grid
 path (K4 + torch + K2), and the 1,000,000-point pair of ``chip_smoke.py``
@@ -14,8 +14,12 @@ device's busy share of the profiled window (union of kernel intervals over
 the window's wall time) and each launch's time of the hand-written kernels.
 The plane cells take their normals from ``estimate_normals`` calls (K6 on
 cow, K7 elsewhere; the model's is profiled the same way, and symmetric and
-GICP also take the scene's).  Chrome
-traces go to ``DIR`` (default ``chiprun_out/profile``).
+GICP also take the scene's).  The ``bf16`` cell is the symmetric engine
+with ``nn_method="bf16"`` (K9 each iteration) on cow_tr1.  ``--cells``
+picks cells (``cow``, ``horse``, ``1M``, ``bf16``; default all);
+``--root`` names the checkout whose ``icp_tpu_torch`` is profiled (default
+this one), so two commits can be profiled in one call with this script.
+Chrome traces go to ``--out`` (default ``chiprun_out/profile``).
 """
 
 from __future__ import annotations
@@ -26,16 +30,19 @@ import statistics
 import sys
 import time
 
+import importlib.util
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 # K1 runs as a fold and an epilogue, K4 as a plan, a fold and an epilogue,
-# K7 as a plan, a fold and a merge
+# K7 as a plan, a fold and a merge, K9 as a prep and a fold that merges its
+# chunks in the last block (one kernel before the tensor-core redesign)
 OURS = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel", "qcp_step_kernel",
         "icp_fused_kernel", "nn_grid_plan_kernel", "nn_grid_fold_kernel",
         "nn_grid_epilogue_kernel", "qcp_rotation_kernel", "knn_dense_kernel",
         "knn_grid_plan_kernel", "knn_grid_fold_kernel", "knn_grid_merge_kernel",
-        "nn_chunked_kernel", "nn_bf16_kernel")
+        "nn_chunked_kernel", "nn_bf16_kernel", "nn_bf16_prep_kernel", "nn_bf16_fold_kernel")
+CELLS = ("cow", "horse", "1M", "bf16")
 
 
 def _us(event) -> float:
@@ -99,7 +106,7 @@ def profile_cell(name, label, run, n_iters, out_dir):
     for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"[{name}]   {t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{c:<4d} {kname[:90]}")
     for ours in OURS:
-        per = [_us(e) for e in kernels if f"::{ours}" in e.name]  # not ::k{ours}
+        per = [_us(e) for e in kernels if f"::{ours}(" in e.name or f"::{ours}<" in e.name]
         if per:
             print(f"[{name}]   per-launch us {ours}: " + " ".join(f"{v:.1f}" for v in per))
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
@@ -108,7 +115,10 @@ def profile_cell(name, label, run, n_iters, out_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--cells", default=",".join(CELLS))
     args = ap.parse_args(argv)
+    cells_on = set(args.cells.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -116,17 +126,30 @@ def main(argv=None) -> int:
         return 1
     import math
 
-    import chip_smoke
-    from icp_tpu_torch import ICPConfig
+    sys.path.insert(0, os.path.abspath(args.root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    import icp_tpu_torch
+    from icp_tpu_torch import ICPConfig, icp_symmetric
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.ops.normals import estimate_normals
 
     os.makedirs(args.out, exist_ok=True)
-    print(chip_smoke.phase_device(), flush=True)
+    print(chip_smoke.phase_device(), f"package={os.path.dirname(icp_tpu_torch.__file__)}",
+          flush=True)
     f32 = dict(dtype=torch.float32, device="cuda")
+    if "bf16" in cells_on:
+        model = torch.tensor(chip_smoke._load("cow_ref.txt"), **f32)
+        scene = torch.tensor(chip_smoke._load("cow_tr1.txt"), **f32)
+        profile_cell("cow_sym_bf16", "engine=symmetric nn=bf16",
+                     lambda i: float(icp_symmetric(model, scene, ICPConfig(
+                         max_iter=i, threshold=-math.inf, nn_method="bf16")).err), 20, args.out)
     cells = [("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
              ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20), ("1M", None, None, "grid", 10)]
     for name, ref, scene_file, nn, k in cells:
+        if name not in cells_on:
+            continue
         if ref is None:
             model, scene, _ = chip_smoke.scale_pair(0)
         else:

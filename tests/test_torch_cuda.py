@@ -1,5 +1,6 @@
-"""K1-K9 on the card against their plain versions, and the symmetric and
-GICP grid loops against their dense loops (``cuda`` marker).
+"""K1-K10 on the card against their plain versions, K2's fixed mode, and
+the symmetric and GICP grid loops against their dense loops (``cuda``
+marker).
 
 These need a CUDA device and ``nvcc``; without a card they skip.  On a
 machine with one:
@@ -67,6 +68,50 @@ def test_nn_dense_kernel_across_model_chunks(dev, n, m):
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
     assert int(ik[0]) == 0 and torch.isinf(dk[0])
     assert not bool(((ik >= chunk) & (ik < chunk + r)).any())  # the lower copy wins
+
+
+@pytest.mark.parametrize("case", ["n1_m1", "ragged", "duplicates", "far", "no_finite"])
+def test_nn_dense_mxu_kernel_matches_plain(dev, case):
+    """K10 (``distance_impl="mxu"``) bit-equal to its plain version:
+    ``ragged``: m not a multiple of the chunk; ``duplicates``: the first
+    rows repeated one chunk later (the lowest index wins across the merge);
+    ``far``: clouds 40 units from the origin, so every expansion distance
+    is negative (the key's order-preserving map); ``no_finite``: a NaN
+    scene row gets index 0 and +inf."""
+    n, m = {"n1_m1": (1, 1), "ragged": (700, 3001), "duplicates": (4099, 1000),
+            "far": (2000, 2500), "no_finite": (300, 2049)}[case]
+    s, mo = _cloud(n + 21, n).to(dev), _cloud(m + 22, m, 2.0).to(dev)
+    chunk = nn_dense.chunk_rows(n, m, "mxu")
+    if case == "duplicates":
+        r = max(0, min(chunk, m - chunk))
+        mo[chunk:chunk + r] = mo[:r].clone()
+    if case == "far":
+        s, mo = s + 40.0, mo + 40.0
+    if case == "no_finite":
+        s[7] = float("nan")
+    before = _build.LAUNCHES["nn_dense_mxu"]
+    ik, dk = nn_dense.nn_dense(s, mo, with_dist=True, distance_impl="mxu")
+    assert _build.LAUNCHES["nn_dense_mxu"] == before + 1
+    ip, dp = nn_dense.nn_dense_plain(s, mo, with_dist=True, distance_impl="mxu")
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    assert torch.equal(nn_dense.closest_point_indices_dense(s, mo, distance_impl="mxu"), ik)
+    if case == "duplicates":
+        assert chunk < m and not bool(((ik >= chunk) & (ik < chunk + r)).any())
+    if case == "no_finite":
+        assert int(ik[7]) == 0 and float(dk[7]) == float("inf")
+
+
+def test_qcp_step_kernel_fixed_mode_runs_to_the_bound(dev):
+    """K2 with NaN partials: in fixed mode (``converge=False``) only the
+    bound stops it; in convergence mode the NaN error stops it at once."""
+    parts = torch.full((3, qcp.N_SUMS), float("nan"), dtype=torch.float64, device=dev)
+    for converge, want in ((False, 5), (True, 1)):
+        for fn in (qcp.qcp_step, qcp.qcp_step_plain):
+            st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(5, dev), qcp.new_err_buffer(5, dev)
+            for _ in range(7):
+                fn(parts, st, ctl, errs, threshold=1e-5, converge=converge)
+            assert ctl.tolist() == [want, 1, 5]
+            assert bool(torch.isnan(errs[:want]).all())
 
 
 def test_qcp_step_kernel_matches_plain(dev):
@@ -273,17 +318,47 @@ def test_nn_chunked_kernel_matches_plain_and_k1(dev, n, m):
     assert torch.equal(ik, nn_dense.nn_dense(s, mo))
 
 
-@pytest.mark.parametrize("n,m,offset", [(1, 1, 0.0), (300, 2049, 0.0), (5000, 700, 50.0)])
+def hold_k9(s, mo, got):
+    """K9's outputs against its plain version: bit-equal, or, where the
+    tensor cores' accumulation rounds the cross term otherwise, held to its
+    promises: ``d_exact`` bit-equal to the diff-squares distance to
+    ``model[idx]``; ``best`` and ``second`` within ``cross_term_slack``
+    (delta) of the plain version's; the plain index wherever the plain
+    margin exceeds 2 delta; certified rows equal K1; ``d_exact`` >= K1's.
+    Returns the share of rows whose ``best`` is bit-equal to the plain's."""
+    idx, best, second, dex = got
+    ip, bp, sp, _ = nn_bf16.nn_bf16_plain(s, mo)
+    delta = float(nn_bf16.cross_term_slack(s, mo))
+    diff = s - mo[idx.long()]
+    assert torch.equal(dex, (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1])
+                       + diff[:, 2] * diff[:, 2])
+    assert float((best - bp).abs().max()) <= delta
+    assert torch.equal(torch.isinf(second), torch.isinf(sp))
+    fin = torch.isfinite(sp)
+    assert not bool(fin.any()) or float((second[fin] - sp[fin]).abs().max()) <= delta
+    clear = (sp - bp) > 2 * delta
+    assert torch.equal(idx[clear], ip[clear])
+    ik1, d1 = nn_dense.nn_dense(s, mo, with_dist=True)
+    cert = (second - best) > 2 * nn_bf16.cross_term_bound(s, mo)
+    assert torch.equal(idx[cert], ik1[cert]) and bool((dex >= d1).all())
+    return float((best == bp).double().mean())
+
+
+@pytest.mark.parametrize("n,m,offset", [(1, 1, 0.0), (300, 2049, 0.0), (5000, 700, 50.0),
+                                        (15, 7, 0.0), (16, 8, 0.0), (17, 9, 0.0), (500, 1, 0.0),
+                                        (16, 9, 0.0), (17, 8, 0.0), (500, 3000, 0.0)])
 def test_nn_bf16_kernel_matches_plain(dev, n, m, offset):
+    """Scene rows 1, 15, 16, 17 and 500 (the mma's 16-row tiles), model rows
+    1, 7, 8 and 9 (its 8-column tiles); the upper half of the model repeats
+    the lower half, so ties on best and second fall in other chunks."""
     s, mo = (_cloud(n + 5, n) + offset).to(dev), (_cloud(m + 6, m, 2.0) + offset).to(dev)
     mo[m // 2:] = mo[: m - m // 2].clone()  # duplicates: lowest index, second == best
     before = _build.LAUNCHES["nn_bf16"]
     got = nn_bf16.nn_bf16(s, mo)
     assert _build.LAUNCHES["nn_bf16"] == before + 1
-    for a, b in zip(got, nn_bf16.nn_bf16_plain(s, mo)):
-        assert torch.equal(a, b)
-    idx, _, cert = nn_bf16.closest_point_indices_bf16(s, mo)
-    assert torch.equal(idx[cert], nn_dense.nn_dense(s, mo)[cert])
+    hold_k9(s, mo, got)
+    dup = got[0] < m // 2  # a winner with a copy m // 2 rows on: best == second
+    assert torch.equal(got[1][dup], got[2][dup])
 
 
 def test_nn_bf16_kernel_certifies_a_lattice(dev):
@@ -299,6 +374,9 @@ def test_nn_bf16_kernel_certifies_a_lattice(dev):
     idx, _, cert = nn_bf16.closest_point_indices_bf16(s, mo)
     assert cert.double().mean() > 0.5
     assert torch.equal(idx[cert], nn_dense.nn_dense(s, mo)[cert])
+    c = mo.mean(0)
+    hold_k9((s - c).contiguous(), (mo - c).contiguous(), nn_bf16.nn_bf16((s - c).contiguous(),
+                                                                         (mo - c).contiguous()))
     assert torch.equal(idx[cert].cpu(), torch.tensor(sel, dtype=torch.int32)[cert.cpu()])
 
 

@@ -1,9 +1,12 @@
-"""K1 (dense nearest neighbour) plain version vs the JAX Pallas kernel.
+"""K1, K10 and K8 (dense nearest neighbour) plain versions vs the JAX
+Pallas kernels.
 
-The JAX kernel runs in interpret mode, as its own tests run it on the CPU.
-Both compute diff-squares float32 distances in the same order, so the
+The JAX kernels run in interpret mode, as their own tests run them on the
+CPU.  K1 computes diff-squares float32 distances in JAX's order, so the
 indices must be exactly equal, duplicates (lowest index) and ragged sizes
-included.
+included; K10 (``distance_impl="mxu"``) the expansion form, whose indices
+must equal JAX's and whose distances lie within 4 ulp of the expansion's
+terms (XLA on the CPU may contract the dot).
 """
 
 import jax.numpy as jnp
@@ -140,4 +143,85 @@ def test_chunked_is_indices_only_and_cpu_takes_the_plain_version():
     with pytest.raises(ValueError, match="indices only"):
         nn_dense.nn_dense(s, m, with_dist=True, distance_impl="chunked")
     with pytest.raises(ValueError, match="distance_impl"):
-        nn_dense.nn_dense(s, m, distance_impl="mxu")
+        nn_dense.nn_dense(s, m, distance_impl="bogus")  # a truly unknown form
+
+
+def _jax_mxu(scene, model, tm=4096):
+    """JAX's ``"mxu"`` form of ``_nn_kernel``: indices, and distances with
+    ``|p|^2`` added back (interpret mode)."""
+    idx, d2 = nn_pallas._closest_pallas(
+        jnp.asarray(scene), jnp.asarray(model), scene_tile=256, model_tile=tm,
+        interpret=True, with_dist=True, distance_impl="mxu")
+    return np.asarray(idx), np.asarray(d2)
+
+
+def _mxu_tol(scene, model):
+    """4 ulp of the larger of the two terms of the expansion, a row: XLA on
+    the CPU may contract the dot, the port rounds every operation."""
+    pn = (scene.astype(np.float64) ** 2).sum(1)
+    return 4 * 2.0 ** -24 * ((model.astype(np.float64) ** 2).sum(1).max() + pn)
+
+
+@pytest.mark.parametrize("n,m", [(5, 1), (100, 300), (257, 950), (1000, 4097)])
+def test_mxu_matches_jax_kernel(n, m):
+    """K10's plain version (``distance_impl="mxu"``) against the JAX
+    kernel's ``"mxu"`` form: equal indices, distances within 4 ulp."""
+    scene, model = _clouds(n + 2 * m, n, m)
+    s, mo = torch.tensor(scene), torch.tensor(model)
+    got = nn_dense.closest_point_indices_dense(s, mo, distance_impl="mxu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _jax_idx(scene, model, distance_impl="mxu"))
+    idx, d2 = nn_dense.nn_dense(s, mo, with_dist=True, distance_impl="mxu")
+    jidx, jd2 = _jax_mxu(scene, model)
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    assert (np.abs(d2.numpy().astype(np.float64) - jd2) <= _mxu_tol(scene, model)).all()
+
+
+def test_mxu_ties_go_to_lowest_index_and_distances_may_be_negative():
+    """Duplicated model rows across JAX's tiles: the lowest index wins in
+    both; far from the origin every expansion distance is negative and the
+    returned ``d + |p|^2`` is a near-zero squared distance, unclamped."""
+    rng = np.random.default_rng(11)
+    base = rng.standard_normal((300, 3)).astype(np.float32)
+    model = np.concatenate([base, base, base[:50]])
+    scene = base[::3] + np.float32(1e-3)
+    got = nn_dense.closest_point_indices_dense(torch.tensor(scene), torch.tensor(model),
+                                               distance_impl="mxu").numpy()
+    np.testing.assert_array_equal(got, _jax_idx(scene, model, model_tile=256, distance_impl="mxu"))
+    assert (got < 300).all()
+    far_m, far_s = model + np.float32(40.0), scene + np.float32(40.0)
+    idx, d2 = nn_dense.nn_dense(torch.tensor(far_s), torch.tensor(far_m), with_dist=True,
+                                distance_impl="mxu")
+    jidx, jd2 = _jax_mxu(far_s, far_m, tm=256)
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    assert (np.abs(d2.numpy().astype(np.float64) - jd2) <= _mxu_tol(far_s, far_m)).all()
+    mt, st = torch.tensor(far_m), torch.tensor(far_s)
+    mn = (mt[:, 0] * mt[:, 0] + mt[:, 1] * mt[:, 1]) + mt[:, 2] * mt[:, 2]
+    c = (st[:, None, 0] * mt[None, :, 0] + st[:, None, 1] * mt[None, :, 1]) \
+        + st[:, None, 2] * mt[None, :, 2]
+    assert bool(((mn[None, :] - 2.0 * c) < 0).all())
+
+
+def test_mxu_row_without_a_finite_distance_gets_index_0_and_inf():
+    """K10 keeps K1's rule: a scene row with no distance below +inf (here a
+    NaN row: NaN never wins) gets index 0 and +inf, not +inf + |p|^2."""
+    scene, model = _clouds(9, 7, 200)
+    scene[3] = np.nan
+    idx, d2 = nn_dense.nn_dense(torch.tensor(scene), torch.tensor(model), with_dist=True,
+                                distance_impl="mxu")
+    assert int(idx[3]) == 0 and float(d2[3]) == float("inf")
+    rows = [0, 1, 2, 4, 5, 6]
+    jidx, _ = _jax_mxu(scene[rows], model)
+    np.testing.assert_array_equal(idx.numpy()[rows], jidx)
+
+
+def test_mxu_is_counted_apart_and_cpu_takes_the_plain_version():
+    scene, model = _clouds(12, 40, 90)
+    s, m = torch.tensor(scene), torch.tensor(model)
+    _build.reset_counts()
+    got = nn_dense.nn_dense(s, m, with_dist=True, distance_impl="mxu")
+    want = nn_dense.nn_dense_plain(s, m, with_dist=True, distance_impl="mxu")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.LAUNCHES["nn_dense_mxu"] == 0 and _build.LAUNCHES["nn_dense"] == 0
+    with pytest.raises(ValueError, match="distance_impl"):
+        nn_dense.nn_dense_plain(s, m, distance_impl="chunked")

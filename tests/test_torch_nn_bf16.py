@@ -136,3 +136,44 @@ def test_ops_dispatches_bf16_and_cpu_takes_the_plain_version():
         nn_bf16.nn_bf16(torch.tensor(p, dtype=torch.float64), torch.tensor(m))
     with pytest.raises(ValueError, match="empty"):
         nn_bf16.nn_bf16(torch.tensor(p), torch.zeros((0, 3)))
+
+
+def _merge(u, v):
+    """The kernel's order-free merge of two (best, second, idx) triples over
+    disjoint column sets (``csrc/nn_bf16.cu``): the least best, the lowest
+    index among equal bests, second = min(max(b1, b2), min(s1, s2))."""
+    (bu, su, iu), (bv, sv, iv) = u, v
+    take = (bv < bu) | ((bv == bu) & (iv < iu))
+    return (torch.where(take, bv, bu), torch.minimum(torch.maximum(bu, bv), torch.minimum(su, sv)),
+            torch.where(take, iv, iu))
+
+
+@pytest.mark.parametrize("chunk,seed", [(128, 0), (256, 1), (1, 2)])
+def test_chunk_triples_merge_to_the_plain_version_in_any_order(chunk, seed):
+    """A torch mirror of the kernel's chunk merge: the plain version's
+    triple of each model chunk, joined in a seeded random order, equals the
+    plain version over the whole model, duplicated rows in other chunks
+    (ties on best and second, with multiplicity) included."""
+    rng = np.random.default_rng(seed)
+    p, m = _clouds(20 + seed, 150, 700)
+    m[400:450] = m[100:150]  # copies of rows 100-149, chunks away
+    m[699] = m[3]
+    tp, tm = torch.tensor(p), torch.tensor(m)
+    norm = (tm[:, 0] * tm[:, 0] + tm[:, 1] * tm[:, 1]) + tm[:, 2] * tm[:, 2]
+    pb, mb = tp.bfloat16().float(), tm.bfloat16().float()
+    parts = []
+    for lo in range(0, 700, chunk):
+        cross = (pb[:, None, 0] * mb[None, lo:lo + chunk, 0]
+                 + pb[:, None, 1] * mb[None, lo:lo + chunk, 1]) + pb[:, None, 2] * mb[None, lo:lo + chunk, 2]
+        d = norm[None, lo:lo + chunk] - 2.0 * cross
+        best, arg = torch.min(d, dim=1)
+        second = d.scatter(1, arg[:, None], float("inf")).amin(1)
+        parts.append((best, second, arg + lo))
+    order = rng.permutation(len(parts))
+    got = parts[order[0]]
+    for k in order[1:]:
+        got = _merge(got, parts[k])
+    idx, best, second, _ = nn_bf16.nn_bf16_plain(tp, tm)
+    assert torch.equal(got[0], best) and torch.equal(got[1], second)
+    assert torch.equal(got[2].to(torch.int32), idx)
+    assert bool((second == best).any())  # some ties with multiplicity were merged
