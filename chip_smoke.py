@@ -8,8 +8,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card, and ``nvidia-smi``'s name and power limit;
   2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
      process per source, all at once, and ptxas's registers, stack frames
-     and spills are printed (K1/K10's, K7's and K9's kernels must have
-     neither);
+     and spills are printed (K1/K10's, K2/K5's, K3's, K7's and K9's
+     kernels must have neither);
   3. kernels: K1-K10 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices and float32
      outputs exactly equal, float64 sums and state blocks within the stated
@@ -20,10 +20,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the capacity, work items and folded pairs (K7: horse's seed, exact and
      capacity-1 tables, the exact pass also without its seed bound), K6 is
      also held at k = 32 and on a lattice of exactly equal distances, and
-     K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes;
+     K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes; K2 (one
+     warp) at 1 and 23 rows, and K3 (one launch an iteration, its last block
+     running K2's step) at cow from two states, three launches bit-equal,
+     each with its device microseconds from ``torch.profiler``;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
-     path), horse_tr1 3 (grid path) and cow_tr1 10 with ``--nn bcast
+     path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (grid
+     path) and cow_tr1 10 with ``--nn bcast
      --solver qcp_fused`` (K5), each held against the reference binary's
      fixtures; ``--engine point_to_plane``, ``symmetric`` and ``gicp`` on
      cow_tr1 30 and cow_tr2 30 against the JAX CLI's fixtures, and on
@@ -241,6 +245,67 @@ def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "folded_pairs": folded_pairs(counts, cap, nj, tm, tn)}
 
 
+def device_us(fn, kernel: str, reps: int = 20) -> float:
+    """Mean microseconds on the device of ``kernel``'s launches in ``reps``
+    calls of ``fn``, from ``torch.profiler``; NaN if it saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = [e.time_range.end - e.time_range.start for e in prof.events()
+           if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(per) / len(per) if per else float("nan")
+
+
+def _fused_launches(prep, starts: dict) -> float:
+    """K3's launch from each state of ``starts`` against its plain version
+    (``fused_partials_plain`` + ``qcp_step_plain``): the rows' sums within
+    relative 1e-9, the state within 1e-8 and the control equal; the state
+    bit-equal to K2's plain step on the launch's own rows; three launches
+    bit-equal, the workspace clean after each.  Returns the largest
+    difference."""
+    import torch
+
+    from icp_tpu_torch.kernels import icp_fused, qcp
+
+    dev = prep.p0.device
+    worst = 0.0
+    for label, st0 in starts.items():
+        runs = []
+        for _ in range(3):
+            st, ctl, errs = st0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+            icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5, err_factor=2.0)
+            clean = bool((prep.keys == -1).all()) and bool((prep.counts == 0).all())
+            require(clean, f"K3 {label}: the workspace is not clean after a launch")
+            runs.append((st, ctl, errs[:1], prep.rows.clone()))  # errs[1:]: untouched NaN
+        st, ctl, errs, rows = runs[0]
+        repeat = all(all(torch.equal(a, b) for a, b in zip(r, runs[0])) for r in runs[1:])
+        require(repeat, f"K3 {label}: three launches differ")
+        want = icp_fused.fused_partials_plain(prep, st0)
+        rel = float(((rows.sum(0) - want[0]).abs() / want[0].abs().clamp(min=1.0)).max())
+        require(rel <= 1e-9, f"K3 {label}: sums differ from plain by {rel}")
+        pst, pctl, perrs = st0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+        qcp.qcp_step_plain(want, pst, pctl, perrs, threshold=1e-5, err_factor=2.0)
+        err = max(max_abs(st, pst), max_abs(errs, perrs[:1]))
+        require(torch.equal(ctl, pctl), f"K3 {label}: loop control differs from plain")
+        require(err <= 1e-8, f"K3 {label}: state differs from plain by {err}")
+        own, octl, oerrs = st0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+        qcp.qcp_step_plain(rows, own, octl, oerrs, threshold=1e-5, err_factor=2.0)
+        require(torch.equal(own, st) and torch.equal(oerrs[:1], errs),
+                f"K3 {label}: the last block's step differs from K2's plain step on its rows")
+        worst = max(worst, err, rel)
+        say("kernels", kernel="icp_fused", start=label, rows=rows.shape[0],
+            sums_max_rel_err=rel, state_max_abs_err=err, own_rows_step_bit_equal=True,
+            bit_repeat=repeat, workspace_clean=True)
+    return worst
+
+
 def entry(err, ms, plain_ms, bound_ms_by, library_ms=None) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
             "bound_by": bound_ms_by[1], "library_ms": library_ms}
@@ -279,12 +344,12 @@ def phase_build():
     if frames:
         print("[build] ptxas stack/spill bytes: " + " ".join(
             f"{name}={f}/{st}/{ld}" for name, f, st, ld in frames), flush=True)
-        held = ("_nn_dense_cu", "_knn_grid_cu", "_nn_bf16_cu")
+        held = ("_nn_dense_cu", "_knn_grid_cu", "_nn_bf16_cu", "_icp_fused_cu", "_qcp_cu")
         for src in held:
             require(any(src in name for name, *_ in frames), f"ptxas reported no {src} kernel")
         bad = [name for name, f, st, ld in frames
                if any(src in name for src in held) and (f, st, ld) != ("0", "0", "0")]
-        require(not bad, f"K1/K10, K7 or K9 kernels with a stack frame or spills: {bad}")
+        require(not bad, f"K1/K10, K2/K5, K3, K7 or K9 kernels with a stack frame or spills: {bad}")
 
 
 def _load(name):
@@ -459,7 +524,7 @@ def phase_kernels(seed: int, record: dict):
     Y = torch.tensor(ys, dtype=torch.float64, device=dev)
     prev = qcp.pack_total_state(Similarity(torch.tensor(0.9), torch.tensor(Rq.T),
                                            torch.tensor([0.1, -0.2, 0.3])), dev)
-    k2_err = 0.0
+    k2 = {}
     for rows in (1, 23):
         parts = torch.cat([qcp.pack_stats(compute_alignment_stats(a, b))
                            for a, b in zip(P.chunk(rows), Y.chunk(rows))]).contiguous()
@@ -470,55 +535,55 @@ def phase_kernels(seed: int, record: dict):
             outs.append((st, ctl, errs))
         (sk, ck, ek), (sp, cp, ep) = outs
         require(torch.equal(ck, cp), "K2: loop control differs from plain")
-        k2_err = max(k2_err, max_abs(sk, sp), max_abs(ek[:1], ep[:1]))
-    require(k2_err <= 1e-9, f"K2: state differs from plain by {k2_err}")
+        err = max(max_abs(sk, sp), max_abs(ek[:1], ep[:1]))
+        require(err <= 1e-9, f"K2 {rows} rows: state differs from plain by {err}")
 
-    def k2_bench(fn):
-        st, ctl, errs = prev.clone(), qcp.new_loop_control(1 << 20, dev), qcp.new_err_buffer(1 << 20, dev)
-        return lambda: fn(parts, st, ctl, errs, threshold=-math.inf)
+        def k2_bench(fn, parts=parts):
+            st, ctl, errs = prev.clone(), qcp.new_loop_control(1 << 20, dev), qcp.new_err_buffer(1 << 20, dev)
+            return lambda: fn(parts, st, ctl, errs, threshold=-math.inf)
 
-    # ~600 float64 operations on the summed rows; reads the rows and the
-    # state, writes the state, the control and one error
-    record["qcp_step"] = entry(k2_err, cuda_ms(k2_bench(qcp.qcp_step), 50),
-                               cuda_ms(k2_bench(qcp.qcp_step_plain), 10),
-                               bound(600 + 18 * parts.shape[0],
-                                     nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
-    say("kernels", kernel="qcp_step", rows="1,23", state_max_abs_err=k2_err,
-        ms=f"{record['qcp_step']['ms']:.4f}", plain_ms=f"{record['qcp_step']['plain_ms']:.4f}")
+        # ~600 float64 operations on the summed rows; reads the rows and the
+        # state, writes the state, the control and one error
+        k2[rows] = entry(err, cuda_ms(k2_bench(qcp.qcp_step), 50),
+                         cuda_ms(k2_bench(qcp.qcp_step_plain), 10),
+                         bound(600 + 18 * rows, nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
+        say("kernels", kernel="qcp_step", rows=rows, warp=True, state_max_abs_err=err,
+            bit_equal=err == 0.0, ms=f"{k2[rows]['ms']:.4f}",
+            device_us=f"{device_us(k2_bench(qcp.qcp_step), 'qcp_step_kernel'):.2f}",
+            plain_ms=f"{k2[rows]['plain_ms']:.4f}", bound_ms=f"{k2[rows]['bound_ms']:.3g}")
+    # the main paths launch K2 with one row (the grid and pipeline paths)
+    record["qcp_step"] = dict(k2[1], max_abs_err=max(v["max_abs_err"] for v in k2.values()))
 
-    # K3: cow, from the identity and from a non-identity state.
+    # K3: one launch an iteration, its last block solving; cow, from the
+    # identity and from a non-identity state.
     prep = icp_fused.prepare_fused_inputs(cow_tr1, cow_ref)
-    k3_err = 0.0
-    for label, st0 in (("identity", qcp.identity_state(dev)), ("warm", prev)):
-        ctl0 = qcp.new_loop_control(4, dev)
-        pk = icp_fused.fused_partials(prep, st0, ctl0)
-        pp = icp_fused.fused_partials_plain(prep, st0)
-        sums_k = pk.sum(0)
-        rel = float(((sums_k - pp[0]).abs() / pp[0].abs().clamp(min=1.0)).max())
-        require(rel <= 1e-9, f"K3 {label}: sums differ from plain by {rel}")
-        outs = []
-        for partials_fn, step_fn in ((icp_fused.fused_partials, qcp.qcp_step),
-                                     (lambda pr, st, _: icp_fused.fused_partials_plain(pr, st),
-                                      qcp.qcp_step_plain)):
-            st, ctl, errs = st0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
-            step_fn(partials_fn(prep, st, ctl), st, ctl, errs, threshold=1e-5, err_factor=2.0)
-            outs.append((st, errs))
-        err = max(max_abs(outs[0][0], outs[1][0]), max_abs(outs[0][1][:1], outs[1][1][:1]))
-        require(err <= 1e-8, f"K3 {label}: state differs from plain by {err}")
-        k3_err = max(k3_err, err, rel)
-        say("kernels", kernel="icp_fused", start=label, rows=pk.shape[0],
-            sums_max_rel_err=rel, state_max_abs_err=err)
-    bench_ctl = qcp.new_loop_control(4, dev)
-    st_b = qcp.identity_state(dev)
+    k3_err = _fused_launches(prep, {"identity": qcp.identity_state(dev), "warm": prev})
+    bench = (qcp.identity_state(dev), qcp.new_loop_control(1 << 20, dev),
+             qcp.new_err_buffer(1 << 20, dev))
+
+    def k3_launch():
+        icp_fused.fused_icp_step(prep, *bench, threshold=-math.inf)
+
+    def k3_plain():
+        st, ctl, errs = bench
+        qcp.qcp_step_plain(icp_fused.fused_partials_plain(prep, st), st, ctl, errs,
+                           threshold=-math.inf)
+
     n = m = cow_ref.shape[0]
-    # expansion-form distance: 3 mul + 3 add per pair; the scene (12 B) and
-    # the pre-scaled model (16 B) a row, 17 float64 sums a block out
+    blocks = prep.rows.shape[0]
+    # expansion-form distance: 3 mul + 3 add a pair, and K2's ~600 float64
+    # operations; the scene (12 B) and the pre-scaled model (16 B) a row
+    # in, the state, the control and an error in and out, and the scene
+    # blocks' 18 sums out
     record["icp_fused"] = entry(
-        k3_err, cuda_ms(lambda: icp_fused.fused_partials(prep, st_b, bench_ctl), 50),
-        cuda_ms(lambda: icp_fused.fused_partials_plain(prep, st_b), 10),
-        bound(6 * n * m, 12 * n + 16 * m + pk.shape[0] * 17 * 8 + 32 * 8))
-    say("kernels", kernel="icp_fused", shape="2903x2903",
-        ms=f"{record['icp_fused']['ms']:.4f}", plain_ms=f"{record['icp_fused']['plain_ms']:.4f}")
+        k3_err, cuda_ms(k3_launch, 50), cuda_ms(k3_plain, 10),
+        bound(6 * n * m + 600, 12 * n + 16 * m + blocks * 18 * 8 + 2 * (32 * 8 + 12) + 8))
+    say("kernels", kernel="icp_fused", shape=f"{n}x{m}",
+        grid=f"{blocks}x{-(-m // icp_fused.chunk_rows(n, m))}",
+        ms=f"{record['icp_fused']['ms']:.4f}",
+        device_us=f"{device_us(k3_launch, 'icp_fused_kernel'):.2f}",
+        plain_ms=f"{record['icp_fused']['plain_ms']:.4f}",
+        bound_ms=f"{record['icp_fused']['bound_ms']:.5f}")
 
     # K4: horse, the first iteration's real candidate table, and the
     # forced-overflow table (max_candidates=1: every tile folds all tiles);
@@ -581,8 +646,10 @@ def phase_kernels(seed: int, record: dict):
     record["qcp_rotation"] = entry(k5_err, cuda_ms(lambda: qcp.qcp_rotation(packed), 50),
                                    cuda_ms(lambda: qcp.qcp_rotation_plain(packed), 10),
                                    bound(500, 2 * 16 * 8))
-    say("kernels", kernel="qcp_rotation", max_abs_err=k5_err,
-        ms=f"{record['qcp_rotation']['ms']:.4f}", plain_ms=f"{record['qcp_rotation']['plain_ms']:.4f}")
+    say("kernels", kernel="qcp_rotation", warp=True, max_abs_err=k5_err,
+        ms=f"{record['qcp_rotation']['ms']:.4f}",
+        device_us=f"{device_us(lambda: qcp.qcp_rotation(packed), 'qcp_rotation_kernel'):.2f}",
+        plain_ms=f"{record['qcp_rotation']['plain_ms']:.4f}")
 
     # K6: the normals' kNN at cow (2,903^2) and horse (48,485^2), k 17.
     k6 = {}
@@ -770,6 +837,8 @@ def _add(total: dict, used: dict) -> None:
 def phase_cli(tmp: str) -> dict:
     """The main paths through the CLI and the entry points of K8 and K9;
     returns the launches of every run."""
+    from icp_tpu_torch.engine.icp import _CHUNK  # iterations launched between flag reads
+
     total = {}
     for fixture, ref, scene, nb_iter, want_iters, atol, extra in CLI_CASES:
         label = fixture + ("_k5" if extra else "")
@@ -784,8 +853,9 @@ def phase_cli(tmp: str) -> dict:
         if extra:
             require(used["qcp_rotation"] >= want_iters and used["qcp_step"] == 0,
                     f"cli {label}: K5 path not taken ({used})")
-        elif fixture.startswith("cow"):
-            require(used["icp_fused"] >= want_iters and used["qcp_step"] >= want_iters,
+        elif fixture.startswith("cow"):  # one K3 launch an iteration, K2 inside it
+            launched = min(nb_iter, -(-want_iters // _CHUNK) * _CHUNK)
+            require(used["icp_fused"] == launched and used["qcp_step"] == 0,
                     f"cli {label}: fused path not taken ({used})")
         else:
             require(used["nn_grid"] >= want_iters and used["qcp_step"] >= want_iters
@@ -989,8 +1059,8 @@ def _full_float32_under_tf32(tmp: str) -> None:
 
 def _fixed_mode_nan() -> None:
     """``icp_fixed_iters(n_iters=10)`` with one NaN coordinate runs all 10
-    iterations on the fused path (K3 + K2) and on the grid path (K1 seed,
-    K4, K2), as JAX's ``fori_loop``; the error is NaN."""
+    iterations on the fused path (10 K3 launches, no K2 launch) and on the
+    grid path (K1 seed, K4, K2), as JAX's ``fori_loop``; the error is NaN."""
     import numpy as np
 
     from icp_tpu_torch.engine.icp import icp_fixed_iters
@@ -1002,7 +1072,8 @@ def _fixed_mode_nan() -> None:
         res, used = _counted(lambda: icp_fixed_iters(model, scene, n_iters=10, solver="qcp_fused",
                                                      nn_method=nn))
         iters, err = int(res.iters), float(res.err)
-        require(iters == 10 and math.isnan(err) and used["qcp_step"] == 10
+        k2 = 0 if kernel == "icp_fused" else 10  # the fused launch runs K2's step itself
+        require(iters == 10 and math.isnan(err) and used["qcp_step"] == k2
                 and used[kernel] == 10, f"fixed mode {nn}: {iters} iterations, err {err} ({used})")
         say("repair", case="fixed_iters_nan", path=nn, iters=iters, err=err, launches=used)
 

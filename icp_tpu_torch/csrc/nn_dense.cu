@@ -36,7 +36,9 @@
 //     cp.async (the next stages load while this one is folded), copied as
 //     the raw (x, y, z) floats: 16 bytes at a time where the model is
 //     16-byte aligned (a stage of 128 rows is 1,536 bytes), else 4.  Four
-//     rows are read as three float4 loads and folded as a group (above):
+//     rows are read as three float4 loads and folded as a group (above;
+//     the group update, the merge and the chunk size are dense_fold.cuh's,
+//     shared with K3):
 //     in ascending row order with strict <, so a chunk keeps the lowest
 //     index of its least distance; the chunks' minima merge into the
 //     point's 64-bit key by atomicMin: the distance's bits in the high
@@ -49,7 +51,7 @@
 //  2. epilogue (a thread a point): writes the index and, when asked, the
 //     distance from the key (K10: plus |p|^2); the empty key gives index 0
 //     and +inf, as the plain version and the JAX kernel give for such rows.
-#include "common.cuh"
+#include "dense_fold.cuh"
 
 namespace {
 
@@ -58,7 +60,7 @@ constexpr int kPoints = 4;        // scene points a thread: 512 a block
 constexpr int kStageRows = 128;   // model rows a ring stage
 constexpr int kStages = 4;        // ring depth: 6 KB of shared memory
 constexpr int kStageFloats = 3 * kStageRows;
-constexpr unsigned long long kEmpty = ~0ull;
+constexpr unsigned long long kEmpty = dense_fold::kEmpty;
 
 // The distance forms (the C entry points' `form`): 0 diff-squares (K1),
 // 1 expansion (K10).
@@ -141,29 +143,12 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
       const int r = r0 + 4 * g;
       const float4 q[4] = {model_row<F>(a.x, a.y, a.z), model_row<F>(a.w, c.x, c.y),
                            model_row<F>(c.z, c.w, e.x), model_row<F>(e.y, e.z, e.w)};
-      // the four distances of each point, and their least: only when it
-      // beats a point's best (rarely) are they compared one by one, in row
-      // order, so the result is the eager strict-< fold's
       float d[P][4];
-      bool hit = false;
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < P; ++p)
 #pragma unroll
         for (int u = 0; u < 4; ++u) d[p][u] = dist<F>(px[p], py[p], pz[p], q[u]);
-        hit |= fminf(fminf(d[p][0], d[p][1]), fminf(d[p][2], d[p][3])) < best[p];
-      }
-      if (hit) {
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (d[p][u] < best[p]) {
-              best[p] = d[p][u];
-              bi[p] = r + u;
-            }
-          }
-        }
-      }
+      dense_fold::fold4(d, r, best, bi);
     }
     for (int k = 4 * groups; k < cnt; ++k) fold(buf[3 * k], buf[3 * k + 1], buf[3 * k + 2], r0 + k);
   }
@@ -171,12 +156,7 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
   for (int p = 0; p < P; ++p) {
     const long long i = static_cast<long long>(blockIdx.x) * (kThreads * P) + p * kThreads
                         + threadIdx.x;
-    if (i < n && best[p] < inf) {
-      const unsigned long long key =
-          (static_cast<unsigned long long>(ordered_bits(best[p])) << 32)
-          | static_cast<unsigned>(bi[p]);
-      atomicMin(keys + i, key);
-    }
+    if (i < n) dense_fold::merge(keys + i, best[p], bi[p]);
   }
 }
 
@@ -205,30 +185,12 @@ FoldKernel fold_kernel(int form) {
   return form == kExpansion ? nn_dense_fold_kernel<kExpansion> : nn_dense_fold_kernel<kDiff>;
 }
 
-// Model rows a chunk: one wave of resident fold blocks, at least one chunk
-// and at most one a 128-row stage; a multiple of the stage.
+// Model rows a chunk: one wave of resident fold blocks (dense_fold.cuh).
 int chunk_rows_for(int n, int m, int form, int* out) {
   static int waves[2][64];  // the wave of each form and device, asked once
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int wave = dev < 64 ? waves[form][dev] : 0;
-  if (wave == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_kernel(form), kThreads, 0);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    wave = sms * (per_sm > 0 ? per_sm : 1);
-    if (dev < 64) waves[form][dev] = wave;
-  }
   const long long scene_blocks = (n + kThreads * kPoints - 1) / (kThreads * kPoints);
-  const long long stages = (m + kStageRows - 1) / kStageRows;
-  long long chunks = (wave + scene_blocks - 1) / scene_blocks;
-  chunks = chunks < 1 ? 1 : (chunks > stages ? stages : chunks);
-  const long long per = (m + chunks - 1) / chunks;
-  *out = static_cast<int>((per + kStageRows - 1) / kStageRows * kStageRows);
-  return 0;
+  return dense_fold::chunk_rows(fold_kernel(form), kThreads, waves[form], scene_blocks, m,
+                                kStageRows, out);
 }
 
 bool valid(int n, int m, int form) { return n >= 1 && m >= 1 && (form == kDiff || form == kExpansion); }

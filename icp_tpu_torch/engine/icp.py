@@ -7,8 +7,9 @@ and error; stop when the reported error drops below ``threshold`` or at
 the mean squared residual.
 
 The loop stays on the device.  On the kernel paths (``solver="qcp_fused"``)
-the convergence test runs inside the scalar-solve kernel K2, which writes
-``errs[it]``, advances the iteration count and raises a done flag; after
+the convergence test runs inside K2's scalar step (its own launch, or the
+last block of the fused iteration K3), which writes ``errs[it]``, advances
+the iteration count and raises a done flag; after
 that every launch is an exact no-op.  The host launches iterations in
 chunks of ``_CHUNK`` and reads the flag once per chunk, so iteration counts
 and the NaN-tailed error buffer are those of the JAX loop.  In fixed mode
@@ -21,9 +22,10 @@ error on the host instead — ``torch.linalg.eigh`` synchronises with the
 host in any case.
 
 Paths, as in the JAX engine (``icp_tpu/engine/icp.py:160-219``):
-  * fused (qcp_fused + pallas, model <= ``MAX_FUSED_MODEL``): K3 + K2 per
-    iteration; only the state block changes, the moved cloud is never
-    written until the one apply after the loop;
+  * fused (qcp_fused + pallas, model <= ``MAX_FUSED_MODEL``): one launch
+    of K3 per iteration, whose last block runs K2's step; only the state
+    block changes, the moved cloud is never written until the one apply
+    after the loop;
   * pipeline (qcp_fused + pallas, larger models): NN (K1), matched-point
     gather, float64 Horn sums in torch, K2, and the apply of the step in
     torch;

@@ -46,8 +46,9 @@ _SIGNATURES = {
     "nn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "nn_dense_chunk_rows": [_I, _I, _I, _P],
     "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _I, _P],
-    "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P],
-    "icp_fused_blocks": [_I],
+    "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
+    "icp_fused_scene_blocks": [_I],
+    "icp_fused_chunk_rows": [_I, _I, _P],
     "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "qcp_rotation_launch": [_P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
@@ -162,6 +163,11 @@ def stream_ptr(t) -> int:
     """The current PyTorch stream of ``t``'s device, as a pointer (read
     without building a ``torch.cuda.Stream``, which costs ~8 us a call on
     the host: the wrappers of the small launches are host-bound)."""
+    return raw_stream(t.device.index)
+
+
+def raw_stream(index: int) -> int:
+    """The current PyTorch stream of CUDA device ``index``, as a pointer."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(index)

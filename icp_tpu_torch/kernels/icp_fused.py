@@ -1,27 +1,33 @@
-"""K3: one whole dense ICP iteration (``csrc/icp_fused.cu``), then K2.
+"""K3: one whole dense ICP iteration in one launch (``csrc/icp_fused.cu``).
 
-Port of ``icp_tpu/kernels/icp_fused.py``.  One iteration is two launches on
-one stream: K3 applies the cumulative transform of the state block to the
-raw scene, finds each point's nearest model point in the expansion form
+Port of ``icp_tpu/kernels/icp_fused.py``.  The launch applies the
+cumulative transform of the state block to the raw scene, finds each
+point's nearest model point in the expansion form
 ``((|m|^2 + px*m2x) + py*m2y) + pz*m2z`` against the pre-scaled ``-2m``
-model, and reduces the Horn sums in float64 to one row per block; K2
-(``kernels/qcp.py``) reduces the rows, solves, composes and runs the
-convergence test.  Only the state block, the loop control and the error
-buffer change between iterations; the moved cloud is never written.
+model, takes the Horn sums in float64 (one row per 512-point scene block,
+left in the workspace), and in its last block to finish runs K2's step
+(``kernels/qcp.py``): the solve, the composition and the convergence test,
+in place on the state block, the loop control and the error buffer.  Only
+those change between iterations; the moved cloud is never written.
 
-``fused_partials_plain`` is K3's plain torch version; the wrapper takes it
-only for CPU tensors.
+``prepare_fused_inputs`` lays the clouds out and, on the card, allocates
+the launch's workspace, once a run; ``fused_icp_step`` checks the loop
+tensors the first time it sees them, so an iteration is the launch alone.
+Its plain version is ``fused_partials_plain`` followed by
+``qcp_step_plain``, taken only for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points
-from icp_tpu_torch.kernels.qcp import N_SUMS, qcp_step
+from icp_tpu_torch.kernels.qcp import N_SUMS, STATE_SLOTS, qcp_step_plain
 
 # Model-size cap of the fused path: the JAX package's value (its fully
 # unrolled fold range), kept so the port takes the same branches as the
@@ -31,20 +37,39 @@ MAX_FUSED_MODEL = 5120
 _PLAIN_BLOCK_ELEMS = 1 << 24
 
 
-class FusedInputs(NamedTuple):
-    """Loop-invariant kernel inputs, built once per run."""
+@dataclass(eq=False)
+class FusedInputs:
+    """Loop-invariant inputs of one run, built once; on the card also the
+    launch's workspace, which every launch leaves as it found it (keys all
+    ones, counters zero) but for ``rows``, which keep its Horn sums."""
 
     p0: torch.Tensor  # (N, 3) float32 raw scene
     mt: torch.Tensor  # (M, 4) float32 rows [-2x, -2y, -2z, |m|^2]
+    keys: Optional[torch.Tensor] = None  # (N,) int64 merge keys
+    counts: Optional[torch.Tensor] = None  # (scene blocks + 1,) int32 arrival counters
+    rows: Optional[torch.Tensor] = None  # (scene blocks, 18) float64 sums of the last launch
+    _loop: tuple = ()  # the loop tensors last checked, and the launch's pointers
 
 
 def prepare_fused_inputs(scene: torch.Tensor, model: torch.Tensor) -> FusedInputs:
-    """Cast and lay out the clouds for K3 (outside the loop)."""
+    """Cast and lay out the clouds for K3, and allocate the workspace of its
+    launch on the card (outside the loop)."""
     p0 = scene.to(torch.float32).contiguous()
     m = model.to(torch.float32)
     mn = (m[:, 0] * m[:, 0] + m[:, 1] * m[:, 1]) + m[:, 2] * m[:, 2]
     mt = torch.cat([-2.0 * m, mn[:, None]], dim=1).contiguous()
-    return FusedInputs(p0=p0, mt=mt)
+    check_points("prepare_fused_inputs", "scene", p0)
+    if mt.device != p0.device or mt.shape[0] < 1 or p0.shape[0] < 1:
+        raise ValueError("prepare_fused_inputs: the clouds must be non-empty and on one device")
+    if p0.device.type == "cpu":
+        return FusedInputs(p0=p0, mt=mt)
+    if mt.data_ptr() % 16:
+        raise ValueError("prepare_fused_inputs: the model rows must be 16-byte aligned")
+    dev, blocks = p0.device, _build.lib().icp_fused_scene_blocks(p0.shape[0])
+    return FusedInputs(p0=p0, mt=mt,
+                       keys=torch.full((p0.shape[0],), -1, dtype=torch.int64, device=dev),
+                       counts=torch.zeros(blocks + 1, dtype=torch.int32, device=dev),
+                       rows=torch.zeros((blocks, N_SUMS), dtype=torch.float64, device=dev))
 
 
 def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
@@ -55,43 +80,66 @@ def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
             and trim_fraction == 0.0 and n_model <= MAX_FUSED_MODEL)
 
 
-def fused_partials(prep: FusedInputs, state: torch.Tensor,
-                   ctl: torch.Tensor) -> torch.Tensor:
-    """K3 alone: (P, 18) float64 per-block Horn sums of one iteration."""
-    p0, mt = prep
-    n = p0.shape[0]
-    check_points("fused_partials", "p0", p0)
-    if mt.ndim != 2 or mt.shape[1] != 4 or mt.dtype != torch.float32 \
-            or not mt.is_contiguous() or mt.device != p0.device or mt.shape[0] < 1:
-        raise ValueError("fused_partials: mt must be a contiguous float32 "
-                         "(M, 4) tensor beside p0")
-    if state.dtype != torch.float64 or state.shape != (1, 32) \
-            or state.device != p0.device or ctl.device != p0.device:
-        raise ValueError("fused_partials: state must be (1, 32) float64 beside p0")
-    if p0.device.type == "cpu":
-        return fused_partials_plain(prep, state)
-    lib = _build.lib()
-    partials = torch.empty((lib.icp_fused_blocks(n), N_SUMS), dtype=torch.float64,
-                           device=p0.device)
-    code = lib.icp_fused_launch(p0.data_ptr(), n, mt.data_ptr(), mt.shape[0],
-                                state.data_ptr(), ctl.data_ptr(),
-                                partials.data_ptr(), _build.stream_ptr(p0))
-    _build.LAUNCHES["icp_fused"] += 1
-    _build.check(code, "icp_fused")
-    return partials
+def _check_loop(prep: FusedInputs, state, ctl, errs) -> tuple:
+    """Raise unless the loop tensors are K2's, beside the clouds; returns
+    the launch's pointer arguments."""
+    dev = prep.p0.device
+    for name, t, dt, shape in (("state", state, torch.float64, (1, STATE_SLOTS)),
+                               ("ctl", ctl, torch.int32, (3,)),
+                               ("errs", errs, torch.float64, None)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+                or (shape is not None and tuple(t.shape) != shape) \
+                or (shape is None and t.ndim != 1):
+            raise ValueError(f"fused_icp_step: {name} must be a contiguous {dt} "
+                             f"{shape or '1-D'} tensor on {dev} (got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device})")
+    if prep.keys is None:
+        return ()
+    return (prep.p0.data_ptr(), prep.p0.shape[0], prep.mt.data_ptr(), prep.mt.shape[0],
+            state.data_ptr(), ctl.data_ptr(), errs.data_ptr(), prep.keys.data_ptr(),
+            prep.counts.data_ptr(), prep.rows.data_ptr())
 
 
 def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
-                   errs: torch.Tensor, **step_kw) -> None:
-    """One ICP iteration, in place on ``state``, ``ctl`` and ``errs``: K3
-    then K2 on the same stream (``step_kw``: K2's loop arguments)."""
-    qcp_step(fused_partials(prep, state, ctl), state, ctl, errs, **step_kw)
+                   errs: torch.Tensor, *, with_scale: bool = True,
+                   threshold: float = -math.inf, err_factor: float = 2.0,
+                   converge: bool = True) -> None:
+    """One ICP iteration, in place on ``state`` (1, 32) float64, ``ctl``
+    (3,) int32 and ``errs`` float64 (the keywords: K2's loop arguments).
+    On the card it is one launch of K3; the loop tensors are checked the
+    first time a run's ``prep`` sees them."""
+    loop = prep._loop
+    if not loop or loop[0] is not state or loop[1] is not ctl or loop[2] is not errs:
+        loop = prep._loop = (state, ctl, errs, _check_loop(prep, state, ctl, errs),
+                             prep.p0.device.index)
+    if prep.keys is None:
+        qcp_step_plain(fused_partials_plain(prep, state), state, ctl, errs,
+                       with_scale=with_scale, threshold=threshold, err_factor=err_factor,
+                       converge=converge)
+        return
+    code = _build.lib().icp_fused_launch(*loop[3], int(with_scale), float(threshold),
+                                         float(err_factor), int(converge),
+                                         _build.raw_stream(loop[4]))
+    _build.LAUNCHES["icp_fused"] += 1
+    _build.check(code, "icp_fused")
+
+
+def chunk_rows(n: int, m: int) -> int:
+    """The model rows of one of K3's chunks for an (n, m) launch on the
+    current card (the C launcher's choice: one wave of blocks)."""
+    import ctypes
+
+    out = ctypes.c_int()
+    _build.check(_build.lib().icp_fused_chunk_rows(n, m, ctypes.addressof(out)), "icp_fused")
+    return out.value
 
 
 def fused_partials_plain(prep: FusedInputs, state: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: the same float32 apply and distance order, the
-    same first-index winner, the sums in float64 as one (1, 18) row."""
-    p0, mt = prep
+    same first-index winner, the sums in float64 as one (1, 18) row.  A NaN
+    distance never wins, and a scene row with no distance below +inf
+    matches y = (0, 0, 0), as the kernel's (and JAX's) zeroed carry gives."""
+    p0, mt = prep.p0, prep.mt
     s = state[0, 13].to(torch.float32)
     R = state[0, 14:23].to(torch.float32)
     t = state[0, 23:26].to(torch.float32)
@@ -100,13 +148,15 @@ def fused_partials_plain(prep: FusedInputs, state: torch.Tensor) -> torch.Tensor
                      for r in range(3)], dim=1)
     rows = max(1, _PLAIN_BLOCK_ELEMS // mt.shape[0])
     win = torch.empty(p.shape[0], dtype=torch.int64, device=p.device)
+    found = torch.empty(p.shape[0], dtype=torch.bool, device=p.device)
     for lo in range(0, p.shape[0], rows):
         q = p[lo:lo + rows]
         d = ((mt[None, :, 3] + q[:, None, 0] * mt[None, :, 0])
              + q[:, None, 1] * mt[None, :, 1]) + q[:, None, 2] * mt[None, :, 2]
-        win[lo:lo + rows] = torch.min(d, dim=1).indices
+        best, win[lo:lo + rows] = torch.min(torch.where(torch.isnan(d), float("inf"), d), dim=1)
+        found[lo:lo + rows] = best < float("inf")
     P = p.to(torch.float64)
-    Y = (-0.5 * mt[win, :3]).to(torch.float64)
+    Y = torch.where(found[:, None], -0.5 * mt[win, :3], 0.0).to(torch.float64)
     return torch.cat([(P.T @ Y).reshape(-1), P.sum(0), Y.sum(0),
                       (P * P).sum().reshape(1), (Y * Y).sum().reshape(1),
                       torch.tensor([float(P.shape[0])], dtype=torch.float64,

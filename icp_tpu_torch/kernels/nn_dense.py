@@ -102,11 +102,12 @@ def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
                    with_dist: bool = False, distance_impl: str = "vpu"):
     """Plain version of K1 (``"vpu"``) and K10 (``"mxu"``): the same
     distance in the same rounding order, elementwise (no matmul, so the card
-    rounds it as the kernel does), the first index of the minimum.  K10's:
+    rounds it as the kernel does), the first index of the minimum.  In both
+    forms a NaN ``d`` never wins and a row with no ``d < +inf`` gets index 0
+    and +inf, as the kernel's strict ``d < best`` fold gives.  K10's:
     ``d = mn - 2c`` with ``mn = (mx*mx + my*my) + mz*mz`` and
-    ``c = (px*mx + py*my) + pz*mz``; a NaN ``d`` never wins, a row with no
-    ``d < +inf`` gets index 0 and +inf, and the distance returned is
-    ``d + pn`` (``pn = (px*px + py*py) + pz*pz``)."""
+    ``c = (px*mx + py*my) + pz*mz``, and the distance returned is ``d + pn``
+    (``pn = (px*px + py*py) + pz*pz``)."""
     if distance_impl not in _FORMS:
         raise ValueError(f"nn_dense_plain: distance_impl must be one of {tuple(_FORMS)}, "
                          f"got {distance_impl!r}")
@@ -121,12 +122,12 @@ def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
             c = (p[:, None, 0] * model[None, :, 0] + p[:, None, 1] * model[None, :, 1]) \
                 + p[:, None, 2] * model[None, :, 2]
             d = mn[None, :] - 2.0 * c
-            d = torch.where(torch.isnan(d), float("inf"), d)
         else:
             dx = p[:, None, 0] - model[None, :, 0]
             dy = p[:, None, 1] - model[None, :, 1]
             dz = p[:, None, 2] - model[None, :, 2]
             d = (dx * dx + dy * dy) + dz * dz
+        d = torch.where(torch.isnan(d), float("inf"), d)  # a NaN never wins
         best, arg = torch.min(d, dim=1)  # first index of the minimum
         idx[lo:lo + rows] = arg.to(torch.int32)
         d2[lo:lo + rows] = best
@@ -154,7 +155,9 @@ def nn_chunked(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
 def nn_chunked_plain(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the model axis split over 32 lanes (row j on
     lane j % 32), each lane's first minimum over its rows, then the lowest
-    index among the lanes that reach the least distance."""
+    index among the lanes that reach the least distance.  A NaN distance
+    never wins, and a row with no distance below +inf gets index 0, as the
+    kernel's strict ``d < best`` lanes give."""
     n, m = scene.shape[0], model.shape[0]
     chunks = -(-m // _LANES)
     rows = max(1, _PLAIN_BLOCK_ELEMS // (chunks * _LANES))
@@ -166,6 +169,7 @@ def nn_chunked_plain(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
         dy = p[:, None, 1] - model[None, :, 1]
         dz = p[:, None, 2] - model[None, :, 2]
         d = (dx * dx + dy * dy) + dz * dz
+        d = torch.where(torch.isnan(d), float("inf"), d)  # a NaN never wins
         d = torch.nn.functional.pad(d, (0, chunks * _LANES - m), value=float("inf"))
         best, chunk = torch.min(d.reshape(-1, chunks, _LANES), dim=1)  # first chunk
         gidx = chunk * _LANES + lane

@@ -297,7 +297,9 @@ def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_ro
     """Plain version of K4: per scene tile, the lexicographic minimum of
     (diff-squares distance, original index) over its candidate tiles; the
     winner's point and payload row are read through ``kd_row``, as the
-    kernel's epilogue reads them (a padding winner reads zeros)."""
+    kernel's epilogue reads them (a padding winner reads zeros).  A NaN
+    distance never wins (the kernel's ``d <= best``): a row with none
+    other gets d2 = +inf and index -1."""
     nj = tiles.shape[0]
     dev = scene.device
     n = scene.shape[0]
@@ -313,10 +315,9 @@ def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_ro
         dy = p[:, None, 1] - rows[None, :, 1]
         dz = p[:, None, 2] - rows[None, :, 2]
         d = (dx * dx + dy * dy) + dz * dz
-        best = d.amin(1)
+        best = torch.where(torch.isnan(d), float("inf"), d).amin(1)  # a NaN never wins
         key = torch.where(d == best[:, None], rows[None, :, 3], big)
-        win = torch.min(key, dim=1).indices
-        oidx = rows[win, 3]
+        oidx = key.amin(1)
         d2[lo:lo + scene_tile] = best
         idx[lo:lo + scene_tile] = torch.where(
             oidx < 16777216.0, oidx, torch.full_like(oidx, -1.0)).to(torch.int32)

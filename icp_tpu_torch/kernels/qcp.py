@@ -7,7 +7,9 @@ the JAX layout (``qcp_pallas.py:91-119``) in float64::
     [s_step, R_step (9, row major), t_step (3),
      s_tot, R_tot (9), t_tot (3), residual_sum, lambda, 0, 0, 0, 0]
 
-K2 reads a (P, 18) float64 array of partial sums — rows of
+K2 (one warp, ``csrc/qcp_warp.cuh``; the fused dense iteration K3 runs the
+same step in its last block) reads a (P, 18) float64 array of partial
+sums — rows of
 ``[sum_py (9), sum_p (3), sum_y (3), sum_pp, sum_yy, n]`` added in row
 order — and updates the state block, the loop control and the error buffer
 in place: it solves the step, composes it onto the cumulative transform,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K1 (dense NN), K4 (kd-tile NN), K6 (dense kNN), K7 (kd-tile kNN),
-K9 (bf16-prefilter NN) and K10 (K1's "mxu" form) of one checkout on one
-CUDA card.
+"""Time K1 (dense NN), K2 (alignment step), K3 (fused dense iteration), K4
+(kd-tile NN), K6 (dense kNN), K7 (kd-tile kNN), K9 (bf16-prefilter NN) and
+K10 (K1's "mxu" form) of one checkout on one CUDA card.
 
     python3 scripts/kernel_ab.py [--root DIR] [--label NAME] [--sections LIST]
 
@@ -25,15 +25,24 @@ checkout's ``chip_smoke.py`` and ``data/``:
     bound where its ``knn_worklist`` takes one), and the 1M ``knn_indices``
     wall time;
   * the point-to-point grid loop's ms/iter and set-up + first iteration
-    at horse and at 1M.
+    at horse and at 1M;
+  * one dense fused iteration at cow (``fused_icp_step``: one K3 launch
+    that solves in its last block, or K3 then K2 in a checkout from before
+    that), from the identity and from a warm state; K2 alone with 1 and 23
+    rows; the cow point-to-point loop (fused path): ms/iter over 200
+    iterations and the device's busy share of a profiled 200-iteration
+    run; and horse's point-to-point loop (grid path, K2 each iteration).
 
 Kernel times are medians of CUDA events, after a second of matrix products
 that brings the card from its idle clock (~345 MHz) to its working one;
 loop times are host clocks around
 runs that end in ``torch.cuda.synchronize()``, the difference of two
-iteration counts.  ``--sections`` picks ``dense`` (K1, K10, K9) and
-``grid`` (K4, K6, K7, the loops and the 1M pair; the longest part); default
-both.  Prints one JSON line, with the card's name and power limit, and exits
+iteration counts; device microseconds come from ``torch.profiler`` (the
+mean of a kernel's launches; for the fused iteration, K3's and K2's
+kernels summed, each launch from its start state).  ``--sections`` picks
+``dense`` (K1, K10, K9), ``grid`` (K4, K6, K7, the loops and the 1M pair;
+the longest part) and ``fused`` (K3, K2, the cow loop); default dense and
+grid.  Prints one JSON line, with the card's name and power limit, and exits
 1 without a card.
 """
 
@@ -58,6 +67,95 @@ def _smoke():
     return mod
 
 
+def loop_ms(cs, model, scene, k, nn):
+    """(ms/iter, set-up + first iteration ms) of the point-to-point loop
+    on path ``nn``: medians of fixed-iteration runs of 1 and k + 1
+    iterations."""
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    def run(i):
+        return cs._wall(lambda: float(icp_fixed_iters(model, scene, n_iters=i,
+                                                      solver="qcp_fused", nn_method=nn).err))
+    run(2)
+    t1 = statistics.median(run(1) for _ in range(5))
+    tk = statistics.median(run(k + 1) for _ in range(5))
+    return (tk - t1) / k * 1e3, t1 * 1e3
+
+
+def fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1) -> dict:
+    """K3 + K2 at cow, K2 alone with 1 and 23 rows, the cow loop (ms/iter
+    over 200 iterations, and the busy share of a profiled 200-iteration
+    run) and the horse loop (K2 on the grid path)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.kernels import icp_fused, qcp
+    from icp_tpu_torch.ops.alignment import Similarity, compute_alignment_stats
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch", os.path.join(HERE, "scripts", "profile_torch.py"))
+    prof_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof_mod)
+    dev = cow_ref.device
+    out = {}
+    rng = np.random.default_rng(0)
+    a = 0.3
+    warm = qcp.pack_total_state(Similarity(
+        torch.tensor(1.04), torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                                          [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]]),
+        torch.tensor([0.05, -0.1, 0.02])), dev)
+    prep = icp_fused.prepare_fused_inputs(cow_tr1, cow_ref)
+    names = ("icp_fused_kernel", "qcp_step_kernel")
+    for label, st0 in (("identity", qcp.identity_state(dev)), ("warm", warm)):
+        st, ctl, errs = (st0.clone(), qcp.new_loop_control(1 << 20, dev),
+                         qcp.new_err_buffer(1 << 20, dev))
+
+        def step():
+            icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=-math.inf)
+
+        out[f"k3_cow_{label}_ms"] = cs.cuda_ms(step, 50)
+
+        def step_from_start():
+            st.copy_(st0)
+            step()
+
+        us = [cs.device_us(step_from_start, k) for k in names]  # NaN: no such launch
+        out[f"k3_cow_{label}_device_us"] = sum(u for u in us if not math.isnan(u))
+    pts = rng.standard_normal((1000, 3))
+    P = torch.tensor(pts, dtype=torch.float64, device=dev)
+    Y = torch.tensor(1.3 * pts + 0.2 + 1e-3 * rng.standard_normal((1000, 3)),
+                     dtype=torch.float64, device=dev)
+    for rows in (1, 23):
+        parts = torch.cat([qcp.pack_stats(compute_alignment_stats(p, y))
+                           for p, y in zip(P.chunk(rows), Y.chunk(rows))]).contiguous()
+        st, ctl, errs = (warm.clone(), qcp.new_loop_control(1 << 20, dev),
+                         qcp.new_err_buffer(1 << 20, dev))
+
+        def k2(parts=parts, st=st, ctl=ctl, errs=errs):
+            qcp.qcp_step(parts, st, ctl, errs, threshold=-math.inf)
+
+        out[f"k2_rows{rows}_ms"] = cs.cuda_ms(k2, 50)
+        out[f"k2_rows{rows}_device_us"] = cs.device_us(k2, "qcp_step_kernel")
+
+    out["cow_p2p_ms_per_iter"], _ = loop_ms(cs, cow_ref, cow_tr1, 200, "pallas")
+    out["horse_p2p_ms_per_iter"], _ = loop_ms(cs, horse_ref, horse_tr1, 20, "grid")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(i):
+        return float(icp_fixed_iters(cow_ref, cow_tr1, n_iters=i, solver="qcp_fused",
+                                     nn_method="pallas").err)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = cs._wall(lambda: run(200))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out["cow_p2p_busy_share"] = prof_mod._busy_share(kernels, wall * 1e6)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -74,7 +172,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     cs = _smoke()
     from icp_tpu_torch.engine.grid import _prepare_scene
-    from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.kernels import knn_dense, knn_grid, nn_bf16, nn_dense, nn_grid
     from icp_tpu_torch.ops.normals import estimate_normals, knn_indices
 
@@ -97,18 +194,6 @@ def main(argv=None) -> int:
         return {"ms": cs.cuda_ms(lambda: nn_grid.nn_grid(*a, **kw), reps),
                 "fallback_tiles": int((counts > cap).sum()),
                 "mean_count": round(counts.double().mean().item(), 3)}
-
-    def loop_ms(model, scene, k):
-        """(ms/iter, set-up + first iteration ms) of the point-to-point grid
-        loop."""
-        def run(i):
-            return cs._wall(lambda: float(icp_fixed_iters(model, scene, n_iters=i,
-                                                          solver="qcp_fused",
-                                                          nn_method="grid").err))
-        run(2)
-        t1 = statistics.median(run(1) for _ in range(3))
-        tk = statistics.median(run(k + 1) for _ in range(3))
-        return (tk - t1) / k * 1e3, t1 * 1e3
 
     bounded = "bound" in inspect.signature(knn_grid.knn_worklist).parameters
 
@@ -155,6 +240,8 @@ def main(argv=None) -> int:
             c = m.mean(0)
             sc, mc = (s - c).contiguous(), (m - c).contiguous()
             out[f"k9_{label}_ms"] = cs.cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), reps)
+    if "fused" in sections:
+        out.update(fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1))
     if "grid" not in sections:
         print(json.dumps(out), flush=True)
         return 0
@@ -172,7 +259,8 @@ def main(argv=None) -> int:
                                    ("cow_k32", cow_ref, cow_ref, 32, 20),
                                    ("lattice", lat_q, lat_p, 17, 20)):
         out[f"k6_{label}_ms"] = cs.cuda_ms(lambda: knn_dense.knn_dense(q, pts, k), reps)
-    out["horse_p2p_ms_per_iter"], out["horse_p2p_first_iter_ms"] = loop_ms(horse_ref, horse_tr1, 20)
+    out["horse_p2p_ms_per_iter"], out["horse_p2p_first_iter_ms"] = loop_ms(
+        cs, horse_ref, horse_tr1, 20, "grid")
     del grid, p0, u0, normals
 
     model, scene, _ = cs.scale_pair(0)
@@ -186,7 +274,7 @@ def main(argv=None) -> int:
     knn_indices(model, 17, method="grid")
     out["1M_knn_indices_ms"] = statistics.median(
         cs._wall(lambda: knn_indices(model, 17, method="grid")) * 1e3 for _ in range(3))
-    out["1M_p2p_ms_per_iter"], out["1M_p2p_first_iter_ms"] = loop_ms(model, scene, 9)
+    out["1M_p2p_ms_per_iter"], out["1M_p2p_first_iter_ms"] = loop_ms(cs, model, scene, 9, "grid")
     print(json.dumps(out), flush=True)
     return 0
 

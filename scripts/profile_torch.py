@@ -3,13 +3,15 @@
 
     python3 scripts/profile_torch.py [--out DIR] [--root DIR] [--cells LIST]
 
-For each cell — cow_tr1 on the fused path (K3 + K2), horse_tr1 on the grid
-path (K4 + torch + K2), and the 1,000,000-point pair of ``chip_smoke.py``
-on the grid path, each with the point-to-point engine and the three plane
-engines (point-to-plane, symmetric, GICP: dense K1 on cow, grid K4 with the
-normals payload elsewhere) — it times fixed-iteration loops without the
-profiler (ms/iter from the difference of two iteration counts), then runs
-one loop under ``torch.profiler`` and prints the device time by kernel, the
+For each cell — cow_tr1 on the fused path (one K3 launch an iteration),
+horse_tr1 on the grid path (K4 + torch + K2), and the 1,000,000-point pair
+of ``chip_smoke.py`` on the grid path, each with the point-to-point engine
+and the three plane engines (point-to-plane, symmetric, GICP: dense K1 on
+cow, grid K4 with the normals payload elsewhere) — it times
+fixed-iteration loops without the profiler (ms/iter from the difference of
+two iteration counts), then runs one loop under ``torch.profiler`` and
+prints the device time by kernel and an iteration's device microseconds
+(the window's kernel time over its iterations, set-up included), the
 device's busy share of the profiled window (union of kernel intervals over
 the window's wall time) and each launch's time of the hand-written kernels.
 The plane cells take their normals from ``estimate_normals`` calls (K6 on
@@ -95,8 +97,9 @@ def profile_cell(name, label, run, n_iters, out_dir):
     waits = sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
                 and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                                "cudaMemcpy", "cudaEventSynchronize"))
+    per_iter = f"{total / n_iters:.2f}" if n_iters else "n/a"
     print(f"[{name}] profiled iters={n_iters} wall_ms={wall * 1e3:.3f} "
-          f"device_kernel_ms={total / 1e3:.3f} "
+          f"device_kernel_ms={total / 1e3:.3f} device_us_per_iter={per_iter} "
           f"device_busy_share={_busy_share(kernels, wall * 1e6):.3f} "
           f"kernel_launches={len(kernels)} host_waits={waits}", flush=True)
     by_name = {}

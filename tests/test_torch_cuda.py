@@ -8,6 +8,8 @@ machine with one:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -103,38 +105,192 @@ def test_nn_dense_mxu_kernel_matches_plain(dev, case):
 
 def test_qcp_step_kernel_fixed_mode_runs_to_the_bound(dev):
     """K2 with NaN partials: in fixed mode (``converge=False``) only the
-    bound stops it; in convergence mode the NaN error stops it at once."""
+    bound stops it; in convergence mode the NaN error stops it at once.  The
+    warp form's state is the plain version's, NaN for NaN."""
     parts = torch.full((3, qcp.N_SUMS), float("nan"), dtype=torch.float64, device=dev)
     for converge, want in ((False, 5), (True, 1)):
+        outs = []
         for fn in (qcp.qcp_step, qcp.qcp_step_plain):
             st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(5, dev), qcp.new_err_buffer(5, dev)
             for _ in range(7):
                 fn(parts, st, ctl, errs, threshold=1e-5, converge=converge)
             assert ctl.tolist() == [want, 1, 5]
             assert bool(torch.isnan(errs[:want]).all())
+            outs.append(st)
+        assert torch.equal(torch.isnan(outs[0]), torch.isnan(outs[1]))
+        fin = ~torch.isnan(outs[1])
+        assert torch.equal(outs[0][fin], outs[1][fin])
 
 
-def test_qcp_step_kernel_matches_plain(dev):
+@pytest.mark.parametrize("rows", [1, 7, 23])
+def test_qcp_step_kernel_matches_plain(dev, rows):
+    """K2 on one warp: bit-equal to its plain version (the same operation
+    order under --fmad=false), from a non-identity state."""
     p, y = _cloud(1, 500).double(), _cloud(2, 500).double()
-    from icp_tpu_torch.ops.alignment import compute_alignment_stats
+    from icp_tpu_torch.ops.alignment import Similarity, compute_alignment_stats
 
     parts = torch.cat([qcp.pack_stats(compute_alignment_stats(a.to(dev), b.to(dev)))
-                       for a, b in zip(p.chunk(7), y.chunk(7))])
+                       for a, b in zip(p.chunk(rows), y.chunk(rows))])
+    assert parts.shape[0] == rows
+    prev = qcp.pack_total_state(Similarity(torch.tensor(0.9), torch.eye(3, dtype=torch.float64),
+                                           torch.tensor([0.1, -0.2, 0.3])), dev)
     outs = []
     for fn in (qcp.qcp_step, qcp.qcp_step_plain):
-        st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(3, dev), qcp.new_err_buffer(3, dev)
+        st, ctl, errs = prev.clone(), qcp.new_loop_control(3, dev), qcp.new_err_buffer(3, dev)
         fn(parts, st, ctl, errs, threshold=1e-5)
         outs.append((st, ctl, errs))
     assert torch.equal(outs[0][1], outs[1][1])
     torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-12)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][2][:1], outs[1][2][:1])
 
 
-def test_icp_fused_kernel_matches_plain(dev):
-    prep = icp_fused.prepare_fused_inputs(_cloud(3, 1000).to(dev), _cloud(4, 1500).to(dev))
-    ctl = qcp.new_loop_control(2, dev)
-    pk = icp_fused.fused_partials(prep, qcp.identity_state(dev), ctl)
-    pp = icp_fused.fused_partials_plain(prep, qcp.identity_state(dev))
-    torch.testing.assert_close(pk.sum(0), pp[0], rtol=1e-12, atol=1e-9)
+def _warm_state(dev):
+    from icp_tpu_torch.ops.alignment import Similarity
+
+    a = 0.3
+    R = torch.tensor([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]],
+                     dtype=torch.float64)
+    return qcp.pack_total_state(Similarity(torch.tensor(1.04), R,
+                                           torch.tensor([0.05, -0.1, 0.02])), dev)
+
+
+def _fused_case(dev, case):
+    """(scene, model) on the card for the K3 cases."""
+    if case == "cow":
+        from icp_tpu_torch.io.csv import load_matrix
+
+        data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+        return tuple(torch.tensor(load_matrix(os.path.join(data, f)), dtype=torch.float32).to(dev)
+                     for f in ("cow_tr1.txt", "cow_ref.txt"))
+    n, m = {"1000x1500": (1000, 1500), "20000x5120": (20000, 5120)}[case]
+    return _cloud(3, n).to(dev), (_cloud(4, m) * 1.1).to(dev)
+
+
+def _fused_vs_plain(prep, state0, bound=4):
+    """One K3 launch and its plain composition from ``state0``:
+    ((state, ctl, errs) of each, and the kernel's rows)."""
+    dev = state0.device
+    outs = []
+    for kernel in (True, False):
+        st, ctl, errs = state0.clone(), qcp.new_loop_control(bound, dev), qcp.new_err_buffer(bound, dev)
+        if kernel:
+            before = _build.LAUNCHES["icp_fused"]
+            icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5, err_factor=2.0)
+            assert _build.LAUNCHES["icp_fused"] == before + 1
+            rows = prep.rows.clone()
+        else:
+            qcp.qcp_step_plain(icp_fused.fused_partials_plain(prep, st), st, ctl, errs,
+                               threshold=1e-5, err_factor=2.0)
+        outs.append((st, ctl, errs))
+    return outs, rows
+
+
+def _workspace_clean(prep):
+    return bool((prep.keys == -1).all()) and bool((prep.counts == 0).all())
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["identity", "warm"])
+@pytest.mark.parametrize("case", ["1000x1500", "cow", "20000x5120"])
+def test_icp_fused_kernel_matches_plain(dev, case, warm):
+    """One K3 launch against ``fused_partials_plain`` + ``qcp_step_plain``:
+    the rows' sums within relative 1e-9 (another summation order), the
+    state within 1e-8, ctl equal, errs[0] within relative 1e-9; the state
+    bit-equal to K2's plain step on the kernel's own rows; a run repeats
+    bit for bit; the workspace is clean after each launch."""
+    scene, model = _fused_case(dev, case)
+    prep = icp_fused.prepare_fused_inputs(scene, model)
+    state0 = _warm_state(dev) if warm else qcp.identity_state(dev)
+    blocks = -(-scene.shape[0] // 512)
+    assert prep.rows.shape == (blocks, qcp.N_SUMS) and _workspace_clean(prep)
+    ((kst, kctl, kerrs), (pst, pctl, perrs)), rows = _fused_vs_plain(prep, state0)
+    assert _workspace_clean(prep)
+    want = icp_fused.fused_partials_plain(prep, state0)[0]
+    rel = ((rows.sum(0) - want).abs() / want.abs().clamp(min=1.0)).max()
+    assert float(rel) <= 1e-9
+    assert float(rows[:, 17].sum()) == scene.shape[0]
+    torch.testing.assert_close(kst, pst, rtol=0, atol=1e-8)
+    assert torch.equal(kctl, pctl)
+    torch.testing.assert_close(kerrs[:1], perrs[:1], rtol=1e-9, atol=0)
+    own, octl, oerrs = state0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+    qcp.qcp_step_plain(rows, own, octl, oerrs, threshold=1e-5, err_factor=2.0)
+    assert torch.equal(own, kst) and torch.equal(octl, kctl)
+    assert torch.equal(oerrs[:1], kerrs[:1])  # the rest is the buffer's untouched NaN
+    for _ in range(2):  # the same launch again: bit for bit
+        st, ctl, errs = state0.clone(), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+        icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5, err_factor=2.0)
+        assert torch.equal(st, kst) and torch.equal(errs[:1], kerrs[:1])
+        assert torch.equal(prep.rows, rows) and _workspace_clean(prep)
+
+
+def test_icp_fused_kernel_ties_across_chunks_go_to_lowest_index(dev):
+    """Scene points on the plane x = 0 and model rows mirrored across it,
+    each mirror one chunk later than its row: every expansion distance
+    ties exactly (px * m2x is 0), so the lowest index must win the merge,
+    whatever order the chunk blocks finish in; the y sums then hold the
+    rows' positive x, and equal the plain version's."""
+    rng = np.random.default_rng(12)
+    n, m, r = 2000, 3000, 100
+    chunk = icp_fused.chunk_rows(n, m)
+    assert chunk + r <= m
+    model = np.empty((m, 3), np.float32)
+    model[:, 0] = rng.uniform(20.0, 30.0, m)  # far rows
+    model[:, 1:] = rng.standard_normal((m, 2))
+    model[:r, 0] = rng.uniform(0.5, 1.0, r)
+    model[chunk:chunk + r] = model[:r] * np.float32([-1.0, 1.0, 1.0])
+    scene = np.zeros((n, 3), np.float32)
+    scene[:, 1:] = model[rng.integers(0, r, n), 1:] + 0.01 * rng.standard_normal((n, 2))
+    prep = icp_fused.prepare_fused_inputs(torch.tensor(scene, device=dev),
+                                          torch.tensor(model, device=dev))
+    ((kst, _, _), (pst, _, _)), rows = _fused_vs_plain(prep, qcp.identity_state(dev))
+    rows = rows.sum(0)
+    want = icp_fused.fused_partials_plain(prep, qcp.identity_state(dev))[0]
+    assert float(((rows - want).abs() / want.abs().clamp(min=1.0)).max()) <= 1e-9
+    assert float(rows[12]) > 0.5 * n  # sum of y_x: the rows, not their mirrors
+    torch.testing.assert_close(kst, pst, rtol=0, atol=1e-8)
+
+
+@pytest.mark.parametrize("where", ["scene", "model"])
+def test_icp_fused_kernel_with_a_nan_row(dev, where):
+    """A NaN scene row (no finite distance: y = 0) and a NaN model row
+    (never wins) against the plain versions: equal control, the same NaN
+    pattern in the state, equal finite slots (1e-8) and the rows' finite
+    y sums within relative 1e-9."""
+    scene, model = _cloud(13, 1000).to(dev), (_cloud(14, 1500) * 1.1).to(dev)
+    if where == "scene":
+        scene[17, 1] = float("nan")
+    else:
+        model[400, 2] = float("nan")
+    prep = icp_fused.prepare_fused_inputs(scene, model)
+    ((kst, kctl, kerrs), (pst, pctl, perrs)), rows = _fused_vs_plain(prep, qcp.identity_state(dev))
+    assert torch.equal(kctl, pctl) and _workspace_clean(prep)
+    assert torch.equal(torch.isnan(kst), torch.isnan(pst))
+    fin = ~torch.isnan(pst)
+    torch.testing.assert_close(kst[fin], pst[fin], rtol=0, atol=1e-8)
+    want = icp_fused.fused_partials_plain(prep, qcp.identity_state(dev))[0]
+    y_cols = [12, 13, 14, 16]
+    got = rows.sum(0)[y_cols]
+    assert float(((got - want[y_cols]).abs() / want[y_cols].abs().clamp(min=1.0)).max()) <= 1e-9
+    if where == "model":
+        assert bool(torch.isfinite(kst).all()) and bool(torch.isfinite(kerrs[:1]).all())
+
+
+def test_icp_fused_kernel_when_done_writes_the_identity_step(dev):
+    """With the done flag up, the launch writes the identity step (slots
+    0-12) and changes nothing else: a later apply of the step is an exact
+    no-op; the workspace stays clean."""
+    prep = icp_fused.prepare_fused_inputs(_cloud(15, 3000).to(dev), _cloud(16, 2000).to(dev))
+    st = _warm_state(dev)
+    st[0, :13] = torch.arange(13, dtype=torch.float64, device=dev)
+    ctl = torch.tensor([3, 1, 8], dtype=torch.int32, device=dev)
+    errs = qcp.new_err_buffer(8, dev)
+    before = st.clone()
+    icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5)
+    torch.cuda.synchronize()
+    want = torch.zeros(13, dtype=torch.float64, device=dev)
+    want[[0, 1, 5, 9]] = 1.0
+    assert torch.equal(st[0, :13], want) and torch.equal(st[0, 13:], before[0, 13:])
+    assert ctl.tolist() == [3, 1, 8] and bool(torch.isnan(errs).all())
+    assert _workspace_clean(prep)
 
 
 @pytest.mark.parametrize("cap,case", [(16, "random"), (1, "random"), (16, "straggler"),

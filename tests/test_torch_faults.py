@@ -47,8 +47,8 @@ def _pair(n=300, seed=0, nan=True):
 
 
 # every path of icp_fixed_iters: the plain solvers with the broadcast NN
-# and K1, the fused K3 + K2 path, and the grid path (K1 seed, K4, K2 or a
-# plain solver)
+# and K1, the fused K3 path (its last block solves), and the grid path (K1
+# seed, K4, K2 or a plain solver)
 FIXED_PATHS = [("eigh", "bcast"), ("qcp", "bcast"), ("kabsch", "bcast"), ("eigh", "pallas"),
                ("qcp", "pallas"), ("kabsch", "pallas"), ("qcp_fused", "pallas"),
                ("eigh", "grid"), ("qcp_fused", "grid")]

@@ -81,3 +81,76 @@ def test_fused_step_after_done_is_a_no_op():
     assert ctl.tolist() == [1, 1, 1]
     np.testing.assert_array_equal(state[0, 13:].numpy(), before[0, 13:].numpy())
     assert float(state[0, 0]) == 1.0 and float(state[0, 10:13].abs().sum()) == 0.0
+
+
+def _nan_model_case():
+    """The NaN-wins case: a 64-point scene against a 100-point model (the
+    scene x 1.05 + 0.01, then 36 seeded rows), one NaN coordinate in model
+    row 70."""
+    rng = np.random.default_rng(0)
+    scene = rng.standard_normal((64, 3)).astype(np.float32)
+    model = np.concatenate([scene * 1.05 + 0.01, rng.standard_normal((36, 3))]).astype(np.float32)
+    model[70, 1] = np.nan
+    return scene, model
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["identity", "warm"])
+def test_fused_step_with_a_nan_model_row_matches_jax(warm):
+    """A NaN distance never wins in the JAX kernel (strict ``dc < best``)
+    nor in K3: one step is finite and within the tolerances above (the
+    residual, near zero here, within 1e-3 of JAX's float32 one)."""
+    scene, model = _nan_model_case()
+    prev = _warm_state(5) if warm else np.asarray(jq.identity_state())
+    want = np.asarray(jf.fused_icp_step(
+        jf.prepare_fused_inputs(jnp.asarray(scene), jnp.asarray(model)),
+        jnp.asarray(prev), interpret=True))
+    state, errs = state_from_jax(prev), tq.new_err_buffer(1)
+    tf.fused_icp_step(tf.prepare_fused_inputs(torch.tensor(scene), torch.tensor(model)),
+                      state, tq.new_loop_control(1), errs, threshold=1e-5, err_factor=2.0)
+    got = state_to_jax(state).astype(np.float64)
+    assert np.isfinite(got).all() and np.isfinite(errs.numpy()).all()
+    for sl in (slice(1, 10), slice(10, 13), slice(14, 23), slice(23, 26)):
+        np.testing.assert_allclose(got[0, sl], want[0, sl], atol=1e-5)
+    for k in (0, 13):
+        np.testing.assert_allclose(got[0, k], want[0, k], rtol=1e-5)
+    np.testing.assert_allclose(got[0, 26], want[0, 26], atol=1e-3)
+
+
+def test_icp_with_a_nan_model_row_matches_jax():
+    """``icp`` on the fused path (K3's and K2's plain versions on the CPU) against JAX's
+    ``icp`` on the same pair: the same iterations, a finite transform."""
+    import icp_tpu
+    from icp_tpu_torch import ICPConfig, icp
+
+    scene, model = _nan_model_case()
+    kw = dict(max_iter=10, solver="qcp_fused", nn_method="pallas", validate_inputs=False)
+    jtr = icp_tpu.icp(model, scene, icp_tpu.ICPConfig(**kw), trace=True)
+    tr = icp(model, scene, ICPConfig(**kw), trace=True, device="cpu")
+    assert int(tr.result.iters) == int(jtr.result.iters)
+    s, R, t = (v.numpy() for v in tr.result.transform)
+    js, jR, jt = (np.asarray(v) for v in jtr.result.transform)
+    assert np.isfinite(s) and np.isfinite(R).all() and np.isfinite(t).all()
+    np.testing.assert_allclose(s, js, rtol=1e-5)
+    np.testing.assert_allclose(R, jR, atol=1e-5)
+    np.testing.assert_allclose(t, jt, atol=1e-5)
+    np.testing.assert_allclose(tr.result.points.numpy(), np.asarray(jtr.result.points), atol=1e-5)
+
+
+def test_plain_nan_scene_row_matches_y_zero():
+    """A scene row with no finite distance (a NaN coordinate) matches y = 0
+    in ``fused_partials_plain``, as the kernel's and JAX's zeroed carry
+    give: the y sums equal those of the scene without that row; the p sums
+    are NaN."""
+    rng = np.random.default_rng(8)
+    scene = rng.standard_normal((50, 3)).astype(np.float32)
+    model = (2.0 * rng.standard_normal((80, 3))).astype(np.float32)
+    scene[11, 0] = np.nan
+    keep = np.arange(50) != 11
+    state = tq.identity_state()
+    got = tf.fused_partials_plain(tf.prepare_fused_inputs(torch.tensor(scene),
+                                                          torch.tensor(model)), state)
+    want = tf.fused_partials_plain(tf.prepare_fused_inputs(torch.tensor(scene[keep]),
+                                                           torch.tensor(model)), state)
+    y_cols = [12, 13, 14, 16]
+    np.testing.assert_allclose(got[0, y_cols].numpy(), want[0, y_cols].numpy(), rtol=1e-12)
+    assert np.isnan(got[0, 9:12].numpy()).all() and float(got[0, 17]) == 50.0

@@ -219,3 +219,28 @@ def test_plain_reads_the_winner_through_kd_row():
     np.testing.assert_array_equal(y.numpy(), model[idx.numpy()])
     np.testing.assert_array_equal(pl[:, :3].numpy(), normals.astype(np.float32)[idx.numpy()])
     assert not pl[:, 3].any()
+
+
+def test_plain_nan_never_wins():
+    """K4's plain version follows the kernel's ``d <= best`` fold: a NaN
+    distance never wins.  A NaN model row gives what the row moved far
+    away gives; a NaN scene row gets d2 = +inf, index -1 and y = 0, as the
+    kernel's untouched key (+inf, no index) gives."""
+    model = _sphere(1500, seed=6)
+    scene = _sphere(256, seed=7) * 1.01
+    scene[9, 2] = np.nan
+    tgrid = tg.build_model_grid(torch.tensor(model), target_tile=128)
+    nj = tgrid.tiles.shape[0]
+    cand = torch.zeros((4, 1), dtype=torch.int32)
+    counts = torch.full((4,), nj + 1, dtype=torch.int32)  # every tile folds all tiles
+    tiles = tgrid.tiles.clone()
+    victim = int(tgrid.kd_row[int(np.argmin(((model - scene[3]) ** 2).sum(1)))])
+    far = tiles.clone()
+    tiles.view(-1, 4)[victim, 1] = float("nan")  # scene row 3's nearest model row
+    far.view(-1, 4)[victim, :3] = 1e6
+    s = torch.tensor(scene)
+    d2, idx, y, _ = tg.nn_grid_plain(cand, counts, s, tiles, 64, kd_row=tgrid.kd_row)
+    wd2, widx, _, _ = tg.nn_grid_plain(cand, counts, s, far, 64, kd_row=tgrid.kd_row)
+    assert torch.equal(idx, widx) and torch.equal(d2, wd2)
+    assert int(idx[9]) == -1 and float(d2[9]) == float("inf")
+    assert float(y[9].abs().sum()) == 0.0

@@ -1,8 +1,8 @@
 """The port's main path on cow, against the reference binary and JAX.
 
-``solver="qcp_fused"`` with ``nn_method`` ``pallas`` (the fused K3 + K2 path)
-and ``grid`` (K1 seed, K4, K2), on the CPU through the kernels' plain
-versions.  Tolerances:
+``solver="qcp_fused"`` with ``nn_method`` ``pallas`` (the fused path: one
+K3 launch an iteration, its last block solving) and ``grid`` (K1 seed, K4,
+K2), on the CPU through the kernels' plain versions.  Tolerances:
   * trace vs the reference binary: rtol 1e-2 on entries > 1e-6 — float32
     coordinates alone put JAX's explicit-residual path 3.1e-3 off it;
   * output cloud vs the binary's output.txt: atol 1e-5 (both printed at 6

@@ -225,3 +225,67 @@ def test_mxu_is_counted_apart_and_cpu_takes_the_plain_version():
     assert _build.LAUNCHES["nn_dense_mxu"] == 0 and _build.LAUNCHES["nn_dense"] == 0
     with pytest.raises(ValueError, match="distance_impl"):
         nn_dense.nn_dense_plain(s, m, distance_impl="chunked")
+
+
+def _nan_model(seed=3, n=40, m=300, row=7):
+    """(scene, model with one NaN coordinate in ``row``, the same model with
+    that row moved far away): a NaN row must give what the far row gives."""
+    scene, model = _clouds(seed, n, m)
+    model[row, 2] = np.nan
+    far = model.copy()
+    far[row] = 1e6
+    return scene, model, far
+
+
+@pytest.mark.parametrize("impl", ["vpu", "mxu"])
+def test_dense_plain_never_returns_a_nan_row(impl):
+    """K1's (``"vpu"``) and K10's (``"mxu"``) plain versions follow their
+    kernel's strict ``d < best`` fold: a NaN model row never wins.  JAX's
+    kernel returns 2147483647 for every point here in both forms, an index
+    out of range: its NaN ``jnp.min`` matches no lane (a fault of the
+    reference, ROADMAP R5), which the port does not copy."""
+    scene, model, far = _nan_model()
+    s = torch.tensor(scene)
+    idx, d2 = nn_dense.nn_dense_plain(s, torch.tensor(model), with_dist=True, distance_impl=impl)
+    want, wd2 = nn_dense.nn_dense_plain(s, torch.tensor(far), with_dist=True, distance_impl=impl)
+    assert not bool((idx == 7).any())
+    assert torch.equal(idx, want) and torch.equal(d2, wd2)
+    assert (_jax_idx(scene, model, distance_impl=impl) == 2147483647).all()  # R5
+
+
+def test_dense_plain_nan_scene_row_gets_index_0_and_inf():
+    scene, model = _clouds(5, 9, 120)
+    scene[2, 0] = np.nan
+    idx, d2 = nn_dense.nn_dense_plain(torch.tensor(scene), torch.tensor(model), with_dist=True)
+    assert int(idx[2]) == 0 and float(d2[2]) == float("inf")
+
+
+def test_chunked_plain_never_returns_a_nan_row():
+    """K8's plain version: a NaN distance never wins in a lane (the
+    kernel's strict ``d < best``), so a NaN model row gives what a far row
+    gives, as JAX's chunked kernel does; a NaN scene row gets index 0."""
+    scene, model, far = _nan_model(seed=4, n=48)
+    scene[5, 1] = np.nan
+    got = nn_dense.nn_chunked_plain(torch.tensor(scene), torch.tensor(model))
+    want = nn_dense.nn_chunked_plain(torch.tensor(scene), torch.tensor(far))
+    assert torch.equal(got, want) and int(got[5]) == 0
+    rows = np.arange(48) != 5
+    np.testing.assert_array_equal(got.numpy()[rows],
+                                  _jax_chunked(scene[rows], model, 16, 128))
+
+
+@pytest.mark.parametrize("method", ["bcast", "matmul"])
+def test_plain_methods_follow_jax_argmin_with_nan(method):
+    """``ops/distance.py``'s ``bcast`` and ``matmul`` have no kernel: they
+    are the JAX package's XLA paths, whose ``argmin`` lets a NaN distance
+    win (the first NaN's index), as ``torch.argmin`` does.  The sweep of
+    the NaN-wins fault leaves them so: they equal JAX's, NaN rows included."""
+    from icp_tpu.ops import distance as jdist
+
+    scene, model, _ = _nan_model()
+    scene[4, 1] = np.nan
+    got = closest_point_indices(torch.tensor(scene), torch.tensor(model), method=method)
+    want = np.asarray(jdist.closest_point_indices(jnp.asarray(scene), jnp.asarray(model),
+                                                  method=method))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == 7).any()
