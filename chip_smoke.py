@@ -8,7 +8,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. device: the card, and ``nvidia-smi``'s name and power limit;
   2. build: ``nvcc`` builds every kernel from ``icp_tpu_torch/csrc``, one
      process per source, all at once, and ptxas's registers, stack frames
-     and spills are printed (K1/K10's, K2/K5's, K3's, K7's and K9's
+     and spills are printed (K1/K10's, K2/K5's, K3's, K7's, K8's and K9's
      kernels must have neither);
   3. kernels: K1-K10 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices and float32
@@ -23,7 +23,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes; K2 (one
      warp) at 1 and 23 rows, and K3 (one launch an iteration, its last block
      running K2's step) at cow from two states, three launches bit-equal,
-     each with its device microseconds from ``torch.profiler``;
+     each with its device microseconds from ``torch.profiler``; K5 (one
+     warp) through its packed entry and through ``qcp_rotation_from`` on
+     float32 and float64 statistics, bit-equal to plain, one launch a
+     call; K8 at cow and the grid seed, bit-equal to plain and to K1, three
+     launches alike with its merge workspace clean after each, its and
+     K1's device microseconds a call beside each other;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (grid
@@ -34,6 +39,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      horse_tr1 30 (grid path, K7 normals) against the port's own dense
      path; the lane-chunked NN (K8) and the ``"mxu"`` form (K10) through
      their entry point at K1's shapes, against K1 and the plain version; the
+     ``qcp_fused`` step with the bcast NN on cow (one K5 launch an
+     iteration, its device launches an iteration and ms/iter); the
      bf16 prefilter (K9) through ``icp_symmetric`` with ``nn_method="bf16"``
      on a seeded surface and on cow_tr1.  The launch counts of each run are
      read with the counts set to 0 just before it.  Then two repairs: the
@@ -49,7 +56,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
      tiles, and timed beside its bound; K1 on the 1M bound seed against
-     its plain version on 65,536 seeded rows; 10 fixed point-to-point grid
+     its plain version on 65,536 seeded rows, and K8 on the same seed
+     against K1 on every row and its plain version on the same rows, each
+     with its device microseconds; 10 fixed point-to-point grid
      iterations; K7 on the 1M model's seed and exact tables against its
      plain version on sampled tiles; K7 normals of both clouds, the model's
      neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
@@ -116,6 +125,7 @@ PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PAIR_OPS = 8  # float32 operations per distance: 3 sub, 3 mul, 2 add
 PEAK_BF16 = 989e12  # dense bf16 tensor cores: K9's cross term
+K1_NAMES = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel")  # K1's kernels in a trace
 
 
 class SmokeError(RuntimeError):
@@ -245,9 +255,11 @@ def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "folded_pairs": folded_pairs(counts, cap, nj, tm, tn)}
 
 
-def device_us(fn, kernel: str, reps: int = 20) -> float:
-    """Mean microseconds on the device of ``kernel``'s launches in ``reps``
-    calls of ``fn``, from ``torch.profiler``; NaN if it saw none."""
+def device_us(fn, names, reps: int = 20) -> float:
+    """Microseconds on the device a call of ``fn`` spends in the kernels
+    named in ``names`` (substrings): the sum over the names of the mean of
+    each one's launches in ``reps`` calls, from ``torch.profiler`` (a
+    launch the trace drops does not count as a zero); NaN if it saw none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -258,9 +270,31 @@ def device_us(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    per = [e.time_range.end - e.time_range.start for e in prof.events()
-           if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(per) / len(per) if per else float("nan")
+    per = {}
+    for e in prof.events():
+        name = next((k for k in names if k in e.name), None)
+        if e.device_type == DeviceType.CUDA and name:
+            per.setdefault(name, []).append(e.time_range.end - e.time_range.start)
+    return sum(sum(v) / len(v) for v in per.values()) if per else float("nan")
+
+
+def launches_per_iter(run, k: int = 20) -> float:
+    """Device launches (kernels, copies and memsets) an iteration of
+    ``run(i)`` (a run of i iterations): the difference of a (k + 1)- and a
+    1-iteration run under ``torch.profiler``, over k."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for i in (1, k + 1):
+        run(i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(i)
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / k
 
 
 def _fused_launches(prep, starts: dict) -> float:
@@ -338,18 +372,20 @@ def phase_build():
     if regs:
         print("[build] ptxas: " + " ".join(a or b for a, b in regs), flush=True)
     # stack frame and spill bytes of each kernel: a list indexed at run
-    # time would show here (K1/K10's, K7's and K9's must have none)
+    # time would show here (K1/K10's, K2/K5's, K3's, K7's, K8's and K9's
+    # must have none)
     frames = re.findall(r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
                         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
     if frames:
         print("[build] ptxas stack/spill bytes: " + " ".join(
             f"{name}={f}/{st}/{ld}" for name, f, st, ld in frames), flush=True)
-        held = ("_nn_dense_cu", "_knn_grid_cu", "_nn_bf16_cu", "_icp_fused_cu", "_qcp_cu")
+        held = ("_nn_dense_cu", "_knn_grid_cu", "_nn_bf16_cu", "_icp_fused_cu", "_qcp_cu",
+                "_nn_chunked_cu")
         for src in held:
             require(any(src in name for name, *_ in frames), f"ptxas reported no {src} kernel")
         bad = [name for name, f, st, ld in frames
                if any(src in name for src in held) and (f, st, ld) != ("0", "0", "0")]
-        require(not bad, f"K1/K10, K2/K5, K3, K7 or K9 kernels with a stack frame or spills: {bad}")
+        require(not bad, f"K1/K10, K2/K5, K3, K7, K8 or K9 kernels with a stack frame or spills: {bad}")
 
 
 def _load(name):
@@ -440,6 +476,7 @@ def phase_kernels(seed: int, record: dict):
 
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.kernels import (
+        _build,
         icp_fused,
         knn_dense,
         nn_bf16,
@@ -549,7 +586,7 @@ def phase_kernels(seed: int, record: dict):
                          bound(600 + 18 * rows, nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
         say("kernels", kernel="qcp_step", rows=rows, warp=True, state_max_abs_err=err,
             bit_equal=err == 0.0, ms=f"{k2[rows]['ms']:.4f}",
-            device_us=f"{device_us(k2_bench(qcp.qcp_step), 'qcp_step_kernel'):.2f}",
+            device_us=f"{device_us(k2_bench(qcp.qcp_step), ('qcp_step_kernel',)):.2f}",
             plain_ms=f"{k2[rows]['plain_ms']:.4f}", bound_ms=f"{k2[rows]['bound_ms']:.3g}")
     # the main paths launch K2 with one row (the grid and pipeline paths)
     record["qcp_step"] = dict(k2[1], max_abs_err=max(v["max_abs_err"] for v in k2.values()))
@@ -581,7 +618,7 @@ def phase_kernels(seed: int, record: dict):
     say("kernels", kernel="icp_fused", shape=f"{n}x{m}",
         grid=f"{blocks}x{-(-m // icp_fused.chunk_rows(n, m))}",
         ms=f"{record['icp_fused']['ms']:.4f}",
-        device_us=f"{device_us(k3_launch, 'icp_fused_kernel'):.2f}",
+        device_us=f"{device_us(k3_launch, ('icp_fused_kernel',)):.2f}",
         plain_ms=f"{record['icp_fused']['plain_ms']:.4f}",
         bound_ms=f"{record['icp_fused']['bound_ms']:.5f}")
 
@@ -631,7 +668,10 @@ def phase_kernels(seed: int, record: dict):
         ms=f"{pl_ms[0]:.4f}", plain_ms=f"{pl_ms[1]:.4f}")
     record["nn_grid"] = entry(k4_err, *k4)
 
-    # K5: the rotation solve on the cow statistics (first matches).
+    # K5: the rotation solve on the cow statistics (first matches), through
+    # the packed (1, 16) entry and through qcp_rotation_from on float32
+    # statistics (as the bcast loop holds them) and on float64 ones; every
+    # output bit-equal to the plain version.
     stats = compute_alignment_stats(cow_tr1, cow_ref[nn_dense.nn_dense(cow_tr1, cow_ref).long()])
     mu_p, mu_y = stats.sum_p / stats.n, stats.sum_y / stats.n
     S = stats.sum_py - stats.n * torch.outer(mu_p, mu_y)
@@ -640,16 +680,34 @@ def phase_kernels(seed: int, record: dict):
     packed = qcp.pack_rotation_input(S, gp, gy)
     rk, rp = qcp.qcp_rotation(packed), qcp.qcp_rotation_plain(packed)
     k5_err = max_abs(rk, rp)
-    require(k5_err <= 1e-12, f"K5: output differs from plain by {k5_err}")
+    require(k5_err == 0.0, f"K5: output differs from plain by {k5_err}")
     R = rk[0, :9].reshape(3, 3)
     require(max_abs(R @ R.T, torch.eye(3, dtype=R.dtype, device=dev)) <= 1e-12, "K5: R not a rotation")
-    record["qcp_rotation"] = entry(k5_err, cuda_ms(lambda: qcp.qcp_rotation(packed), 50),
-                                   cuda_ms(lambda: qcp.qcp_rotation_plain(packed), 10),
-                                   bound(500, 2 * 16 * 8))
+    k5_from = {}
+    for dt in (torch.float32, torch.float64):
+        args = (S.to(dt), gp.to(dt), gy.to(dt))
+        before = _build.LAUNCHES["qcp_rotation"]
+        got = qcp.qcp_rotation_from(*args)
+        require(_build.LAUNCHES["qcp_rotation"] == before + 1, "K5 from: not one launch a call")
+        want = qcp.qcp_rotation_from_plain(*args)
+        require(got[0].dtype == dt and all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K5 from {dt}: differs from plain")
+        require(torch.equal(want[0], rp[0, :9].reshape(3, 3).to(dt)),
+                f"K5 from {dt}: plain differs from the packed plain")
+        k5_from[dt] = (cuda_ms(lambda: qcp.qcp_rotation_from(*args), 50),
+                       device_us(lambda: qcp.qcp_rotation_from(*args), ("qcp_rotation_kernel",)),
+                       cuda_ms(lambda: qcp.qcp_rotation_from_plain(*args), 10))
+    # ~500 dependent float64 operations; S, gp and gy in float32, the (1,
+    # 16) float64 block and R in float32 out
+    record["qcp_rotation"] = entry(k5_err, k5_from[torch.float32][0], k5_from[torch.float32][2],
+                                   bound(500, 11 * 4 + 16 * 8 + 9 * 4))
     say("kernels", kernel="qcp_rotation", warp=True, max_abs_err=k5_err,
-        ms=f"{record['qcp_rotation']['ms']:.4f}",
-        device_us=f"{device_us(lambda: qcp.qcp_rotation(packed), 'qcp_rotation_kernel'):.2f}",
-        plain_ms=f"{record['qcp_rotation']['plain_ms']:.4f}")
+        packed_ms=f"{cuda_ms(lambda: qcp.qcp_rotation(packed), 50):.4f}",
+        packed_device_us=f"{device_us(lambda: qcp.qcp_rotation(packed), ('qcp_rotation_kernel',)):.2f}",
+        packed_plain_ms=f"{cuda_ms(lambda: qcp.qcp_rotation_plain(packed), 10):.4f}",
+        **{f"from_{str(dt)[6:]}_{k}": f"{v:.4f}" for dt, vals in k5_from.items()
+           for k, v in zip(("ms", "device_us", "plain_ms"), vals)},
+        from_bit_equal=True, bound_ms=f"{record['qcp_rotation']['bound_ms']:.3g}")
 
     # K6: the normals' kNN at cow (2,903^2) and horse (48,485^2), k 17.
     k6 = {}
@@ -710,19 +768,35 @@ def phase_kernels(seed: int, record: dict):
         ms=f"{record['knn_grid']['ms']:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
 
     # K8: K1's shapes (cow 2,903^2, the grid seed 49,152 x 3,031); indices
-    # equal to K1's and to the plain version's, with K1's time beside.
+    # equal to K1's and to the plain version's, three launches alike and
+    # the merge workspace clean after each, with K1's time beside and both
+    # kernels' device microseconds a call.
     k8 = {}
+    ws_keys, ws_counts = nn_dense.chunked_workspace(dev)
     for label, s, m in (("cow", cow_tr1, cow_ref), ("horse_seed", p0, sub)):
+        require(nn_dense.chunked_workspace(s.device)[0] is ws_keys,
+                f"K8 {label}: the workspace checked is not the one the launches use")
         ik = nn_dense.nn_chunked(s, m)
         require(torch.equal(ik, nn_dense.nn_chunked_plain(s, m)),
                 f"K8 {label}: indices differ from plain")
         require(torch.equal(ik, nn_dense.nn_dense(s, m)), f"K8 {label}: indices differ from K1")
+        for _ in range(3):
+            require(torch.equal(nn_dense.nn_chunked(s, m), ik), f"K8 {label}: launches differ")
+            require(bool((ws_keys == -1).all()) and not bool(ws_counts.any()),
+                    f"K8 {label}: the workspace is not clean after a launch")
         k8[label] = (cuda_ms(lambda: nn_dense.nn_chunked(s, m), 20),
                      cuda_ms(lambda: nn_dense.nn_chunked_plain(s, m), 5),
                      cuda_ms(lambda: nn_dense.nn_dense(s, m), 20))
-        say("kernels", kernel="nn_chunked", shape=f"{s.shape[0]}x{m.shape[0]}",
-            idx_equal_plain=True, idx_equal_k1=True, ms=f"{k8[label][0]:.4f}",
-            plain_ms=f"{k8[label][1]:.4f}", k1_ms=f"{k8[label][2]:.4f}")
+        n, m_rows = s.shape[0], m.shape[0]
+        chunk = nn_dense.chunked_chunk_rows(n, m_rows)
+        say("kernels", kernel="nn_chunked", shape=f"{n}x{m_rows}",
+            chunks=-(-m_rows // chunk), chunk_rows=chunk,
+            idx_equal_plain=True, idx_equal_k1=True, workspace_clean=True,
+            ms=f"{k8[label][0]:.4f}",
+            device_us=f"{device_us(lambda: nn_dense.nn_chunked(s, m), ('nn_chunked',)):.2f}",
+            plain_ms=f"{k8[label][1]:.4f}", k1_ms=f"{k8[label][2]:.4f}",
+            k1_device_us=f"{device_us(lambda: nn_dense.nn_dense(s, m), K1_NAMES):.2f}",
+            bound_ms=f"{bound(PAIR_OPS * n * m_rows, 12 * n + 12 * m_rows + 4 * n)[0]:.4f}")
     n, m = p0.shape[0], sub.shape[0]
     record["nn_chunked"] = entry(0.0, *k8["horse_seed"][:2],
                                  bound(PAIR_OPS * n * m, 12 * n + 12 * m + 4 * n))
@@ -867,6 +941,7 @@ def phase_cli(tmp: str) -> dict:
     for engine, (folder, short, pairs) in PLANE_CASES.items():
         _add(total, _plane_engine_cli(tmp, engine, folder, short, pairs))
     _add(total, _chunked_entry())
+    _k5_bcast_loop()
     _add(total, _mxu_entry())
     _add(total, _bf16_path())
     _full_float32_under_tf32(tmp)
@@ -984,6 +1059,33 @@ def _chunked_entry() -> dict:
     say("path", case="nn_chunked_entry", shapes="2903x2903,49152x3031", idx_equal_k1=True,
         launches=used)
     return used
+
+
+def _k5_bcast_loop() -> None:
+    """The ``qcp_fused`` step with the bcast NN (K5 each iteration) on
+    cow_tr1: ms/iter over 100 iterations, its device launches an
+    iteration, and one K5 launch an iteration."""
+    import torch
+
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    model = torch.tensor(_load("cow_ref.txt"), **f32)
+    scene = torch.tensor(_load("cow_tr1.txt"), **f32)
+
+    def run(i):
+        return float(icp_fixed_iters(model, scene, n_iters=i, solver="qcp_fused",
+                                     nn_method="bcast").err)
+
+    _, used = _counted(lambda: run(10))
+    require(used["qcp_rotation"] == 10 and sum(used.values()) == 10,
+            f"cow bcast qcp_fused: not one K5 launch an iteration ({used})")
+    run(2)
+    t1 = statistics.median(_wall(lambda: run(1)) for _ in range(3))
+    t101 = statistics.median(_wall(lambda: run(101)) for _ in range(3))
+    say("path", case="cow_bcast_qcp_fused", k5_launches_per_iter=1,
+        device_launches_per_iter=f"{launches_per_iter(run):.2f}",
+        ms_per_iter=f"{(t101 - t1) / 100 * 1e3:.4f}")
 
 
 def _mxu_entry() -> dict:
@@ -1317,8 +1419,21 @@ def phase_scale(seed: int):
     b = bound(PAIR_OPS * p.shape[0] * sub.shape[0], 12 * (p.shape[0] + sub.shape[0]) + 4 * p.shape[0])
     say("scale", kernel="nn_dense", shape=f"{p.shape[0]}x{sub.shape[0]}",
         chunk_rows=nn_dense.chunk_rows(p.shape[0], sub.shape[0]), plain_rows=65536,
-        equal_plain=True, ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
-    del grid, states, p, u, idx, y, d2, ik, dk
+        equal_plain=True, ms=f"{ms:.4f}",
+        device_us=f"{device_us(lambda: nn_dense.nn_dense(p, sub), K1_NAMES, 3):.1f}",
+        bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    # K8 on the same seed: indices equal to K1's on every row and to its
+    # plain version on the same 65,536 rows, timed beside K1.
+    i8 = nn_dense.nn_chunked(p, sub)
+    require(torch.equal(i8, ik), "scale: K8 seed differs from K1")
+    require(torch.equal(i8[rows], nn_dense.nn_chunked_plain(p[rows].contiguous(), sub)),
+            "scale: K8 seed differs from plain")
+    say("scale", kernel="nn_chunked", shape=f"{p.shape[0]}x{sub.shape[0]}",
+        chunk_rows=nn_dense.chunked_chunk_rows(p.shape[0], sub.shape[0]), plain_rows=65536,
+        idx_equal_k1=True, equal_plain=True, ms=f"{cuda_ms(lambda: nn_dense.nn_chunked(p, sub), 5):.4f}",
+        device_us=f"{device_us(lambda: nn_dense.nn_chunked(p, sub), ('nn_chunked',), 3):.1f}",
+        k1_ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    del grid, states, p, u, idx, y, d2, ik, dk, i8
 
     def run(k):
         torch.cuda.synchronize()

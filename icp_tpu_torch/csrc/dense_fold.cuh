@@ -3,7 +3,8 @@
 // carrying several scene points against a chunk of model rows streamed
 // through shared memory; each point's (least distance, its lowest row) per
 // chunk merges into a 64-bit key by atomicMin, so the lowest index of the
-// least distance wins whatever order the chunks finish in.
+// least distance wins whatever order the chunks finish in.  K8
+// (nn_chunked.cu) takes the merge and the chunk size.
 #pragma once
 
 #include "common.cuh"

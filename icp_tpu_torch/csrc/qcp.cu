@@ -24,11 +24,17 @@
 // iteration (icp_fused.cu) runs the same device function in its last
 // block, so on that path K2 has no launch of its own; this launch serves
 // the pipeline and grid paths (one row from pack_stats).  K5 is bound the
-// same way (~500 dependent float64 operations on 11 inputs) and runs the
-// same rotation solve on one warp: the rotation solve of an ICP step that
-// computes its own error (solver "qcp_fused" with the bcast or matmul NN)
-// is one launch, read by the torch ops that follow it on the stream, with
-// no host read.
+// same way (~500 dependent float64 operations on 11 inputs): the rotation
+// solve of an ICP step that computes its own error (solver "qcp_fused"
+// with the bcast or matmul NN) is one launch, read by the torch ops that
+// follow it on the stream, with no host read.  It runs K2's warp solve
+// (qcp_rotation_warp): the earlier one-thread kernel of the same
+// operations took the same 3.15 us on the H100 (scripts/kernel_ab.py, in
+// turns), so the solve has one copy.  The cost of the step is on the
+// host, and its entry qcp_rotation_from takes S, gp and gy as the caller
+// holds them (float32 or float64, widened in registers) and writes R back
+// in their type, so the caller packs, casts and slices nothing on the host
+// (kernels/qcp.py).
 //
 // Numerics: float64 throughout.  The JAX kernel is float32, and its
 // closed-form residual gy + s^2 gp - 2 s lambda cancels to noise near
@@ -56,14 +62,20 @@ qcp_step_kernel(const double* __restrict__ partials, int n_rows, double* state, 
   qcp_warp::qcp_step_warp(partials, n_rows, state, ctl, errs, args, sm);
 }
 
-// K5: one warp; `in` and `out` are the (1, 16) float64 slot blocks.
+// K5: one warp.  S (3 x 3, row major), gp and gy in T (float or double),
+// widened to double exactly; out: the (1, 16) float64 block [R, q, lambda,
+// 0, 0]; r_out, when given: R again in T (the conversion rounds to
+// nearest, as .to(float32)).
+template <typename T>
 __global__ void __launch_bounds__(32)
-qcp_rotation_kernel(const double* __restrict__ in, double* __restrict__ out) {
+qcp_rotation_kernel(const T* __restrict__ S_in, const T* __restrict__ gp,
+                    const T* __restrict__ gy, double* __restrict__ out, T* __restrict__ r_out) {
   __shared__ double sm[qcp_warp::kWarpScratch];
   double S[9], R[9], q[4], lam;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) S[k] = in[k];
-  qcp_warp::qcp_rotation_warp(S, in[9], in[10], sm, R, q, &lam);
+  for (int k = 0; k < 9; ++k) S[k] = static_cast<double>(S_in[k]);
+  qcp_warp::qcp_rotation_warp(S, static_cast<double>(*gp), static_cast<double>(*gy), sm, R, q,
+                              &lam);
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) out[k] = R[k];
@@ -72,13 +84,33 @@ qcp_rotation_kernel(const double* __restrict__ in, double* __restrict__ out) {
     out[13] = lam;
     out[14] = 0.0;
     out[15] = 0.0;
+    if (r_out) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) r_out[k] = static_cast<T>(R[k]);
+    }
   }
 }
 
 }  // namespace
 
+// K5 on the JAX kernel's (1, 16) slots: [S (9), gp, gy, 0...] in.
 ICP_EXPORT int qcp_rotation_launch(const double* in, double* out, cudaStream_t stream) {
-  qcp_rotation_kernel<<<1, 32, 0, stream>>>(in, out);
+  qcp_rotation_kernel<double><<<1, 32, 0, stream>>>(in, in + 9, in + 10, out, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 from S, gp and gy as the caller holds them: float64 (f64 != 0) or
+// float32; r_out (R in that type) may be null.
+ICP_EXPORT int qcp_rotation_from_launch(const void* S, const void* gp, const void* gy, int f64,
+                                        double* out, void* r_out, cudaStream_t stream) {
+  if (f64)
+    qcp_rotation_kernel<double><<<1, 32, 0, stream>>>(
+        static_cast<const double*>(S), static_cast<const double*>(gp),
+        static_cast<const double*>(gy), out, static_cast<double*>(r_out));
+  else
+    qcp_rotation_kernel<float><<<1, 32, 0, stream>>>(
+        static_cast<const float*>(S), static_cast<const float*>(gp),
+        static_cast<const float*>(gy), out, static_cast<float*>(r_out));
   return static_cast<int>(cudaGetLastError());
 }
 

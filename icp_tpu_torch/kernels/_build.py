@@ -51,11 +51,14 @@ _SIGNATURES = {
     "icp_fused_chunk_rows": [_I, _I, _P],
     "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "qcp_rotation_launch": [_P, _P, _P],
+    "qcp_rotation_from_launch": [_P, _P, _P, _I, _P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
     "knn_grid_plan": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "knn_grid_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,
                         _P],
-    "nn_chunked_launch": [_P, _I, _P, _I, _P, _P],
+    "nn_chunked_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P],
+    "nn_chunked_workspace": [_P, _P],
+    "nn_chunked_chunk_rows": [_I, _I, _P],
     "nn_bf16_plan": [_I, _I, _P, _P, _P],
     "nn_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
 }

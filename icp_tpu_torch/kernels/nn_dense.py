@@ -12,9 +12,11 @@ no clamp, as JAX's (it can be slightly negative).  K1 and K10 are one CUDA
 kernel with the form as a template parameter: a thread holds four scene
 points and the model is split into chunks folded by separate blocks, whose
 minima merge by a 64-bit ``atomicMin`` on (order-preserving distance bits,
-index).  K8 splits the model axis over the 32 lanes of a warp and reduces
-the lanes' (d, idx) pairs at the end.  ``nn_dense_plain`` and
-``nn_chunked_plain`` are their plain torch versions, in scene blocks so the
+index).  K8 splits the model axis over the 32 lanes of a warp (eight
+scene points a warp), reduces the lanes' (d, idx) pairs by shuffles and
+merges the model chunks the same way, in one launch whose last block of a
+scene block writes its indices (``chunked_workspace``).  ``nn_dense_plain``
+and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so the
 N x M matrix never exists beyond one block; the wrappers take them only for
 CPU tensors.  No engine takes K8 or K10, as no JAX engine takes the chunked
 or the ``"mxu"`` form: they are reached through ``distance_impl``.
@@ -144,12 +146,46 @@ def nn_chunked(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
     n, m = scene.shape[0], model.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=scene.device)
     if n:
+        keys, counts = chunked_workspace(scene.device)
         code = _build.lib().nn_chunked_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, idx.data_ptr(),
-            _build.stream_ptr(scene))
+            scene.data_ptr(), n, model.data_ptr(), m, keys.data_ptr(), counts.data_ptr(),
+            keys.shape[0], idx.data_ptr(), _build.stream_ptr(scene))
         _build.LAUNCHES["nn_chunked"] += 1
         _build.check(code, "nn_chunked")
     return idx
+
+
+_CHUNKED_WORKSPACE: dict = {}  # (device index, stream) -> (keys, counts) of K8's launches
+
+
+def chunked_workspace(device: torch.device):
+    """K8's merge workspace for launches on the current stream of CUDA
+    ``device``: (keys, counts), int64 all ones and int32 zeros, made on
+    first use, on that stream, at the size of the largest launch that
+    splits the model (one wave of scene blocks), and left so by every
+    launch.  Launches on one stream run in order, so they share it; each
+    stream has its own."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, _build.raw_stream(index))
+    ws = _CHUNKED_WORKSPACE.get(key)
+    if ws is None:
+        points, blocks = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            _build.check(_build.lib().nn_chunked_workspace(ctypes.addressof(points),
+                                                           ctypes.addressof(blocks)),
+                         "nn_chunked")
+            ws = (torch.full((points.value,), -1, dtype=torch.int64, device=index),
+                  torch.zeros(blocks.value, dtype=torch.int32, device=index))
+        _CHUNKED_WORKSPACE[key] = ws
+    return ws
+
+
+def chunked_chunk_rows(n: int, m: int) -> int:
+    """The model rows of one of K8's chunks for an (n, m) launch on the
+    current card (one wave of blocks, as K1's)."""
+    out = ctypes.c_int()
+    _build.check(_build.lib().nn_chunked_chunk_rows(n, m, ctypes.addressof(out)), "nn_chunked")
+    return out.value
 
 
 def nn_chunked_plain(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,10 @@ K5 (``qcp_rotation``) is the rotation-only solve of the same scalar math
     in:  [S (9, row major), gp, gy, 0, 0, 0, 0, 0]
     out: [R (9, row major), q (4: w, x, y, z), lambda, 0, 0]
 
+``qcp_rotation_from(S, gp, gy)`` is the same launch on S, gp and gy as the
+caller holds them (float32 or float64), with no packing on the host: it
+returns (R in S's dtype, q, lambda), as ``horn_rotation_pallas`` does.
+
 ``qcp_step_plain`` and ``qcp_rotation_plain`` are the same functions in
 plain Python floats, in the same operation order; the wrappers take them
 only for CPU tensors.
@@ -45,6 +49,7 @@ from icp_tpu_torch.ops.alignment import AlignmentStats, Similarity
 N_SUMS = 18
 STATE_SLOTS = 32
 ROT_SLOTS = 16
+_ROT_DTYPES = (torch.float32, torch.float64)  # qcp_rotation_from's input types
 _NEWTON_ITERS = 12
 _POWER_ITERS = 2
 
@@ -303,10 +308,56 @@ def qcp_rotation(packed: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def qcp_rotation_from(S: torch.Tensor, gp: torch.Tensor, gy: torch.Tensor):
+    """K5 from the centred cross-covariance S (3, 3, contiguous) and the
+    energies gp and gy (one element each), all float32 or all float64, as
+    ``horn_rotation_pallas(S, gp, gy)``: (R (3, 3) in S's dtype, q (4,)
+    float64 (w, x, y, z), lambda () float64).  The kernel widens the inputs
+    to float64 exactly (as ``.to(float64)``) and rounds R back to S's dtype
+    as ``.to`` does; q and lambda are views of its (1, 16) block, and a
+    float32 R shares the block's allocation."""
+    dt, dev = S.dtype, S.device
+    if (S.shape != (3, 3) or dt not in _ROT_DTYPES or not S.is_contiguous()
+            or gp.dtype != dt or gy.dtype != dt or gp.numel() != 1 or gy.numel() != 1
+            or gp.device != dev or gy.device != dev or dev.type not in ("cpu", "cuda")):
+        raise ValueError(f"qcp_rotation_from: S must be a contiguous (3, 3) float32 or "
+                         f"float64 tensor and gp, gy one element each of its dtype and "
+                         f"device; got S {dt} {tuple(S.shape)} on {dev}, gp {gp.dtype} "
+                         f"{tuple(gp.shape)} on {gp.device}, gy {gy.dtype} "
+                         f"{tuple(gy.shape)} on {gy.device}")
+    if dev.type == "cpu":
+        return qcp_rotation_from_plain(S, gp, gy)
+    f64 = dt == torch.float64
+    # [block (16 float64), R as 9 float32] in one allocation; a float64 R
+    # is the block's first nine slots
+    buf = torch.empty(ROT_SLOTS if f64 else ROT_SLOTS + 5, dtype=torch.float64, device=dev)
+    R = (buf if f64 else buf.view(torch.float32)).as_strided(
+        (3, 3), (3, 1), 0 if f64 else 2 * ROT_SLOTS)
+    code = _build.lib().qcp_rotation_from_launch(
+        S.data_ptr(), gp.data_ptr(), gy.data_ptr(), int(f64), buf.data_ptr(),
+        None if f64 else R.data_ptr(), _build.stream_ptr(S))
+    _build.LAUNCHES["qcp_rotation"] += 1
+    _build.check(code, "qcp_rotation")
+    return R, buf.as_strided((4,), (1,), 9), buf.as_strided((), (), 13)
+
+
+def _rotation_block(S, gp: float, gy: float) -> list:
+    """K5's 16 output slots [R, q, lambda, 0, 0] from S (3 x 3 floats)."""
+    R, q, lam = _qcp_rotation(S, gp, gy)
+    return [v for row in R for v in row] + q + [lam, 0.0, 0.0]
+
+
 def qcp_rotation_plain(packed: torch.Tensor) -> torch.Tensor:
     """Plain version of K5 (Python float64, K2's operation order)."""
     a = packed[0].tolist()
     S = [[a[3 * r + c] for c in range(3)] for r in range(3)]
-    R, q, lam = _qcp_rotation(S, a[9], a[10])
-    out = [v for row in R for v in row] + q + [lam, 0.0, 0.0]
-    return torch.tensor([out], dtype=torch.float64, device=packed.device)
+    return torch.tensor([_rotation_block(S, a[9], a[10])], dtype=torch.float64,
+                        device=packed.device)
+
+
+def qcp_rotation_from_plain(S: torch.Tensor, gp: torch.Tensor, gy: torch.Tensor):
+    """Plain version of ``qcp_rotation_from``: the inputs read as Python
+    floats (exact), K5's plain solve, R cast back to S's dtype."""
+    out = torch.tensor(_rotation_block(S.tolist(), float(gp), float(gy)),
+                       dtype=torch.float64, device=S.device)
+    return out[:9].reshape(3, 3).to(S.dtype), out[9:13], out[13]

@@ -191,11 +191,12 @@ def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
     if solver == "kabsch":
         R = rotation_kabsch(S)
     elif solver == "qcp_fused":
-        # the whole 4x4 solve in one launch of K5 (float64), as JAX's
-        # horn_rotation_pallas (icp_tpu/ops/alignment.py:284-292)
-        from icp_tpu_torch.kernels.qcp import pack_rotation_input, qcp_rotation
+        # the whole 4x4 solve in one launch of K5 (float64) on S, gp and gy
+        # as they are, as JAX's horn_rotation_pallas
+        # (icp_tpu/ops/alignment.py:284-292)
+        from icp_tpu_torch.kernels.qcp import qcp_rotation_from
 
-        R = qcp_rotation(pack_rotation_input(S, gp, gy))[0, :9].reshape(3, 3).to(S.dtype)
+        R, _, _ = qcp_rotation_from(S, gp, gy)
     else:
         N = horn_n_matrix(S)
         if solver == "eigh":

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K1 (dense NN), K2 (alignment step), K3 (fused dense iteration), K4
-(kd-tile NN), K6 (dense kNN), K7 (kd-tile kNN), K9 (bf16-prefilter NN) and
-K10 (K1's "mxu" form) of one checkout on one CUDA card.
+(kd-tile NN), K5 (rotation solve), K6 (dense kNN), K7 (kd-tile kNN), K8
+(lane-chunked NN), K9 (bf16-prefilter NN) and K10 (K1's "mxu" form) of one
+checkout on one CUDA card.
 
     python3 scripts/kernel_ab.py [--root DIR] [--label NAME] [--sections LIST]
 
@@ -31,7 +32,15 @@ checkout's ``chip_smoke.py`` and ``data/``:
     that), from the identity and from a warm state; K2 alone with 1 and 23
     rows; the cow point-to-point loop (fused path): ms/iter over 200
     iterations and the device's busy share of a profiled 200-iteration
-    run; and horse's point-to-point loop (grid path, K2 each iteration).
+    run; and horse's point-to-point loop (grid path, K2 each iteration);
+  * K8 beside K1 at cow, the grid seed and the 1M seed, each with its
+    device microseconds a call; K5 on the cow statistics through its
+    packed entry, the packed solve as the parent's ``qcp_fused`` step makes
+    it (pack, launch, slice, cast) and ``qcp_rotation_from`` where the
+    checkout has it, each also by the host's microseconds a call; the cow
+    point-to-point loop with ``--nn bcast --solver qcp_fused`` (K5 each
+    iteration): ms/iter over 200 iterations and its device launches an
+    iteration.
 
 Kernel times are medians of CUDA events, after a second of matrix products
 that brings the card from its idle clock (~345 MHz) to its working one;
@@ -41,9 +50,10 @@ iteration counts; device microseconds come from ``torch.profiler`` (the
 mean of a kernel's launches; for the fused iteration, K3's and K2's
 kernels summed, each launch from its start state).  ``--sections`` picks
 ``dense`` (K1, K10, K9), ``grid`` (K4, K6, K7, the loops and the 1M pair;
-the longest part) and ``fused`` (K3, K2, the cow loop); default dense and
-grid.  Prints one JSON line, with the card's name and power limit, and exits
-1 without a card.
+the longest part), ``fused`` (K3, K2, the cow loop) and
+``chunked_rotation`` (K8, K5, the cow bcast loop); default dense and
+grid.  Prints one JSON line, with the card's name and power limit, and
+exits 1 without a card.
 """
 
 from __future__ import annotations
@@ -80,6 +90,21 @@ def loop_ms(cs, model, scene, k, nn):
     t1 = statistics.median(run(1) for _ in range(5))
     tk = statistics.median(run(k + 1) for _ in range(5))
     return (tk - t1) / k * 1e3, t1 * 1e3
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds a call of ``fn`` over ``reps`` calls, with no
+    synchronisation between them: the wrapper's own cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1) -> dict:
@@ -122,8 +147,7 @@ def fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1) -> dict:
             st.copy_(st0)
             step()
 
-        us = [cs.device_us(step_from_start, k) for k in names]  # NaN: no such launch
-        out[f"k3_cow_{label}_device_us"] = sum(u for u in us if not math.isnan(u))
+        out[f"k3_cow_{label}_device_us"] = cs.device_us(step_from_start, names)
     pts = rng.standard_normal((1000, 3))
     P = torch.tensor(pts, dtype=torch.float64, device=dev)
     Y = torch.tensor(1.3 * pts + 0.2 + 1e-3 * rng.standard_normal((1000, 3)),
@@ -138,7 +162,7 @@ def fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1) -> dict:
             qcp.qcp_step(parts, st, ctl, errs, threshold=-math.inf)
 
         out[f"k2_rows{rows}_ms"] = cs.cuda_ms(k2, 50)
-        out[f"k2_rows{rows}_device_us"] = cs.device_us(k2, "qcp_step_kernel")
+        out[f"k2_rows{rows}_device_us"] = cs.device_us(k2, ("qcp_step_kernel",))
 
     out["cow_p2p_ms_per_iter"], _ = loop_ms(cs, cow_ref, cow_tr1, 200, "pallas")
     out["horse_p2p_ms_per_iter"], _ = loop_ms(cs, horse_ref, horse_tr1, 20, "grid")
@@ -153,6 +177,58 @@ def fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1) -> dict:
         wall = cs._wall(lambda: run(200))
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out["cow_p2p_busy_share"] = prof_mod._busy_share(kernels, wall * 1e6)
+    return out
+
+
+def chunked_rotation_section(cs, cow_ref, cow_tr1, horse_ref, p0) -> dict:
+    """K8 beside K1 at cow, the grid seed and the 1M seed (CUDA events and
+    device microseconds a call); K5 through its packed entry and, where the
+    checkout has it, ``qcp_rotation_from`` (the cow statistics, float32 as
+    the bcast loop holds them); the cow point-to-point loop with ``--nn
+    bcast --solver qcp_fused``: ms/iter over 200 iterations and device
+    launches an iteration."""
+    import torch
+
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.kernels import nn_dense, qcp
+    from icp_tpu_torch.ops.alignment import compute_alignment_stats
+
+    out = {}
+    k1_names, k8_names = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel"), ("nn_chunked",)
+    model, scene, _ = cs.scale_pair(0)
+    shapes = (("cow", cow_tr1, cow_ref, 50), ("grid_seed", p0, horse_ref[::16].contiguous(), 50),
+              ("1M_seed", _prepare_scene(scene, 256)[0].contiguous(), model[::16].contiguous(), 5))
+    del model, scene
+    for label, s, m, reps in shapes:
+        for name, fn, names in (("k8", lambda: nn_dense.nn_chunked(s, m), k8_names),
+                                ("k1", lambda: nn_dense.nn_dense(s, m), k1_names)):
+            out[f"{name}_{label}_ms"] = cs.cuda_ms(fn, reps)
+            out[f"{name}_{label}_device_us"] = cs.device_us(fn, names, min(reps, 20))
+    del shapes, s, m
+
+    stats = compute_alignment_stats(cow_tr1, cow_ref[nn_dense.nn_dense(cow_tr1, cow_ref).long()])
+    mu_p, mu_y = stats.sum_p / stats.n, stats.sum_y / stats.n
+    S = stats.sum_py - stats.n * torch.outer(mu_p, mu_y)
+    gp = stats.sum_pp - stats.n * torch.dot(mu_p, mu_p)
+    gy = stats.sum_yy - stats.n * torch.dot(mu_y, mu_y)
+    packed = qcp.pack_rotation_input(S, gp, gy)
+    entries = {"packed": lambda: qcp.qcp_rotation(packed),
+               "packed_solve": lambda: qcp.qcp_rotation(qcp.pack_rotation_input(
+                   S, gp, gy))[0, :9].reshape(3, 3).to(S.dtype)}
+    if hasattr(qcp, "qcp_rotation_from"):
+        entries["from"] = lambda: qcp.qcp_rotation_from(S, gp, gy)
+    for label, fn in entries.items():
+        out[f"k5_{label}_ms"] = cs.cuda_ms(fn, 200)
+        out[f"k5_{label}_device_us"] = cs.device_us(fn, ("qcp_rotation",), 50)
+        out[f"k5_{label}_host_us"] = host_us(fn, 500)
+
+    def run(i):
+        return float(icp_fixed_iters(cow_ref, cow_tr1, n_iters=i, solver="qcp_fused",
+                                     nn_method="bcast").err)
+
+    out["cow_bcast_qcp_fused_ms_per_iter"], _ = loop_ms(cs, cow_ref, cow_tr1, 200, "bcast")
+    out["cow_bcast_qcp_fused_launches_per_iter"] = cs.launches_per_iter(run)
     return out
 
 
@@ -242,6 +318,8 @@ def main(argv=None) -> int:
             out[f"k9_{label}_ms"] = cs.cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), reps)
     if "fused" in sections:
         out.update(fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1))
+    if "chunked_rotation" in sections:
+        out.update(chunked_rotation_section(cs, cow_ref, cow_tr1, horse_ref, p0))
     if "grid" not in sections:
         print(json.dumps(out), flush=True)
         return 0

@@ -17,8 +17,11 @@ the window's wall time) and each launch's time of the hand-written kernels.
 The plane cells take their normals from ``estimate_normals`` calls (K6 on
 cow, K7 elsewhere; the model's is profiled the same way, and symmetric and
 GICP also take the scene's).  The ``bf16`` cell is the symmetric engine
-with ``nn_method="bf16"`` (K9 each iteration) on cow_tr1.  ``--cells``
-picks cells (``cow``, ``horse``, ``1M``, ``bf16``; default all);
+with ``nn_method="bf16"`` (K9 each iteration) on cow_tr1, and the ``k5``
+cell the point-to-point loop with ``nn_method="bcast"`` and
+``solver="qcp_fused"`` (K5 each iteration, the rest torch) on cow_tr1.
+``--cells`` picks cells (``cow``, ``horse``, ``1M``, ``bf16``, ``k5``;
+default all);
 ``--root`` names the checkout whose ``icp_tpu_torch`` is profiled (default
 this one), so two commits can be profiled in one call with this script.
 Chrome traces go to ``--out`` (default ``chiprun_out/profile``).
@@ -38,13 +41,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # K1 runs as a fold and an epilogue, K4 as a plan, a fold and an epilogue,
 # K7 as a plan, a fold and a merge, K9 as a prep and a fold that merges its
-# chunks in the last block (one kernel before the tensor-core redesign)
+# chunks in the last block (one kernel before the tensor-core redesign);
+# K5 and K8 as one kernel each (K5 an instance a input type)
 OURS = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel", "qcp_step_kernel",
         "icp_fused_kernel", "nn_grid_plan_kernel", "nn_grid_fold_kernel",
         "nn_grid_epilogue_kernel", "qcp_rotation_kernel", "knn_dense_kernel",
         "knn_grid_plan_kernel", "knn_grid_fold_kernel", "knn_grid_merge_kernel",
         "nn_chunked_kernel", "nn_bf16_kernel", "nn_bf16_prep_kernel", "nn_bf16_fold_kernel")
-CELLS = ("cow", "horse", "1M", "bf16")
+CELLS = ("cow", "horse", "1M", "bf16", "k5")
 
 
 def _us(event) -> float:
@@ -148,6 +152,12 @@ def main(argv=None) -> int:
         profile_cell("cow_sym_bf16", "engine=symmetric nn=bf16",
                      lambda i: float(icp_symmetric(model, scene, ICPConfig(
                          max_iter=i, threshold=-math.inf, nn_method="bf16")).err), 20, args.out)
+    if "k5" in cells_on:
+        model = torch.tensor(chip_smoke._load("cow_ref.txt"), **f32)
+        scene = torch.tensor(chip_smoke._load("cow_tr1.txt"), **f32)
+        profile_cell("cow_k5", "engine=point_to_point nn=bcast solver=qcp_fused",
+                     lambda i: float(icp_fixed_iters(model, scene, n_iters=i, solver="qcp_fused",
+                                                     nn_method="bcast").err), 20, args.out)
     cells = [("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
              ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20), ("1M", None, None, "grid", 10)]
     for name, ref, scene_file, nn, k in cells:

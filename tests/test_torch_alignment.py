@@ -182,6 +182,85 @@ def test_qcp_rotation_matches_jax_kernel(seed):
     np.testing.assert_allclose(R.numpy(), want.numpy(), atol=1e-10)
 
 
+def _centred(seed):
+    """S, gp, gy of a seeded centred pair (float64), as the K5 tests use."""
+    p, y = _pair(seed, n=300, noise=0.02, centred=True)
+    _, ts = _stats_pair(p, y)
+    n = ts.n
+    S = ts.sum_py - n * torch.outer(ts.sum_p / n, ts.sum_y / n)
+    gp = ts.sum_pp - n * torch.dot(ts.sum_p / n, ts.sum_p / n)
+    gy = ts.sum_yy - n * torch.dot(ts.sum_y / n, ts.sum_y / n)
+    return S, gp, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_qcp_rotation_from_matches_packed_plain_and_jax_kernel(seed, dtype):
+    """``qcp_rotation_from(S, gp, gy)`` (its plain version here) is bit-equal
+    to the packed path (``qcp_rotation_plain(pack_rotation_input(...))``,
+    R cast back to S's dtype), and holds R and q within 1e-5 and lambda
+    within rtol 1e-5 of ``horn_rotation_pallas`` (float32, interpret mode)."""
+    S, gp, gy = (v.to(dtype) for v in _centred(seed))
+    R, q, lam = tq.qcp_rotation_from(S, gp, gy)
+    assert R.shape == (3, 3) and R.dtype == dtype
+    assert q.shape == (4,) and lam.shape == () and q.dtype == lam.dtype == torch.float64
+    packed = tq.qcp_rotation_plain(tq.pack_rotation_input(S, gp, gy))
+    assert torch.equal(R, packed[0, :9].reshape(3, 3).to(dtype))
+    assert torch.equal(q, packed[0, 9:13]) and torch.equal(lam, packed[0, 13])
+    jR, jq_, jlam = jq.horn_rotation_pallas(jnp.asarray(S.double().numpy(), jnp.float32),
+                                            jnp.asarray(float(gp), jnp.float32),
+                                            jnp.asarray(float(gy), jnp.float32), interpret=True)
+    np.testing.assert_allclose(R.double().numpy(), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq_), atol=1e-5)
+    np.testing.assert_allclose(float(lam), float(jlam), rtol=1e-5)
+
+
+def test_qcp_rotation_from_rejects_what_the_kernel_does_not_take():
+    S, gp, gy = _centred(24)
+    for args in ((S.T, gp, gy), (S.float(), gp, gy), (S[:2], gp, gy), (S.half(), gp.half(), gy.half()),
+                 (S, torch.stack([gp, gp]), gy)):
+        with pytest.raises(ValueError, match="qcp_rotation_from"):
+            tq.qcp_rotation_from(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qcp_fused_alignment_packs_nothing_on_the_host(dtype):
+    """``alignment_from_stats(..., solver="qcp_fused")`` hands S, gp and gy
+    to K5 as they are: no ``aten.cat`` and no ``aten.zeros`` (the packing),
+    and its (s, R, t) is the packed path's bit for bit and JAX's
+    ``alignment_from_stats(solver="qcp_fused")`` within float32 tolerances
+    (R, t atol 1e-5, s rtol 1e-5)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    p, y = _pair(25)
+    js, ts = _stats_pair(p, y)
+    ts = ta.AlignmentStats(*(v.to(dtype) for v in ts))
+    with Ops() as ops:
+        got = ta.alignment_from_stats(ts, solver="qcp_fused")
+    assert not [k for k in ops.names if k in ("aten.cat", "aten.zeros", "aten.new_zeros")], ops.names
+    n = ts.n
+    mu_p, mu_y = ts.sum_p / n, ts.sum_y / n
+    S = ts.sum_py - n * torch.outer(mu_p, mu_y)
+    gp = ts.sum_pp - n * torch.dot(mu_p, mu_p)
+    gy = ts.sum_yy - n * torch.dot(mu_y, mu_y)
+    R = tq.qcp_rotation(tq.pack_rotation_input(S, gp, gy))[0, :9].reshape(3, 3).to(dtype)
+    assert torch.equal(got.R, R)
+    jsim = ja.alignment_from_stats(ja.AlignmentStats(*(jnp.asarray(v, jnp.float32) for v in js)),
+                                   solver="qcp_fused")
+    np.testing.assert_allclose(got.R.double().numpy(), np.asarray(jsim.R), atol=1e-5)
+    np.testing.assert_allclose(got.t.double().numpy(), np.asarray(jsim.t), atol=1e-5)
+    np.testing.assert_allclose(float(got.s), float(jsim.s), rtol=1e-5)
+
+
 def test_qcp_rotation_rejects_bad_blocks_and_counts_nothing_on_cpu():
     _build.reset_counts()
     with pytest.raises(ValueError, match="qcp_rotation"):

@@ -353,6 +353,55 @@ def test_nn_grid_payload_matches_plain(dev, cap):
     assert torch.equal(pk[:, :3], normals[ik.long()])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qcp_rotation_from_kernel_matches_plain(dev, dtype):
+    """K5 on S, gp and gy as the caller holds them: (R in S's dtype, q,
+    lambda) bit-equal to the plain version and to the packed entry's plain
+    version, one launch a call."""
+    rng = np.random.default_rng(11)
+    for _ in range(8):
+        S = torch.tensor(rng.standard_normal((3, 3)), dtype=dtype)
+        gp, gy = (torch.tensor(rng.uniform(0.5, 4.0), dtype=dtype) for _ in range(2))
+        before = _build.LAUNCHES["qcp_rotation"]
+        R, q, lam = qcp.qcp_rotation_from(S.to(dev), gp.to(dev), gy.to(dev))
+        assert _build.LAUNCHES["qcp_rotation"] == before + 1
+        assert R.dtype == dtype and q.dtype == lam.dtype == torch.float64
+        want = qcp.qcp_rotation_from_plain(S, gp, gy)
+        for a, b in zip((R, q, lam), want):
+            assert torch.equal(a.cpu(), b)
+        packed = qcp.qcp_rotation_plain(qcp.pack_rotation_input(S, gp, gy))
+        assert torch.equal(R.cpu(), packed[0, :9].reshape(3, 3).to(dtype))
+
+
+def test_cli_bcast_qcp_fused_takes_k5_every_iteration(dev, tmp_path):
+    """The cow_tr1 CLI case with ``--nn bcast --solver qcp_fused``: 7
+    iterations, each through K5 (and no other kernel), its trace within
+    rtol 1e-2 of the reference binary's on entries > 1e-6."""
+    import contextlib
+    import io
+    import re
+
+    from icp_tpu_torch.engine.cli import main
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = os.path.join(root, "data")
+    err = io.StringIO()
+    _build.reset_counts()
+    with contextlib.redirect_stderr(err):
+        rc = main([os.path.join(data, "cow_ref.txt"), os.path.join(data, "cow_tr1.txt"), "10",
+                   "--nn", "bcast", "--solver", "qcp_fused", "--device", "cuda",
+                   "--output", str(tmp_path / "output.txt")])
+    assert rc == 0
+    trace_re = re.compile(r"\[ICP\] iteration number (\d+) \| error value = (\S+)")
+    got = [float(e) for _, e in trace_re.findall(err.getvalue())]
+    with open(os.path.join(root, "tests", "fixtures", "reference", "cow_tr1_stderr.txt")) as f:
+        want = [float(e) for _, e in trace_re.findall(f.read())]
+    assert len(got) == len(want) == 7
+    assert _build.LAUNCHES["qcp_rotation"] == 7 and sum(_build.LAUNCHES.values()) == 7
+    big = np.array(want) > 1e-6
+    np.testing.assert_allclose(np.array(got)[big], np.array(want)[big], rtol=1e-2)
+
+
 def test_qcp_rotation_kernel_matches_plain(dev):
     rng = np.random.default_rng(10)
     S = torch.tensor(rng.standard_normal((3, 3)), dtype=torch.float64)
@@ -472,6 +521,76 @@ def test_nn_chunked_kernel_matches_plain_and_k1(dev, n, m):
     assert _build.LAUNCHES["nn_chunked"] == before + 1
     assert torch.equal(ik, nn_dense.nn_chunked_plain(s, mo))
     assert torch.equal(ik, nn_dense.nn_dense(s, mo))
+
+
+def _chunked_case(dev, case):
+    """(scene, model, the lowest row of each tie set) of a K8 case."""
+    if case == "m1":
+        return _cloud(1, 700).to(dev), _cloud(2, 1, 2.0).to(dev)
+    if case == "m31":
+        return _cloud(3, 700).to(dev), _cloud(4, 31, 2.0).to(dev)
+    n, m = (700, 3001) if case != "cow" else (2903, 2903)
+    s, mo = _cloud(n + 5, n).to(dev), _cloud(m + 6, m, 2.0).to(dev)
+    chunk = nn_dense.chunked_chunk_rows(n, m)
+    assert -(-m // chunk) > 1 and m % chunk  # several chunks, the last partial
+    if case == "ties":  # rows 0-9 again on other lanes, 32 and 96 rows and a chunk later
+        for off in (17, 32, 96, chunk):
+            mo[off:off + 10] = mo[:10].clone()
+        s[:10] = mo[:10] + 1e-3
+    elif case == "nan":  # a NaN model row in the first and in the last chunk
+        mo[5, 1] = float("nan")
+        mo[m - 2, 0] = float("nan")
+        s[3, 2] = float("nan")
+    return s, mo
+
+
+@pytest.mark.parametrize("case", ["ties", "nan", "m1", "m31", "partial", "cow"])
+def test_nn_chunked_kernel_across_model_chunks(dev, case):
+    """K8's model chunks merge by the lowest index of the least distance:
+    ties across lanes and chunks go to the lowest row, a NaN never wins (a
+    NaN scene row gets index 0), m = 1 and m < 32 leave lanes without rows;
+    three launches in a row give the same indices, each one launch, and the
+    merge workspace is clean after each."""
+    s, mo = _chunked_case(dev, case)
+    keys, counts = nn_dense.chunked_workspace(dev)
+    assert nn_dense.chunked_workspace(s.device)[0] is keys  # the one the launches use
+    want = nn_dense.nn_chunked_plain(s, mo)
+    assert torch.equal(want, nn_dense.nn_dense(s, mo))
+    for _ in range(3):
+        before = _build.LAUNCHES["nn_chunked"]
+        ik = nn_dense.nn_dense(s, mo, distance_impl="chunked")
+        assert _build.LAUNCHES["nn_chunked"] == before + 1
+        assert torch.equal(ik, want)
+        assert bool((keys == -1).all()) and not bool(counts.any())
+    if case == "ties":
+        assert torch.equal(ik[:10].cpu(), torch.arange(10, dtype=torch.int32))
+    if case == "nan":
+        assert int(ik[3]) == 0 and not bool(((ik == 5) | (ik == mo.shape[0] - 2)).any())
+
+
+def test_nn_chunked_kernel_on_two_streams(dev):
+    """K8 launched on two streams in turns, each launch splitting its model
+    into chunks: each stream has its own merge workspace, so every launch
+    gives the plain version's indices and both workspaces are clean after."""
+    pairs = [(_cloud(21, 700).to(dev), _cloud(22, 3001, 2.0).to(dev)),
+             (_cloud(23, 650).to(dev), _cloud(24, 2903, 2.0).to(dev))]
+    wants = [nn_dense.nn_chunked_plain(s, mo) for s, mo in pairs]
+    streams = [torch.cuda.Stream(device=dev) for _ in pairs]
+    torch.cuda.synchronize()
+    outs, spaces = [[], []], []
+    for _ in range(20):
+        for k, (st, (s, mo)) in enumerate(zip(streams, pairs)):
+            with torch.cuda.stream(st):
+                outs[k].append(nn_dense.nn_chunked(s, mo))
+    for st in streams:
+        with torch.cuda.stream(st):
+            spaces.append(nn_dense.chunked_workspace(dev))
+    torch.cuda.synchronize()
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    for k, want in enumerate(wants):
+        assert all(torch.equal(ik, want) for ik in outs[k])
+    for keys, counts in spaces:
+        assert bool((keys == -1).all()) and not bool(counts.any())
 
 
 def hold_k9(s, mo, got):

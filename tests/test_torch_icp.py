@@ -172,8 +172,8 @@ def test_qcp_fused_with_bcast_takes_k5_and_the_explicit_residual(cow, monkeypatc
     from icp_tpu_torch.kernels import qcp as tq
 
     calls = []
-    real = tq.qcp_rotation
-    monkeypatch.setattr(tq, "qcp_rotation", lambda b: calls.append(1) or real(b))
+    real = tq.qcp_rotation_from
+    monkeypatch.setattr(tq, "qcp_rotation_from", lambda *a: calls.append(1) or real(*a))
     monkeypatch.setattr(engine, "qcp_step", None)  # K2 must not be reached
     cfg = dict(max_iter=30, solver="qcp_fused", nn_method="bcast")
     jtr = icp_tpu.icp(cow["ref"], cow["cow_tr1"], icp_tpu.ICPConfig(**cfg), trace=True)

@@ -133,6 +133,35 @@ def test_chunked_ties_go_to_lowest_index_across_tiles_and_lanes():
     assert (got < 97).all()
 
 
+@pytest.mark.parametrize("case", ["ties", "nan", "m31", "m1"])
+def test_chunked_plain_ties_nan_and_short_models_match_jax(case):
+    """K8's plain version against JAX's chunked kernel where the card's
+    kernel splits work: ties across lanes, within a lane's group of rows 32
+    apart and across model chunks (rows j duplicated at j + 17, j + 32,
+    j + 96 and j + 512: a chunk of the card's kernel is whole 512-row
+    stages); a NaN model row (never wins) near either end; fewer model rows
+    than lanes (m = 31, m = 1)."""
+    rng = np.random.default_rng(13)
+    n, m = (37, {"m31": 31, "m1": 1}[case]) if case in ("m31", "m1") else (40, 600)
+    model = (2.0 * rng.standard_normal((m, 3))).astype(np.float32)
+    scene = rng.standard_normal((n, 3)).astype(np.float32)
+    if case == "ties":
+        for off in (17, 32, 96, 512):
+            model[off:off + 8] = model[:8]
+        scene[:8] = model[:8] + np.float32(1e-3)
+    elif case == "nan":
+        model[5, 1] = np.nan
+        model[m - 2, 0] = np.nan
+    got = nn_dense.nn_chunked_plain(torch.tensor(scene), torch.tensor(model)).numpy()
+    np.testing.assert_array_equal(got, _jax_chunked(scene, model, 8, 128))
+    np.testing.assert_array_equal(got, nn_dense.nn_dense_plain(torch.tensor(scene),
+                                                               torch.tensor(model)).numpy())
+    if case == "ties":
+        np.testing.assert_array_equal(got[:8], np.arange(8))
+    if case == "nan":
+        assert not np.isin(got, [5, m - 2]).any()
+
+
 def test_chunked_is_indices_only_and_cpu_takes_the_plain_version():
     scene, model = _clouds(6, 64, 70)
     s, m = torch.tensor(scene), torch.tensor(model)
