@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``icp_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--phases kernels,cli,scale]
+    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,scale]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -49,9 +49,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
      iterations and a bit-equal trace as under ``"highest"``, and the
      caller's setting back afterwards), and ``icp_fixed_iters`` with a NaN
      coordinate on the fused and the grid path (every iteration runs).
-     Then ms/iter of the cow and horse loops of the four engines, and the
-     normals' ms;
-  5. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
+     Then ms/iter of the cow and horse loops of the four engines (and of
+     the trimmed point-to-point loops, and horse's bucket-padded one), and
+     the normals' ms;
+  5. features (``[features]`` lines): trim — the CLI with ``--trim 0.1`` on
+     cow_tr1/cow_tr2 (point-to-point: the pipeline, K1 + K2 a launched
+     iteration, no K3) and on cow_tr1 for the plane engines, each against
+     the JAX CLI's runs (``tests/fixtures/torch_trim/``), and horse_tr1
+     trimmed on the grid path (K4 + K2) against the dense trimmed path;
+     bucket — horse through ``pad_to_bucket`` (49,152 rows) and
+     ``scene_n``/``model_n`` against the unpadded run, point-to-point and
+     point-to-plane, and the normals of the sentinel-padded cow (K6) and
+     horse (K7, with its exact table past the capacity and folded pairs)
+     against the unpadded normals; guard — cow_tr1 with a NaN coordinate
+     and ``guard="device"`` raising ``ICPGuardError`` at iteration 1 on the
+     fused path (K3) and the pipeline (K1 + K2), a clean guarded run
+     bit-equal to the unguarded one with the same launches, and K2's and
+     K3's status words bit-equal to their plain versions; resume —
+     ``icp_resumable`` killed after one chunk of 3 and resumed, bit-equal
+     to the uninterrupted chunked run; metrics — the CLI's ``--metrics
+     --metrics-ops`` on cow and horse;
+  6. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
      jitter, a known similarity): K4 on the first and the third grid
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
@@ -63,7 +81,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      plain version on sampled tiles; K7 normals of both clouds, the model's
      neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
      iterations of the point-to-plane, symmetric and GICP engines, each
-     with a falling error.
+     with a falling error; the 10 point-to-point grid iterations again with
+     ``trim_fraction=0.1`` (a ``[features] case=scale_trim`` line).
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -82,6 +101,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -158,6 +178,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def same_nan(a, b) -> bool:
+    """Bit-equal, NaN where the other is NaN."""
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
 
 
 def max_abs(a, b) -> float:
@@ -949,19 +977,6 @@ def phase_cli(tmp: str) -> dict:
     return total
 
 
-def run_plane_engine(engine, model, scene, cfg, normals, scene_normals=None, **kw):
-    """One plane-metric engine with the normals given (``scene_normals`` for
-    the engines that take both clouds')."""
-    from icp_tpu_torch import icp_generalized, icp_point_to_plane, icp_symmetric
-
-    if engine == "point_to_plane":
-        return icp_point_to_plane(model, scene, cfg, normals=normals, **kw)
-    if engine == "symmetric":
-        return icp_symmetric(model, scene, cfg, normals=normals, scene_normals=scene_normals, **kw)
-    return icp_generalized(model, scene, cfg, model_normals=normals, scene_normals=scene_normals,
-                           **kw)
-
-
 def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dict) -> dict:
     """``--engine engine`` on the cow pairs against the JAX CLI's fixtures
     (dense: K6 normals, K1) and on horse_tr1 (grid: K7 normals, K4 with the
@@ -969,6 +984,7 @@ def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dic
     import torch
 
     from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.engine.plane import run_engine
     from icp_tpu_torch.io.csv import load_matrix
     from icp_tpu_torch.ops.normals import estimate_normals
 
@@ -1004,8 +1020,8 @@ def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dic
     scene_t = torch.tensor(_load("horse_tr1.txt"), dtype=torch.float32, device="cuda")
     normals = estimate_normals(model, method="dense")
     scene_normals = estimate_normals(scene_t, method="dense") if clouds == 2 else None
-    dense = run_plane_engine(engine, model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
-                             normals, scene_normals, trace=True)
+    dense = run_engine(engine, model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
+                       model_normals=normals, scene_normals=scene_normals, trace=True)
     n_dense = int(dense.result.iters)
     require(len(got) == n_dense, f"cli {label}: {len(got)} iterations, dense path {n_dense}")
     with contextlib.redirect_stderr(io.StringIO()):
@@ -1246,6 +1262,320 @@ def _bf16_path() -> dict:
     return total
 
 
+# the CLI with --trim 0.1 against the JAX CLI's runs: engine -> {pair:
+# iterations} (tests/fixtures/torch_trim/; point-to-point is JAX's float64
+# run, which the card's float32 cloud with float64 sums reproduces)
+TRIM_CASES = {"point_to_point": {"cow_tr1": 8, "cow_tr2": 17},
+              "point_to_plane": {"cow_tr1": 4}, "symmetric": {"cow_tr1": 4},
+              "gicp": {"cow_tr1": 3}}
+
+
+def _launched(iters: int, bound: int) -> int:
+    """Iterations a chunked loop launches for ``iters`` run of ``bound``."""
+    from icp_tpu_torch.engine.icp import _CHUNK
+
+    return min(bound, -(-iters // _CHUNK) * _CHUNK)
+
+
+def _features_trim(tmp: str) -> dict:
+    """Trim: the CLI on the cow pairs against the JAX fixtures (the
+    pipeline, K1 + K2, no K3 launch), horse_tr1 on the grid path (K4 + K2)
+    against the port's dense trimmed path on the card."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp
+
+    total = {}
+    fixdir = os.path.join(FIXTURES, "torch_trim")
+    for engine, pairs in TRIM_CASES.items():
+        for pair, want_iters in pairs.items():
+            label = f"trim_{engine}_{pair}"
+            out_path = os.path.join(tmp, f"{label}_output.txt")
+            rc, got, err, seconds, used = _run_cli(
+                [os.path.join(ROOT, "data", "cow_ref.txt"),
+                 os.path.join(ROOT, "data", f"{pair}.txt"), "30", "--engine", engine,
+                 "--trim", "0.1", "--output", out_path])
+            require(rc == 0, f"features {label}: exit {rc}\n{err}")
+            worst = _check_trace(label, got, _golden(os.path.join(
+                fixdir, f"{engine}_{pair}_stderr.txt")), want_iters)
+            off = _check_output(label, out_path, os.path.join(
+                fixdir, f"{engine}_{pair}_output.txt"), 1e-5)
+            launched = _launched(want_iters, 30)
+            if engine == "point_to_point":
+                require(used["nn_dense"] == used["qcp_step"] == launched
+                        and used["icp_fused"] == 0, f"features {label}: not the pipeline ({used})")
+            else:
+                require(used["nn_dense"] == launched, f"features {label}: K1 not taken ({used})")
+            _add(total, used)
+            say("features", case=label, iters=len(got), launched=launched,
+                trace_max_rel_err=f"{worst:.3e}", output_max_abs_err=f"{off:.3e}",
+                seconds=f"{seconds:.3f}", launches=used)
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    model = torch.tensor(_load("horse_ref.txt"), **f32)
+    scene = torch.tensor(_load("horse_tr1.txt"), **f32)
+    runs = {}
+    for nn in ("grid", "pallas"):
+        cfg = ICPConfig(max_iter=30, trim_fraction=0.1, nn_method=nn)
+        runs[nn], used = _counted(lambda: icp(model, scene, cfg, trace=True))
+        _add(total, used)
+        n = int(runs[nn].result.iters)
+        kernel = "nn_grid" if nn == "grid" else "nn_dense"
+        require(used[kernel] == used["qcp_step"] == _launched(n, 30) and used["icp_fused"] == 0,
+                f"features trim horse {nn}: path not taken ({used})")
+        runs[nn] = (runs[nn], used)
+    (g, gu), (d, du) = runs["grid"], runs["pallas"]
+    n = int(g.result.iters)
+    off = max_abs(g.result.points, d.result.points)
+    require(n == int(d.result.iters) and off <= 1e-5,
+            f"features trim horse: grid {n} iterations, dense {int(d.result.iters)}, "
+            f"points {off:.3g} apart")
+    say("features", case="trim_horse_tr1_grid_vs_dense", iters=n,
+        trace=",".join(f"{e:.6g}" for e in g.errs[:n].tolist()),
+        points_max_abs_err=f"{off:.3e}", grid_launches=gu, dense_launches=du)
+    return total
+
+
+def _features_bucket() -> dict:
+    """Bucket padding: horse through ``pad_to_bucket`` (quantum 4,096:
+    49,152 rows) against the unpadded run, point-to-point and
+    point-to-plane; the normals of the sentinel-padded cow (K6) and horse
+    (K7) against the unpadded normals on the real rows, with K7's tables."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp, icp_point_to_plane
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels import knn_grid, nn_grid
+    from icp_tpu_torch.ops.normals import estimate_normals
+    from icp_tpu_torch.ops.padding import pad_to_bucket
+
+    total = {}
+    horse_ref, horse_tr1 = _load("horse_ref.txt"), _load("horse_tr1.txt")
+    m_pad, m_n = pad_to_bucket(horse_ref, quantum=4096)
+    s_pad, s_n = pad_to_bucket(horse_tr1, quantum=4096)
+    require(m_pad.shape[0] == s_pad.shape[0] == 49152, f"bucket: {m_pad.shape}, {s_pad.shape}")
+    for engine, fn, tol in (("point_to_point", icp, 1e-6),
+                            ("point_to_plane", icp_point_to_plane, 1e-5)):
+        cfg = ICPConfig(max_iter=30)
+        exact, used_e = _counted(lambda: fn(horse_ref, horse_tr1, cfg))
+        padded, used_p = _counted(lambda: fn(m_pad, s_pad, cfg, scene_n=s_n, model_n=m_n))
+        _add(total, used_p)
+        n = int(exact.iters)
+        off = max_abs(padded.points[:s_n], exact.points)
+        require(int(padded.iters) == n and off <= tol,
+                f"features bucket {engine}: {int(padded.iters)} iterations, exact {n}, "
+                f"points {off:.3g} apart")
+        require(used_p["nn_grid"] >= n and used_p["nn_grid"] == used_e["nn_grid"],
+                f"features bucket {engine}: not the grid path ({used_p})")
+        say("features", case=f"bucket_horse_{engine}", rows=m_pad.shape[0], real=s_n,
+            iters=n, points_max_abs_err=f"{off:.3e}", tol=tol, launches=used_p)
+
+    for label, cloud, method in (("cow", _load("cow_ref.txt"), "dense"),
+                                 ("horse", horse_ref, "grid")):
+        padded, n = pad_to_bucket(cloud, quantum=4096)
+        want = estimate_normals(cloud)
+        got, used = _counted(lambda: estimate_normals(padded))
+        _add(total, used)
+        # K6 once; K7 twice (the seed and the exact pass)
+        kernel, calls = ("knn_dense", 1) if method == "dense" else ("knn_grid", 2)
+        require(used[kernel] == calls,
+                f"features bucket normals {label}: {kernel} not taken ({used})")
+        off = max_abs(got[:n], want)
+        require(off <= 1e-6 and bool(torch.isfinite(got).all()),
+                f"features bucket normals {label}: {off:.3g} from the unpadded normals")
+        extra = {}
+        if method == "grid":  # K7's exact table on the padded and the unpadded cloud
+            for tag, pts in (("padded", padded), ("unpadded", cloud)):
+                q = torch.tensor(pts, dtype=torch.float32, device="cuda")
+                kgrid = nn_grid.build_model_grid(q, target_tile=256)
+                qs, _, _, tn, _ = _prepare_scene(q, 64)
+                qs = qs.contiguous()
+                bd2 = nn_grid.tile_box_dists(qs, kgrid, scene_tile=tn)
+                d_seed, _ = knn_grid.knn_worklist(*knn_grid.seed_table(bd2, NORMAL_K,
+                                                                       kgrid.model_tile),
+                                                  qs, kgrid.tiles, tn, NORMAL_K)
+                cand, counts = knn_grid.cull_table(bd2, d_seed[:, NORMAL_K - 1], tn,
+                                                   min(32, bd2.shape[1]))
+                shape = k7_table(cand, counts, kgrid.tiles.shape[0], kgrid.model_tile, tn)
+                extra[f"{tag}_past_capacity"] = shape["fallback_tiles"]
+                extra[f"{tag}_folded_pairs"] = shape["folded_pairs"]
+        say("features", case=f"bucket_normals_{label}", rows=padded.shape[0], real=n,
+            kernel=kernel, normals_max_abs_err=f"{off:.3e}", **extra, launches=used)
+    return total
+
+
+def _features_guard() -> dict:
+    """The device guard: a NaN coordinate stops cow_tr1 at iteration 1 on
+    the fused path (K3) and on the pipeline (K1 + K2); a clean guarded run
+    is bit-equal to the unguarded one with the same launches; K2's and K3's
+    status words bit-equal to their plain versions."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.engine.icp import ICPGuardError
+    from icp_tpu_torch.kernels import icp_fused, qcp
+    from icp_tpu_torch.ops.alignment import compute_alignment_stats
+
+    total = {}
+    ref, tr1 = _load("cow_ref.txt"), _load("cow_tr1.txt")
+    bad = tr1.copy()
+    bad[7, 1] = np.nan
+    for path, trim, kernel in (("fused", 0.0, "icp_fused"), ("pipeline", 0.1, "qcp_step")):
+        cfg = ICPConfig(max_iter=30, trim_fraction=trim)
+        plain, used_u = _counted(lambda: icp(ref, tr1, cfg))
+        guarded, used_g = _counted(lambda: icp(ref, tr1, cfg, guard="device"))
+        same = (int(plain.iters) == int(guarded.iters)
+                and torch.equal(plain.points, guarded.points)
+                and torch.equal(plain.err, guarded.err))
+        require(same and used_u == used_g,
+                f"features guard {path}: the clean guarded run differs ({used_u}, {used_g})")
+        msg = None
+        from icp_tpu_torch.kernels import _build
+
+        _build.reset_counts()
+        try:
+            icp(ref, bad, cfg, guard="device")
+        except ICPGuardError as e:
+            msg = str(e)
+        torch.cuda.synchronize()
+        used = dict(_build.LAUNCHES)
+        _add(total, used)
+        require(msg is not None and "non-finite error at iteration 1 " in msg,
+                f"features guard {path}: {msg}")
+        require(used[kernel] == _launched(1, 30), f"features guard {path}: ({used})")
+        say("features", case=f"guard_nan_{path}", raised="ICPGuardError",
+            message=repr(msg[:48]), clean_bit_equal=True, clean_launches=used_g, launches=used)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    rows = []
+    for sigma in (0.05, 0.03, 0.6, 0.01):  # the error jumps > 100x at step 2
+        P = torch.tensor(rng.standard_normal((200, 3)), device=dev)
+        Y = P + sigma * torch.tensor(rng.standard_normal((200, 3)), device=dev)
+        rows.append(qcp.pack_stats(compute_alignment_stats(P, Y)).contiguous())
+    nan_row = rows[1].clone()
+    nan_row[0, 3] = float("nan")
+    for label, seq, want in (("diverged", rows, qcp.GUARD_DIVERGED),
+                             ("nonfinite", [rows[0], nan_row], qcp.GUARD_NONFINITE)):
+        outs = []
+        for fn in (qcp.qcp_step, qcp.qcp_step_plain):
+            st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(8, dev), \
+                qcp.new_err_buffer(8, dev)
+            words = []
+            for r in seq:
+                fn(r, st, ctl, errs, with_scale=False, err_factor=1.0, threshold=-math.inf,
+                   guard=True)
+                words.append(ctl.tolist())
+            outs.append((st, words, errs))
+        (sk, wk, ek), (sp, wp, ep) = outs
+        equal = wk == wp and same_nan(sk, sp) and same_nan(ek, ep)
+        stop = 2 if label == "diverged" else 1
+        require(equal and wk[stop][1:] == [1, 8, want] and wk[stop][0] == stop + 1,
+                f"features K2 status {label}: kernel {wk}, plain {wp}")
+        say("features", case=f"k2_status_{label}", steps=len(seq), ctl=wk[-1],
+            bit_equal_plain=True)
+
+    prep = icp_fused.prepare_fused_inputs(torch.tensor(bad, device=dev),
+                                          torch.tensor(ref, device=dev))
+    st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(4, dev), \
+        qcp.new_err_buffer(4, dev)
+    icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5, guard=True)
+    pst, pctl, perrs = qcp.identity_state(dev), qcp.new_loop_control(4, dev), \
+        qcp.new_err_buffer(4, dev)
+    qcp.qcp_step_plain(prep.rows, pst, pctl, perrs, threshold=1e-5, guard=True)
+    require(ctl.tolist() == pctl.tolist() == [1, 1, 4, qcp.GUARD_NONFINITE]
+            and same_nan(st, pst) and same_nan(errs, perrs),
+            f"features K3 status: kernel {ctl.tolist()}, plain on its rows {pctl.tolist()}")
+    say("features", case="k3_status_nonfinite", ctl=ctl.tolist(), bit_equal_plain=True)
+    return total
+
+
+def _features_resume(tmp: str) -> dict:
+    """``icp_resumable`` on cow_tr1 in chunks of 3, killed after one chunk
+    and resumed: bit-equal to the uninterrupted chunked run."""
+    import torch
+
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.engine.icp import icp_resumable
+
+    ref, tr1 = _load("cow_ref.txt"), _load("cow_tr1.txt")
+    full, used = _counted(lambda: icp_resumable(
+        ref, tr1, ICPConfig(max_iter=30), checkpoint_path=os.path.join(tmp, "full.npz"),
+        checkpoint_every=3))
+    killed = os.path.join(tmp, "killed.npz")
+    icp_resumable(ref, tr1, ICPConfig(max_iter=3), checkpoint_path=killed, checkpoint_every=3)
+    resumed = icp_resumable(ref, tr1, ICPConfig(max_iter=30), checkpoint_path=killed,
+                            checkpoint_every=3, resume=True)
+    same = (int(full.iters) == int(resumed.iters) and torch.equal(full.points, resumed.points)
+            and all(torch.equal(a, b) for a, b in zip(full.transform, resumed.transform))
+            and float(full.err) == float(resumed.err))
+    require(same and int(full.iters) > 3 and used["icp_fused"] >= int(full.iters),
+            f"features resume: {int(full.iters)} and {int(resumed.iters)} iterations ({used})")
+    say("features", case="resume_cow_tr1", chunk=3, iters=int(full.iters), bit_equal=True,
+        err=f"{float(full.err):.6e}", launches=used)
+    return used
+
+
+def _features_metrics(tmp: str) -> dict:
+    """The CLI's ``--metrics --metrics-ops`` on cow (K3's path; K1 timed)
+    and horse (the grid path; K4 timed).  The op timer's calls (warm-up and
+    timed, after the loop) are counted apart and left out of the launches
+    the run returns, which are the loop's."""
+    from unittest import mock
+
+    from icp_tpu_torch.kernels import _build
+    from icp_tpu_torch.utils import metrics
+
+    timer = {}
+    op_times = metrics._op_times
+
+    def counted_op_times(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        out = op_times(*args, **kwargs)
+        _add(timer, {k: v - before[k] for k, v in _build.LAUNCHES.items()})
+        return out
+
+    total = {}
+    for label, ref, scene, nn, kernels in (
+            ("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", ("icp_fused",)),
+            ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", ("nn_grid", "qcp_step"))):
+        mpath = os.path.join(tmp, f"metrics_{label}.json")
+        timer.clear()
+        with mock.patch.object(metrics, "_op_times", counted_op_times):
+            rc, got, err, seconds, used = _run_cli(
+                [os.path.join(ROOT, "data", ref), os.path.join(ROOT, "data", scene), "30",
+                 "--metrics", mpath, "--metrics-ops", "--output",
+                 os.path.join(tmp, f"metrics_{label}_output.txt")])
+        require(rc == 0, f"features metrics {label}: exit {rc}\n{err}")
+        with open(mpath) as f:
+            rec = json.load(f)
+        require(rec["iters"] == len(got) == len(rec["errs"]) and rec["nn_method"] == nn
+                and rec["backend"] == "cuda" and rec["correspondence_us"] > 0
+                and rec["alignment_us"] > 0, f"features metrics {label}: {rec}")
+        loop = {k: v - timer.get(k, 0) for k, v in used.items()}
+        require(all(loop[k] == _launched(rec["iters"], 30) for k in kernels)
+                and loop["qcp_rotation"] == 0 and timer.get("nn_dense" if nn == "pallas" else "nn_grid", 0) > 0,
+                f"features metrics {label}: loop {loop}, timer {timer}")
+        _add(total, loop)
+        say("features", case=f"metrics_{label}", iters=rec["iters"], nn_method=nn,
+            solver=rec["solver"], wall_s=f"{rec['wall_s']:.4f}",
+            correspondence_us=f"{rec['correspondence_us']:.2f}",
+            alignment_us=f"{rec['alignment_us']:.2f}", launches=loop,
+            timer_launches={k: v for k, v in timer.items() if v})
+    return total
+
+
+def phase_features(tmp: str) -> dict:
+    """Trim, bucket padding, the device guard, resume and run metrics;
+    returns the launches of every run."""
+    total = {}
+    for fn in (lambda: _features_trim(tmp), _features_bucket, _features_guard,
+               lambda: _features_resume(tmp), lambda: _features_metrics(tmp)):
+        _add(total, fn())
+    return total
+
+
 def _wall(fn) -> float:
     import torch
 
@@ -1264,7 +1594,9 @@ def phase_loop_times():
 
     from icp_tpu_torch import ICPConfig
     from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.engine.plane import run_engine
     from icp_tpu_torch.ops.normals import estimate_normals
+    from icp_tpu_torch.ops.padding import pad_to_bucket
 
     for label, ref, scene, nn in (("cow", "cow_ref.txt", "cow_tr1.txt", "pallas"),
                                   ("horse", "horse_ref.txt", "horse_tr1.txt", "grid")):
@@ -1280,6 +1612,25 @@ def phase_loop_times():
         t21 = statistics.median(run(21) for _ in range(3))
         say("loop", case=label, engine="point_to_point", path=nn,
             ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}", setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
+        # the new cells: trimmed (the pipeline on cow), and horse bucketed
+        cells = {"trim": (model, sc, dict(trim_fraction=0.1))}
+        if label == "horse":
+            m_pad, m_n = pad_to_bucket(_load(ref), quantum=4096)
+            s_pad, s_n = pad_to_bucket(_load(scene), quantum=4096)
+            cells["bucket"] = (torch.tensor(m_pad, device="cuda"),
+                               torch.tensor(s_pad, device="cuda"),
+                               dict(scene_n=s_n, model_n=m_n))
+        for cell, (m, s, kw) in cells.items():
+            def run_cell(k):
+                return _wall(lambda: float(icp_fixed_iters(m, s, n_iters=k, solver="qcp_fused",
+                                                           nn_method=nn, **kw).err))
+
+            run_cell(2)
+            t1 = statistics.median(run_cell(1) for _ in range(3))
+            t21 = statistics.median(run_cell(21) for _ in range(3))
+            say("loop", case=label, engine="point_to_point", path=nn, cell=cell,
+                rows=s.shape[0], ms_per_iter=f"{(t21 - t1) / 20 * 1e3:.4f}",
+                setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
 
         method = "dense" if nn == "pallas" else "grid"
         estimate_normals(model, method=method)
@@ -1291,8 +1642,9 @@ def phase_loop_times():
         for engine in PLANE_CASES:
             def run_pl(k):
                 cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method=nn)
-                return _wall(lambda: float(run_plane_engine(engine, model, sc, cfg, normals,
-                                                            scene_normals).err))
+                return _wall(lambda: float(run_engine(engine, model, sc, cfg,
+                                                      model_normals=normals,
+                                                      scene_normals=scene_normals).err))
 
             run_pl(2)
             t1 = statistics.median(run_pl(1) for _ in range(3))
@@ -1358,6 +1710,7 @@ def phase_scale(seed: int):
     from icp_tpu_torch import ICPConfig
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.engine.plane import run_engine
     from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
     from icp_tpu_torch.ops.normals import (
         estimate_normals,
@@ -1435,10 +1788,11 @@ def phase_scale(seed: int):
         k1_ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
     del grid, states, p, u, idx, y, d2, ik, dk, i8
 
-    def run(k):
+    def run(k, trim=0.0):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = icp_fixed_iters(model, scene, n_iters=k, solver="qcp_fused", nn_method="grid")
+        res = icp_fixed_iters(model, scene, n_iters=k, solver="qcp_fused", nn_method="grid",
+                              trim_fraction=trim)
         err = float(res.err)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, res, err
@@ -1454,6 +1808,17 @@ def phase_scale(seed: int):
         s=f"{float(res.transform.s):.6f}", s_inverse_true=f"{1 / s_true:.6f}",
         ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}", ten_iters_s=f"{t10:.3f}")
     del res, pts
+    # the same loop trimmed: the quantile of K4's distances each iteration
+    run(1, 0.1)
+    tt1, _, terr1 = run(1, 0.1)
+    tt10, res, terr10 = run(10, 0.1)
+    require(bool(torch.isfinite(res.points).all()) and math.isfinite(terr10) and terr10 < terr1,
+            f"scale trim: error {terr1} -> {terr10}")
+    say("features", case="scale_trim", points=f"{n}x{n}", trim=0.1,
+        err_iter1=f"{terr1:.6e}", err_iter10=f"{terr10:.6e}",
+        ms_per_iter=f"{(tt10 - tt1) / 9 * 1e3:.3f}",
+        untrimmed_ms_per_iter=f"{(t10 - t1) / 9 * 1e3:.3f}")
+    del res
 
     # K7 on the 1M model's seed and exact tables (the normals' tiles), each
     # against its plain version on 64 seeded query tiles and up to 4 tiles
@@ -1494,8 +1859,9 @@ def phase_scale(seed: int):
         def run_pl(k):
             cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method="grid")
             holder.clear()
-            t = _wall(lambda: holder.update(tr=run_plane_engine(
-                engine, model, scene, cfg, normals, scene_normals, trace=True)))
+            t = _wall(lambda: holder.update(tr=run_engine(
+                engine, model, scene, cfg, model_normals=normals, scene_normals=scene_normals,
+                trace=True)))
             return t, holder["tr"]
 
         run_pl(1)
@@ -1516,8 +1882,9 @@ def phase_scale(seed: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,cli,scale",
-                    help="comma list of kernels, cli, scale (device and build always run)")
+    ap.add_argument("--phases", default="kernels,cli,features,scale",
+                    help="comma list of kernels, cli, features, scale (device and build "
+                         "always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1542,6 +1909,9 @@ def main(argv=None) -> int:
         missing = [k for k in KERNELS if not launches.get(k)]
         require(not missing, f"kernels never launched on the main paths: {missing}")
         phase_loop_times()
+    if "features" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            _add(launches, phase_features(tmp))
     if "scale" in phases:
         phase_scale(args.seed)
     kernels = []

@@ -9,7 +9,15 @@ PyTorch version.
 """
 
 from icp_tpu_torch.config import GRID_AUTO_THRESHOLD, ICPConfig
-from icp_tpu_torch.engine.icp import ICPResult, ICPTrace, icp, icp_fixed_iters, icp_step
+from icp_tpu_torch.engine.icp import (
+    ICPGuardError,
+    ICPResult,
+    ICPTrace,
+    icp,
+    icp_fixed_iters,
+    icp_resumable,
+    icp_step,
+)
 from icp_tpu_torch.engine.gicp import disk_covariances, icp_generalized
 from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
 from icp_tpu_torch.engine.symmetric import icp_symmetric
@@ -24,6 +32,7 @@ from icp_tpu_torch.ops.alignment import (
 )
 from icp_tpu_torch.ops.distance import closest_point_indices
 from icp_tpu_torch.ops.normals import estimate_normals, orient_normals
+from icp_tpu_torch.ops.padding import auto_quantum, pad_to_bucket
 from icp_tpu_torch.ops.transform import (
     apply_similarity,
     compose,
@@ -38,8 +47,10 @@ __all__ = [
     "ICPConfig",
     "ICPResult",
     "ICPTrace",
+    "ICPGuardError",
     "icp",
     "icp_fixed_iters",
+    "icp_resumable",
     "icp_step",
     "icp_point_to_plane",
     "icp_symmetric",
@@ -48,6 +59,8 @@ __all__ = [
     "closest_point_indices_bf16",
     "estimate_normals",
     "orient_normals",
+    "auto_quantum",
+    "pad_to_bucket",
     "load_matrix",
     "write_matrix",
     "AlignmentStats",

@@ -45,7 +45,8 @@ class ICPConfig:
         their own block shapes and do not read them.
       validate_inputs: enforce the reference's equal-count restriction.
       with_scale: estimate the similarity scale (False: rigid).
-      trim_fraction: trimmed ICP; not ported yet, must be 0.
+      trim_fraction: trimmed ICP: the fraction of correspondences, the
+        farthest by squared distance, left out of each iteration (0: none).
       grid_scene_tile / grid_model_tile: target kd tile sizes of the grid path.
       grid_max_candidates: candidate-tile capacity per scene tile; a tile
         with more candidates folds every model tile (exact either way).

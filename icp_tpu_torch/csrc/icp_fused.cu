@@ -35,7 +35,8 @@
 //  * Solve: the last scene block to finish (a second counter) runs K2's
 //    warp step (qcp_warp.cuh) on the rows in scene-block order: it solves,
 //    composes, writes errs[it], advances ctl[0], raises ctl[1] with K2's
-//    rule and resets the counter.
+//    rule (with `guard`, also on K2's status word in ctl[3]) and resets the
+//    counter.
 // No grid barrier, no spin-wait and no float atomics: the last block to
 // arrive needs none, and a run repeats bit for bit.  When ctl[1] is up at
 // the start every block returns and block (0, 0) writes the identity step,
@@ -231,13 +232,14 @@ ICP_EXPORT int icp_fused_chunk_rows(int n, int m, int* chunk_rows) {
 ICP_EXPORT int icp_fused_launch(const float* p0, int n, const float4* mt, int m, double* state,
                                 int* ctl, double* errs, unsigned long long* keys,
                                 unsigned* counts, double* rows, int with_scale, double threshold,
-                                double err_factor, int converge, cudaStream_t stream) {
+                                double err_factor, int converge, int guard,
+                                cudaStream_t stream) {
   if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   int chunk_rows = 0;
   const int code = chunk_rows_for(n, m, &chunk_rows);
   if (code != 0) return code;
   const dim3 grid(icp_fused_scene_blocks(n), (m + chunk_rows - 1) / chunk_rows);
-  const StepArgs args{with_scale, threshold, err_factor, converge};
+  const StepArgs args{with_scale, threshold, err_factor, converge, guard};
   icp_fused_kernel<<<grid, kThreads, 0, stream>>>(p0, n, mt, m, chunk_rows, state, ctl, errs,
                                                    keys, counts, rows, args);
   return static_cast<int>(cudaGetLastError());

@@ -43,10 +43,14 @@
 // the plain version's (kernels/qcp.py), and the library is built with
 // --fmad=false, so the two agree to the last bits.
 //
-// Loop control ctl (int32): [0] iterations done, [1] done flag, [2] bound.
-// The flag rises at the bound and, when `converge` is set (icp), also when
-// !(err >= threshold), so a NaN error stops the loop; with `converge` 0
-// (icp_fixed_iters, JAX's fori_loop) only the bound raises it.  Once done
+// Loop control ctl (int32): [0] iterations done, [1] done flag, [2] bound,
+// [3] guard status.  The flag rises at the bound and, when `converge` is
+// set (icp), also when !(err >= threshold), so a NaN error stops the loop;
+// with `converge` 0 (icp_fixed_iters, JAX's fori_loop) only the bound
+// raises it.  With `guard` set (icp(guard="device"), JAX's
+// _icp_while_guarded) a non-finite error (status 1) or one above 100 times
+// the least so far (status 2, the least kept in state slot 28) raises it
+// too and writes the status; unguarded launches are as before.  Once done
 // is set the kernel writes the identity step and returns, so a later apply
 // of the step is an exact no-op.
 #include "qcp_warp.cuh"
@@ -116,9 +120,9 @@ ICP_EXPORT int qcp_rotation_from_launch(const void* S, const void* gp, const voi
 
 ICP_EXPORT int qcp_step_launch(const double* partials, int n_rows, double* state,
                                int* ctl, double* errs, int with_scale,
-                               double threshold, double err_factor, int converge,
+                               double threshold, double err_factor, int converge, int guard,
                                cudaStream_t stream) {
-  const StepArgs args{with_scale, threshold, err_factor, converge};
+  const StepArgs args{with_scale, threshold, err_factor, converge, guard};
   qcp_step_kernel<<<1, 32, 0, stream>>>(partials, n_rows, state, ctl, errs, args);
   return static_cast<int>(cudaGetLastError());
 }

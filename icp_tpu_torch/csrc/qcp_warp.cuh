@@ -33,7 +33,10 @@ struct StepArgs {
   double threshold;
   double err_factor;
   int converge;
+  int guard;  // icp(guard="device"): stop on a non-finite or diverged error
 };
+
+constexpr double kDivergeFactor = 100.0;  // err > factor * best error: diverged
 
 // max that lets a NaN in `a` through (as jnp.maximum does).
 __device__ __forceinline__ double mx(double a, double b) { return a < b ? b : a; }
@@ -170,11 +173,15 @@ __device__ __forceinline__ void qcp_rotation_warp(const double (&S_in)[9], doubl
 // K2's step by all 32 lanes of a warp: the (n_rows, 18) partial rows, read
 // through L2 (another block may have written them in this launch), update
 // the (32,) state block, the loop control and the error buffer in place.
-// Loop control ctl (int32): [0] iterations done, [1] done flag, [2] bound;
-// the flag rises at the bound and, when `converge` is set, also when
-// !(err >= threshold), so a NaN error stops the loop.  Once done, the
-// identity step is written and nothing else changes, so a later apply of
-// the step is an exact no-op.
+// Loop control ctl (int32): [0] iterations done, [1] done flag, [2] bound,
+// [3] guard status; the flag rises at the bound and, when `converge` is
+// set, also when !(err >= threshold), so a NaN error stops the loop.  With
+// `guard` set it also rises on a status other than 0: 1 when the error is
+// not finite, 2 when it exceeds kDivergeFactor times the least error so
+// far, which the step keeps in state slot 28 (read as +inf at iteration 0);
+// unguarded, slot 28 is written 0 as before.  Once done, the identity step
+// is written and nothing else changes, so a later apply of the step is an
+// exact no-op.
 __device__ __forceinline__ void qcp_step_warp(const double* rows, int n_rows, double* state,
                                               int* ctl, double* errs, const StepArgs& args,
                                               double* sm) {
@@ -187,6 +194,7 @@ __device__ __forceinline__ void qcp_step_warp(const double* rows, int n_rows, do
   if (lane < kSums)
     for (int r = 0; r < n_rows; ++r) col += __ldcg(rows + r * kSums + lane);
   const double prev_s = state[13];
+  const double best = it == 0 ? __longlong_as_double(0x7ff0000000000000LL) : state[28];
   const double pt0 = state[23], pt1 = state[24], pt2 = state[25];
   const int c3 = lane >= 14 && lane < 23 ? (lane - 14) % 3 : 0;
   const double pr0 = state[14 + c3], pr1 = state[17 + c3], pr2 = state[20 + c3];
@@ -222,6 +230,9 @@ __device__ __forceinline__ void qcp_step_warp(const double* rows, int n_rows, do
   for (int r = 0; r < 3; ++r)
     t[r] = mu_y[r] - s * (R[3 * r] * mu_p[0] + R[3 * r + 1] * mu_p[1] + R[3 * r + 2] * mu_p[2]);
   const double resid = mx(gy + s * s * gp - 2.0 * s * lam, 0.0);
+  const double err = args.err_factor * resid / n;
+  int status = 0;
+  if (args.guard) status = !isfinite(err) ? 1 : err > kDivergeFactor * best ? 2 : 0;
 
   // Lane k computes state slot k: [s, R (9), t (3), s_tot, R_tot (9),
   // t_tot (3), residual, lambda, 0 (4)].
@@ -253,13 +264,15 @@ __device__ __forceinline__ void qcp_step_warp(const double* rows, int n_rows, do
     v = resid;
   } else if (lane == 27) {
     v = lam;
+  } else if (lane == 28 && args.guard) {
+    v = err < best ? err : best;
   }
   state[lane] = v;  // every lane read the previous state at the start
   if (lane == 0) {
-    const double err = args.err_factor * resid / n;
     errs[it] = err;
     ctl[0] = it + 1;
-    if (it + 1 >= bound || (args.converge && !(err >= args.threshold))) ctl[1] = 1;
+    if (it + 1 >= bound || (args.converge && !(err >= args.threshold)) || status) ctl[1] = 1;
+    if (status) ctl[3] = status;
   }
 }
 

@@ -11,19 +11,17 @@ rotation, as in ``engine/point_to_plane.py``.  The reported error is the
 mean Mahalanobis residual after the step (over N, or over the weight sum of
 the kd-padded rows in the grid loop).
 
-Two loops, as in JAX:
-  * dense (``_gicp_dense``): NN by ``closest_point_indices``, then the
-    (y, C_y) gather; the scene covariances co-rotate, ``C <- R C R^T``;
-  * grid (``_gicp_grid``): the model normals ride K4's payload slot and
-    ``C_y`` is rebuilt from the emitted normal; the scene covariances are
-    kd-permuted once, with the identity on the padding rows (weight 0).
+The loops are ``engine/plane.py``'s: dense (NN by
+``closest_point_indices``, then the (y, C_y) gather; the scene covariances
+co-rotate, ``C <- R C R^T``) and grid (the model normals ride K4's payload
+slot and ``C_y`` is rebuilt from the emitted normal; the scene covariances
+are kd-permuted once, with the identity on the padding rows, weight 0).
+Trim and bucket padding as in ``engine/point_to_plane.py``.
 
 The float32 einsums of the sums stand where JAX writes
 ``Precision.HIGHEST``: they need full-float32 matmuls, which
-``icp_generalized`` runs under (``utils.precision.full_float32``).  The
-loops stay on the device (``LoopState.record_on_device``).  Rigid only;
-``trim_fraction > 0``, bucket padding and the sharded variant are not
-ported yet.
+``icp_generalized`` runs under (``utils.precision.full_float32``).  Rigid
+only; the sharded variant is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,16 +31,11 @@ from typing import Optional
 import torch
 
 from icp_tpu_torch.config import ICPConfig
-from icp_tpu_torch.engine.icp import LoopState, _validate, as_points
-from icp_tpu_torch.engine.point_to_plane import _gated, _rodrigues, _solve6
+from icp_tpu_torch.engine.icp import _validate, as_points
+from icp_tpu_torch.engine.plane import PlaneEngine, run_plane
+from icp_tpu_torch.engine.point_to_plane import _rodrigues, _solve6
 from icp_tpu_torch.ops.alignment import Similarity
-from icp_tpu_torch.ops.distance import closest_point_indices
-from icp_tpu_torch.ops.transform import (
-    apply_similarity,
-    cast_similarity,
-    compose,
-    identity_similarity,
-)
+from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
 
 
@@ -106,73 +99,21 @@ def _gicp_system(p, y, Cy, cov_p, weights=None):
     return sim, p_new, e.sum() / nw
 
 
-def _gicp_dense(model, cov_m, scene, cov_s, *, threshold: float, max_iter: int,
-                nn_method: str, init: Optional[Similarity], trace: bool):
-    dt, dev = scene.dtype, scene.device
-    p, cov_p = scene, cov_s
-    if init is not None:
-        p, cov_p = apply_similarity(scene, init), _rotate_covariances(init.R, cov_s)
-    total = identity_similarity(dt, dev) if init is None else init
-    loop = LoopState(max_iter, max_iter, threshold, False, dev)
-
-    def step():
-        nonlocal p, cov_p, total
-        idx = closest_point_indices(p, model, method=nn_method).to(torch.int64)
-        sim, p_new, err = _gicp_system(p, model[idx], cov_m[idx], cov_p)
-        done = loop.record_on_device(err)
-        cov_p = _gated(done, cov_p, _rotate_covariances(sim.R, cov_p))
-        p = _gated(done, p, p_new)
-        total = _gated(done, total, compose(total, sim))
-
-    loop.run(step)
-    return loop.finish(p, total, dt, trace)
-
-
-def _gicp_grid(model, normals, scene, cov_s, *, threshold: float, max_iter: int,
-               scene_tile_target: int, model_tile_target: int, max_candidates: int,
-               eps: float, init: Optional[Similarity], trace: bool):
-    from icp_tpu_torch.engine.grid import _prepare_scene
-    from icp_tpu_torch.kernels.nn_grid import (
-        bound_from_indices,
-        build_model_grid,
-        closest_point_indices_grid,
-        initial_bound_indices,
-        next_bound,
-    )
-
-    dt, dev = scene.dtype, scene.device
-    n = scene.shape[0]
-    if init is not None:
-        scene, cov_s = apply_similarity(scene, init), _rotate_covariances(init.R, cov_s)
-    grid = build_model_grid(model, target_tile=model_tile_target, payload=normals)
-    p, w, inv_slots, tn, perm = _prepare_scene(scene, scene_tile_target)
-    eye_pad = torch.eye(3, dtype=dt, device=dev).expand(p.shape[0] - n, 3, 3)
-    cov_p = torch.cat([cov_s, eye_pad])[perm]  # padding rows: identity, weight 0
-    stride = max(1, min(16, model.shape[0] // 4))
-    u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig, stride=stride))
-    total = identity_similarity(dt, dev) if init is None else init
-    loop = LoopState(max_iter, max_iter, threshold, False, dev)
-
-    def step():
-        nonlocal p, cov_p, u, total
-        _, y, nv, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
-                                                 max_candidates=max_candidates)
-        y = y.to(dt)
-        sim, p_new, err = _gicp_system(p, y, disk_covariances(nv.to(dt), eps), cov_p, w)
-        done = loop.record_on_device(err)
-        cov_p = _gated(done, cov_p, _rotate_covariances(sim.R, cov_p))
-        u = _gated(done, u, next_bound(y, p_new))
-        p = _gated(done, p, p_new)
-        total = _gated(done, total, compose(total, sim))
-
-    loop.run(step)
-    return loop.finish(p[inv_slots], total, dt, trace)
+def gicp_engine(eps: float) -> PlaneEngine:
+    """The GICP part of the plane loops: model rows are the disk covariances
+    of the model normals, the scene side data its covariances."""
+    return PlaneEngine(
+        step=_gicp_system,
+        model_rows=lambda normals: disk_covariances(normals, eps),
+        rotate=_rotate_covariances,
+        pad=lambda cov, k: torch.eye(3, dtype=cov.dtype, device=cov.device).expand(k, 3, 3))
 
 
 @in_full_float32
 def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
                     model_normals=None, scene_normals=None, normal_k: int = 16,
-                    eps: float = 1e-3, init=None, trace: bool = False, device=None):
+                    eps: float = 1e-3, init=None, trace: bool = False, scene_n=None,
+                    model_n=None, device=None):
     """Generalized (plane-to-plane) ICP.
 
     Normals of both clouds are estimated by kNN PCA when not given; ``eps``
@@ -180,14 +121,13 @@ def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
     point).  ``init``: warm-start Similarity with a pure rotation.  The
     dense loop builds the model covariances in ``config.dtype``; the grid
     loop carries the model normals as float32 payload, as JAX does.
+    ``scene_n`` / ``model_n``: valid row counts of bucket-padded clouds.
     Returns ``ICPResult`` (``ICPTrace`` with ``trace=True``); devices as
     in ``icp``.
     """
     from icp_tpu_torch.ops.normals import estimate_normals
 
     cfg = config or ICPConfig()
-    if cfg.trim_fraction != 0.0:
-        raise NotImplementedError("trimmed GICP (trim_fraction > 0) is not ported yet")
     model = as_points(model, cfg.dtype, device)
     scene = as_points(scene, cfg.dtype, model.device)
     _validate(model, scene, cfg)
@@ -195,16 +135,8 @@ def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
                      else as_points(model_normals, cfg.dtype, model.device))
     scene_normals = (estimate_normals(scene, k=normal_k) if scene_normals is None
                      else as_points(scene_normals, cfg.dtype, model.device))
-    cov_s = disk_covariances(scene_normals, eps)
     if init is not None:
         init = cast_similarity(init, cfg.dtype, model.device)
-    nn_method = cfg.resolved_nn_method(model.device.type,
-                                       max(model.shape[0], scene.shape[0]))
-    kw = dict(threshold=cfg.threshold, max_iter=cfg.max_iter, init=init, trace=trace)
-    if nn_method == "grid":
-        return _gicp_grid(model, model_normals.to(torch.float32), scene, cov_s,
-                          scene_tile_target=cfg.grid_scene_tile,
-                          model_tile_target=cfg.grid_model_tile,
-                          max_candidates=cfg.grid_max_candidates, eps=eps, **kw)
-    return _gicp_dense(model, disk_covariances(model_normals, eps), scene, cov_s,
-                       nn_method=nn_method, **kw)
+    return run_plane(gicp_engine(eps), cfg, model, model_normals, scene,
+                     disk_covariances(scene_normals, eps), init=init, trace=trace,
+                     scene_n=scene_n, model_n=model_n)

@@ -8,12 +8,15 @@ Same loop as ``engine/icp.py`` with three at-scale changes:
     match, an upper bound on its next NN distance that lets K4 cull model
     tiles (exact in every case);
   * the cloud is padded to the tile multiple by replicating its last point;
-    padded rows have weight 0 in the sums and the error.
+    padded rows have weight 0 in the sums, the trim quantile and the error,
+    as are the pad rows of a bucket-padded scene (``scene_n``), which
+    ``bucket_prologue`` replica-fills before the kd sort.
 
 The first bounds come from K1 against every 16th model point.  Each
-iteration: K4 (with the candidate table built in torch), the float64 Horn
-sums in torch, K2 (solve, compose, convergence test), and the float32 apply
-of the step in torch.
+iteration: K4 (with the candidate table built in torch), the trim weights
+from K4's own float32 distances (recomputed from y and p in float64
+configurations, as JAX does), the float64 Horn sums in torch, K2 (solve,
+compose, convergence test), and the float32 apply of the step in torch.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from icp_tpu_torch.engine.icp import LoopState
+from icp_tpu_torch.engine.icp import LoopState, bucket_prologue
 from icp_tpu_torch.kernels.nn_grid import (
     _round_up,
     bound_from_indices,
@@ -32,6 +35,7 @@ from icp_tpu_torch.kernels.nn_grid import (
     kd_order,
     levels_for,
     next_bound,
+    sqnorm_rows,
 )
 from icp_tpu_torch.kernels.qcp import (
     identity_state,
@@ -46,12 +50,15 @@ from icp_tpu_torch.ops.alignment import (
     alignment_from_stats,
     compute_alignment_stats,
 )
+from icp_tpu_torch.ops.quantile import histogram_quantile
 from icp_tpu_torch.ops.transform import apply_similarity, compose, identity_similarity
 
 
-def _prepare_scene(scene: torch.Tensor, target_tile: int):
+def _prepare_scene(scene: torch.Tensor, target_tile: int, n_valid=None):
     """kd-sort + pad the scene: (p_sorted, weights, inv_slots, tn, perm);
-    ``p_sorted[inv_slots]`` restores the caller's order."""
+    ``p_sorted[inv_slots]`` restores the caller's order.  ``n_valid``: the
+    valid rows of a bucket-padded scene (its pad rows replica-filled
+    already); rows past it get weight 0 like the tile padding."""
     n = scene.shape[0]
     lvl = levels_for(n, target_tile)
     tn = _round_up(-(-n // (2 ** lvl)), 8)
@@ -59,9 +66,22 @@ def _prepare_scene(scene: torch.Tensor, target_tile: int):
     s_pad = torch.cat([scene, scene[-1:].expand(n_pad - n, 3)])
     perm = kd_order(s_pad, lvl)
     p_sorted = s_pad[perm]
-    w = (perm < n).to(scene.dtype)
+    w = (perm < (n if n_valid is None else n_valid)).to(scene.dtype)
     inv_slots = torch.argsort(perm)[:n]
     return p_sorted, w, inv_slots, tn, perm
+
+
+def grid_weights(p, y, d2, w, trim_fraction: float):
+    """The weights of one grid iteration: the tile and bucket weights ``w``,
+    times the trim's on K4's float32 distances ``d2`` (recomputed from y
+    and p when the cloud is wider than float32); the quantile leaves out
+    the rows of weight 0."""
+    if trim_fraction <= 0.0:
+        return w
+    if p.dtype != torch.float32:
+        d2 = sqnorm_rows(y - p)
+    tau = histogram_quantile(d2, 1.0 - trim_fraction, w)
+    return w * (d2 <= tau).to(w.dtype)
 
 
 def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
@@ -69,12 +89,14 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
               scene_tile_target: int = 256, model_tile_target: int = 1024,
               max_candidates: int = 16, bound_stride: int = 16,
               init: Optional[Similarity] = None, trace: bool = False,
-              converge: bool = True):
+              converge: bool = True, trim_fraction: float = 0.0, scene_n=None,
+              model_n=None):
     dt, dev = scene.dtype, scene.device
+    model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
     if init is not None:
         scene = apply_similarity(scene, init)
     grid = build_model_grid(model, target_tile=model_tile_target)
-    p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target)
+    p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
     stride = max(1, min(bound_stride, model.shape[0] // 4))
     u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig,
                                                           stride=stride))
@@ -85,10 +107,11 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
 
         def step():
             nonlocal p, u
-            _, y, _, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
-                                                    max_candidates=max_candidates)
+            _, y, _, d2 = closest_point_indices_grid(p, grid, u, scene_tile=tn,
+                                                     max_candidates=max_candidates)
             y = y.to(dt)
-            stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
+            w_eff = grid_weights(p, y, d2, w, trim_fraction)
+            stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w_eff)
             qcp_step(pack_stats(stats), state, loop.ctl, loop.errs,
                      **loop.step_kw(with_scale))
             p = apply_similarity(p, step_similarity(state, dt))
@@ -103,15 +126,16 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
             nonlocal p, u, total
             if loop.done():
                 return
-            _, y, _, _ = closest_point_indices_grid(p, grid, u, scene_tile=tn,
-                                                    max_candidates=max_candidates)
+            _, y, _, d2 = closest_point_indices_grid(p, grid, u, scene_tile=tn,
+                                                     max_candidates=max_candidates)
             y = y.to(dt)
-            stats = compute_alignment_stats(p, y, weights=w)
+            w_eff = grid_weights(p, y, d2, w, trim_fraction)
+            stats = compute_alignment_stats(p, y, weights=w_eff)
             sim = alignment_from_stats(stats, solver=solver, with_scale=with_scale)
             p = apply_similarity(p, sim)
             total = compose(total, sim)
             d = y - p
-            loop.record((w * (d * d).sum(1)).sum(), stats.n)
+            loop.record((w_eff * (d * d).sum(1)).sum(), stats.n)
             u = next_bound(y, p)
 
         loop.run(step)

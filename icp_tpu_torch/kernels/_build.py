@@ -45,8 +45,8 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "nn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "nn_dense_chunk_rows": [_I, _I, _I, _P],
-    "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _I, _P],
-    "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
+    "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _I, _I, _P],
+    "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P],
     "icp_fused_scene_blocks": [_I],
     "icp_fused_chunk_rows": [_I, _I, _P],
     "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],

@@ -27,7 +27,7 @@ import torch
 
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points
-from icp_tpu_torch.kernels.qcp import N_SUMS, STATE_SLOTS, qcp_step_plain
+from icp_tpu_torch.kernels.qcp import CTL_SLOTS, N_SUMS, STATE_SLOTS, qcp_step_plain
 
 # Model-size cap of the fused path: the JAX package's value (its fully
 # unrolled fold range), kept so the port takes the same branches as the
@@ -73,10 +73,11 @@ def prepare_fused_inputs(scene: torch.Tensor, model: torch.Tensor) -> FusedInput
 
 
 def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
-                         n_model: int) -> bool:
-    """The fused path serves qcp_fused + pallas, untrimmed, models of at
-    most ``MAX_FUSED_MODEL`` points (as ``icp_fused.py:306``)."""
-    return (solver == "qcp_fused" and nn_method == "pallas"
+                         n_model: int, masked: bool = False) -> bool:
+    """The fused path serves qcp_fused + pallas, untrimmed, unmasked (no
+    bucket padding: K3 has no weighted sums, ``icp_tpu/engine/icp.py:337``),
+    models of at most ``MAX_FUSED_MODEL`` points (as ``icp_fused.py:306``)."""
+    return (solver == "qcp_fused" and nn_method == "pallas" and not masked
             and trim_fraction == 0.0 and n_model <= MAX_FUSED_MODEL)
 
 
@@ -85,7 +86,7 @@ def _check_loop(prep: FusedInputs, state, ctl, errs) -> tuple:
     the launch's pointer arguments."""
     dev = prep.p0.device
     for name, t, dt, shape in (("state", state, torch.float64, (1, STATE_SLOTS)),
-                               ("ctl", ctl, torch.int32, (3,)),
+                               ("ctl", ctl, torch.int32, (CTL_SLOTS,)),
                                ("errs", errs, torch.float64, None)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous() \
                 or (shape is not None and tuple(t.shape) != shape) \
@@ -103,9 +104,9 @@ def _check_loop(prep: FusedInputs, state, ctl, errs) -> tuple:
 def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
                    errs: torch.Tensor, *, with_scale: bool = True,
                    threshold: float = -math.inf, err_factor: float = 2.0,
-                   converge: bool = True) -> None:
+                   converge: bool = True, guard: bool = False) -> None:
     """One ICP iteration, in place on ``state`` (1, 32) float64, ``ctl``
-    (3,) int32 and ``errs`` float64 (the keywords: K2's loop arguments).
+    (4,) int32 and ``errs`` float64 (the keywords: K2's loop arguments).
     On the card it is one launch of K3; the loop tensors are checked the
     first time a run's ``prep`` sees them."""
     loop = prep._loop
@@ -115,10 +116,10 @@ def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
     if prep.keys is None:
         qcp_step_plain(fused_partials_plain(prep, state), state, ctl, errs,
                        with_scale=with_scale, threshold=threshold, err_factor=err_factor,
-                       converge=converge)
+                       converge=converge, guard=guard)
         return
     code = _build.lib().icp_fused_launch(*loop[3], int(with_scale), float(threshold),
-                                         float(err_factor), int(converge),
+                                         float(err_factor), int(converge), int(guard),
                                          _build.raw_stream(loop[4]))
     _build.LAUNCHES["icp_fused"] += 1
     _build.check(code, "icp_fused")

@@ -157,7 +157,8 @@ def initial_bound_indices(scene: torch.Tensor, model: torch.Tensor, *,
     return closest_point_indices_dense(scene, sub).to(torch.int64) * stride
 
 
-def _sqnorm_rows(d: torch.Tensor) -> torch.Tensor:
+def sqnorm_rows(d: torch.Tensor) -> torch.Tensor:
+    """Row-wise squared norms of (N, 3) in K4's order: (x*x + y*y) + z*z."""
     return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
 
 
@@ -165,14 +166,14 @@ def bound_from_indices(scene: torch.Tensor, grid: ModelGrid,
                        idx: torch.Tensor) -> torch.Tensor:
     """(N,) upper bounds on the NN distance: squared distance to a known
     model point (one row gather, before the loop)."""
-    return _sqnorm_rows(scene.to(torch.float32) - grid.model_orig[idx])
+    return sqnorm_rows(scene.to(torch.float32) - grid.model_orig[idx])
 
 
 def next_bound(y: torch.Tensor, p_new: torch.Tensor) -> torch.Tensor:
     """(N,) float32 bounds for the next iteration: squared distance from the
     moved point to this iteration's match, from the float32-cast pair (see
     ``icp_tpu/kernels/nn_grid.py:next_bound``)."""
-    return _sqnorm_rows(y.to(torch.float32) - p_new.to(torch.float32))
+    return sqnorm_rows(y.to(torch.float32) - p_new.to(torch.float32))
 
 
 def tile_box_dists(p_pad: torch.Tensor, grid: ModelGrid, *,

@@ -5,7 +5,7 @@ Port of ``icp_tpu/kernels/qcp_pallas.py``.  The (1, 32) state block keeps
 the JAX layout (``qcp_pallas.py:91-119``) in float64::
 
     [s_step, R_step (9, row major), t_step (3),
-     s_tot, R_tot (9), t_tot (3), residual_sum, lambda, 0, 0, 0, 0]
+     s_tot, R_tot (9), t_tot (3), residual_sum, lambda, best, 0, 0, 0]
 
 K2 (one warp, ``csrc/qcp_warp.cuh``; the fused dense iteration K3 runs the
 same step in its last block) reads a (P, 18) float64 array of partial
@@ -17,10 +17,17 @@ writes ``errs[it] = err_factor * residual / n``, advances the iteration
 count and raises the done flag when the bound is reached or, in
 convergence mode (``converge=True``, ``icp``), when ``not err >=
 threshold`` (a NaN error stops it too); in fixed mode (``converge=False``,
-``icp_fixed_iters``) only the bound does.  Once done, it writes the
-identity step and returns.
+``icp_fixed_iters``) only the bound does.  With ``guard=True``
+(``icp(guard="device")``, JAX's ``_icp_while_guarded``) the flag also
+rises when the error is not finite (status 1) or exceeds
+``DIVERGE_FACTOR`` times the least error so far (status 2); the step keeps
+that least error in slot ``best`` (28, read as +inf at iteration 0, so the
+block keeps the JAX layout; an unguarded step writes 0 there) and writes
+the status into ``ctl[3]``.  Once done, it
+writes the identity step and returns.
 
-Loop control ``ctl``: int32 ``[iterations done, done flag, bound]``.
+Loop control ``ctl``: int32 ``[iterations done, done flag, bound, guard
+status]``.
 
 K5 (``qcp_rotation``) is the rotation-only solve of the same scalar math
 (``_qcp_kernel``), on the JAX kernel's (1, 16) slots in float64::
@@ -48,7 +55,13 @@ from icp_tpu_torch.ops.alignment import AlignmentStats, Similarity
 
 N_SUMS = 18
 STATE_SLOTS = 32
+BEST_SLOT = 28  # the guard's least error so far
+CTL_SLOTS = 4
 ROT_SLOTS = 16
+# err > DIVERGE_FACTOR * best aborts a guarded loop (JAX's _DIVERGE_FACTOR):
+# loose on purpose, it catches blow-ups, not plateaus
+DIVERGE_FACTOR = 100.0
+GUARD_OK, GUARD_NONFINITE, GUARD_DIVERGED = 0, 1, 2
 _ROT_DTYPES = (torch.float32, torch.float64)  # qcp_rotation_from's input types
 _NEWTON_ITERS = 12
 _POWER_ITERS = 2
@@ -92,8 +105,9 @@ def pack_stats(stats: AlignmentStats) -> torch.Tensor:
 
 
 def new_loop_control(bound: int, device=None) -> torch.Tensor:
-    """ctl = [0, done, bound]; done from the start when the bound is 0."""
-    return torch.tensor([0, int(bound <= 0), bound], dtype=torch.int32,
+    """ctl = [0, done, bound, status 0]; done from the start when the bound
+    is 0."""
+    return torch.tensor([0, int(bound <= 0), bound, GUARD_OK], dtype=torch.int32,
                         device=device)
 
 
@@ -104,17 +118,18 @@ def new_err_buffer(length: int, device=None) -> torch.Tensor:
 def qcp_step(partials: torch.Tensor, state: torch.Tensor, ctl: torch.Tensor,
              errs: torch.Tensor, *, with_scale: bool = True,
              threshold: float = -math.inf, err_factor: float = 2.0,
-             converge: bool = True) -> None:
+             converge: bool = True, guard: bool = False) -> None:
     """One alignment step, in place on ``state``, ``ctl`` and ``errs``."""
     _check(partials, state, ctl, errs)
     if partials.device.type == "cpu":
         qcp_step_plain(partials, state, ctl, errs, with_scale=with_scale,
-                       threshold=threshold, err_factor=err_factor, converge=converge)
+                       threshold=threshold, err_factor=err_factor, converge=converge,
+                       guard=guard)
         return
     code = _build.lib().qcp_step_launch(
         partials.data_ptr(), partials.shape[0], state.data_ptr(),
         ctl.data_ptr(), errs.data_ptr(), int(with_scale), float(threshold),
-        float(err_factor), int(converge), _build.stream_ptr(partials))
+        float(err_factor), int(converge), int(guard), _build.stream_ptr(partials))
     _build.LAUNCHES["qcp_step"] += 1
     _build.check(code, "qcp_step")
 
@@ -132,23 +147,36 @@ def _check(partials, state, ctl, errs) -> None:
     if partials.ndim != 2 or partials.shape[1] != N_SUMS or partials.shape[0] < 1:
         raise ValueError(f"qcp_step: partials must be (P, {N_SUMS}), got "
                          f"{tuple(partials.shape)}")
-    if state.shape != (1, STATE_SLOTS) or ctl.shape != (3,):
-        raise ValueError("qcp_step: state must be (1, 32) and ctl (3,)")
+    if state.shape != (1, STATE_SLOTS) or ctl.shape != (CTL_SLOTS,):
+        raise ValueError(f"qcp_step: state must be (1, 32) and ctl ({CTL_SLOTS},)")
+
+
+def guard_status(err: float, best: float) -> int:
+    """The guard's status word for ``err`` given the least error so far:
+    non-finite, diverged (``err > DIVERGE_FACTOR * best``) or ok."""
+    if not math.isfinite(err):
+        return GUARD_NONFINITE
+    return GUARD_DIVERGED if err > DIVERGE_FACTOR * best else GUARD_OK
+
+
+def least(err: float, best: float) -> float:
+    """The guard's least error so far after ``err`` (K2's ``err < best``)."""
+    return err if err < best else best
 
 
 def record_error(ctl: torch.Tensor, errs: torch.Tensor, err: float,
-                 threshold: float, converge: bool = True) -> None:
+                 threshold: float, converge: bool = True, status: int = GUARD_OK) -> None:
     """The loop bookkeeping of K2, on the host: errs[it] = err, it += 1, and
-    done when the bound is reached or (``converge``) ``not err >=
-    threshold``."""
-    it, _, bound = ctl.tolist()
+    done when the bound is reached, (``converge``) ``not err >=
+    threshold``, or the guard's ``status`` is not ok (written to ctl[3])."""
+    it, _, bound, old = ctl.tolist()
     errs[it] = err
-    done = int(it + 1 >= bound or (converge and not err >= threshold))
-    ctl.copy_(torch.tensor([it + 1, done, bound], dtype=torch.int32))
+    done = int(it + 1 >= bound or (converge and not err >= threshold) or status != GUARD_OK)
+    ctl.copy_(torch.tensor([it + 1, done, bound, status or old], dtype=torch.int32))
 
 
 def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
-                   threshold=-math.inf, err_factor=2.0, converge=True) -> None:
+                   threshold=-math.inf, err_factor=2.0, converge=True, guard=False) -> None:
     """Plain version of K2 (same operation order, Python float64)."""
     if int(ctl[1]):
         step = [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
@@ -160,8 +188,24 @@ def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
             a[k] += row[k]
     prev = state[0].tolist()
     out, resid, n = _alignment_update(a, prev, with_scale)
+    err = _div(err_factor * resid, n)
+    best = math.inf if int(ctl[0]) == 0 else prev[BEST_SLOT]
+    status = guard_status(err, best) if guard else GUARD_OK
+    if guard:
+        out[BEST_SLOT] = least(err, best)
     state.copy_(torch.tensor([out], dtype=torch.float64))
-    record_error(ctl, errs, err_factor * resid / n, threshold, converge)
+    record_error(ctl, errs, err, threshold, converge, status)
+
+
+def _div(a: float, b: float) -> float:
+    """a / b with the kernel's IEEE result for b == 0 (a signed infinity,
+    or NaN for 0 / 0), where Python raises: a trimmed or masked step whose
+    weights are all 0 has n = 0."""
+    if b != 0.0:
+        return a / b
+    if a != a or a == 0.0:
+        return math.nan
+    return math.copysign(math.inf, a) * math.copysign(1.0, b)
 
 
 def _mx(a: float, b: float) -> float:
@@ -252,7 +296,7 @@ def _alignment_update(a, prev, with_scale):
     """(new 32-slot state, residual_sum, n) from the 18 summed statistics
     and the previous state (``alignment_update_scalars``, qcp_pallas.py:47)."""
     n = a[17]
-    inv_n = 1.0 / n
+    inv_n = _div(1.0, n)
     mu_p = [a[9 + k] * inv_n for k in range(3)]
     mu_y = [a[12 + k] * inv_n for k in range(3)]
     S = [[a[3 * r + c] - n * mu_p[r] * mu_y[c] for c in range(3)] for r in range(3)]

@@ -20,10 +20,16 @@ GICP also take the scene's).  The ``bf16`` cell is the symmetric engine
 with ``nn_method="bf16"`` (K9 each iteration) on cow_tr1, and the ``k5``
 cell the point-to-point loop with ``nn_method="bcast"`` and
 ``solver="qcp_fused"`` (K5 each iteration, the rest torch) on cow_tr1.
-``--cells`` picks cells (``cow``, ``horse``, ``1M``, ``bf16``, ``k5``;
-default all);
+The ``trim`` cells are the point-to-point loop with ``trim_fraction=0.1``:
+cow_tr1 on the pipeline (K1 + the quantile + K2), horse_tr1 and the 1M
+pair on the grid path (K4, the quantile of its distances, K2); their
+``host_waits`` count the loop's flag reads (one a chunk of 8 iterations)
+and any other wait.
+``--cells`` picks cells (``cow``, ``horse``, ``1M``, ``bf16``, ``k5``,
+``trim``; default all);
 ``--root`` names the checkout whose ``icp_tpu_torch`` is profiled (default
-this one), so two commits can be profiled in one call with this script.
+this one; it needs ``engine/plane.py``), so two commits can be profiled in
+one call with this script.
 Chrome traces go to ``--out`` (default ``chiprun_out/profile``).
 """
 
@@ -48,7 +54,7 @@ OURS = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel", "qcp_step_kernel",
         "nn_grid_epilogue_kernel", "qcp_rotation_kernel", "knn_dense_kernel",
         "knn_grid_plan_kernel", "knn_grid_fold_kernel", "knn_grid_merge_kernel",
         "nn_chunked_kernel", "nn_bf16_kernel", "nn_bf16_prep_kernel", "nn_bf16_fold_kernel")
-CELLS = ("cow", "horse", "1M", "bf16", "k5")
+CELLS = ("cow", "horse", "1M", "bf16", "k5", "trim")
 
 
 def _us(event) -> float:
@@ -140,6 +146,7 @@ def main(argv=None) -> int:
     import icp_tpu_torch
     from icp_tpu_torch import ICPConfig, icp_symmetric
     from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.engine.plane import run_engine
     from icp_tpu_torch.ops.normals import estimate_normals
 
     os.makedirs(args.out, exist_ok=True)
@@ -158,6 +165,21 @@ def main(argv=None) -> int:
         profile_cell("cow_k5", "engine=point_to_point nn=bcast solver=qcp_fused",
                      lambda i: float(icp_fixed_iters(model, scene, n_iters=i, solver="qcp_fused",
                                                      nn_method="bcast").err), 20, args.out)
+    if "trim" in cells_on:
+        for name, ref, scene_file, nn, k in (
+                ("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
+                ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20),
+                ("1M", None, None, "grid", 10)):
+            if ref is None:
+                model, scene, _ = chip_smoke.scale_pair(0)
+            else:
+                model = torch.tensor(chip_smoke._load(ref), **f32)
+                scene = torch.tensor(chip_smoke._load(scene_file), **f32)
+            profile_cell(f"{name}_trim", f"engine=point_to_point path={nn} trim=0.1",
+                         lambda i: float(icp_fixed_iters(model, scene, n_iters=i,
+                                                         solver="qcp_fused", nn_method=nn,
+                                                         trim_fraction=0.1).err), k, args.out)
+            del model, scene
     cells = [("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
              ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20), ("1M", None, None, "grid", 10)]
     for name, ref, scene_file, nn, k in cells:
@@ -178,10 +200,11 @@ def main(argv=None) -> int:
         scene_normals = estimate_normals(scene, method=method)
         for engine, short in (("point_to_plane", "p2pl"), ("symmetric", "sym"), ("gicp", "gicp")):
             profile_cell(f"{name}_{short}", f"engine={engine} path={nn}",
-                         lambda i: float(chip_smoke.run_plane_engine(
+                         lambda i: float(run_engine(
                              engine, model, scene,
                              ICPConfig(max_iter=i, threshold=-math.inf, nn_method=nn),
-                             normals, scene_normals).err), k, args.out)
+                             model_normals=normals, scene_normals=scene_normals).err),
+                         k, args.out)
         del model, scene, normals, scene_normals
     return 0
 

@@ -294,11 +294,11 @@ def test_qcp_step_loop_control():
     parts = tq.pack_stats(ts)
     state, ctl, errs = tq.identity_state(), tq.new_loop_control(5), tq.new_err_buffer(5)
     tq.qcp_step(parts, state, ctl, errs, threshold=1e-5, err_factor=2.0)
-    assert ctl.tolist() == [1, 1, 5]  # exact fit: err below threshold at once
+    assert ctl.tolist() == [1, 1, 5, 0]  # exact fit: err below threshold at once
     assert errs[0] < 1e-5 and math.isnan(float(errs[1]))
     total = state[0, 13:26].clone()
     tq.qcp_step(parts, state, ctl, errs, threshold=1e-5, err_factor=2.0)
-    assert ctl.tolist() == [1, 1, 5]
+    assert ctl.tolist() == [1, 1, 5, 0]
     np.testing.assert_array_equal(state[0, 13:26].numpy(), total.numpy())
     np.testing.assert_array_equal(state[0, :13].numpy(),
                                   [1, 1, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0])
@@ -311,6 +311,6 @@ def test_qcp_step_bound_ends_loop_and_cpu_counts_nothing():
     _build.reset_counts()
     for _ in range(2):
         tq.qcp_step(parts, state, ctl, errs, threshold=1e-5)
-    assert ctl.tolist() == [2, 1, 2]
+    assert ctl.tolist() == [2, 1, 2, 0]
     assert not torch.isnan(errs).any()
     assert _build.LAUNCHES["qcp_step"] == 0  # CPU tensors take the plain version

@@ -1,6 +1,6 @@
-"""K1-K10 on the card against their plain versions, K2's fixed mode, and
-the symmetric and GICP grid loops against their dense loops (``cuda``
-marker).
+"""K1-K10 on the card against their plain versions, K2's fixed mode, K2's
+and K3's guard status word, the trimmed loop's launches, and the symmetric
+and GICP grid loops against their dense loops (``cuda`` marker).
 
 These need a CUDA device and ``nvcc``; without a card they skip.  On a
 machine with one:
@@ -114,7 +114,7 @@ def test_qcp_step_kernel_fixed_mode_runs_to_the_bound(dev):
             st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(5, dev), qcp.new_err_buffer(5, dev)
             for _ in range(7):
                 fn(parts, st, ctl, errs, threshold=1e-5, converge=converge)
-            assert ctl.tolist() == [want, 1, 5]
+            assert ctl.tolist() == [want, 1, 5, 0]
             assert bool(torch.isnan(errs[:want]).all())
             outs.append(st)
         assert torch.equal(torch.isnan(outs[0]), torch.isnan(outs[1]))
@@ -281,7 +281,7 @@ def test_icp_fused_kernel_when_done_writes_the_identity_step(dev):
     prep = icp_fused.prepare_fused_inputs(_cloud(15, 3000).to(dev), _cloud(16, 2000).to(dev))
     st = _warm_state(dev)
     st[0, :13] = torch.arange(13, dtype=torch.float64, device=dev)
-    ctl = torch.tensor([3, 1, 8], dtype=torch.int32, device=dev)
+    ctl = torch.tensor([3, 1, 8, 0], dtype=torch.int32, device=dev)
     errs = qcp.new_err_buffer(8, dev)
     before = st.clone()
     icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5)
@@ -289,7 +289,7 @@ def test_icp_fused_kernel_when_done_writes_the_identity_step(dev):
     want = torch.zeros(13, dtype=torch.float64, device=dev)
     want[[0, 1, 5, 9]] = 1.0
     assert torch.equal(st[0, :13], want) and torch.equal(st[0, 13:], before[0, 13:])
-    assert ctl.tolist() == [3, 1, 8] and bool(torch.isnan(errs).all())
+    assert ctl.tolist() == [3, 1, 8, 0] and bool(torch.isnan(errs).all())
     assert _workspace_clean(prep)
 
 
@@ -681,3 +681,99 @@ def test_plane_engines_grid_matches_dense_on_the_card(dev, engine):
     dense = run(model, scene, ICPConfig(nn_method="pallas", **base), **kw)
     assert int(grid.iters) == int(dense.iters) > 1
     torch.testing.assert_close(grid.points, dense.points, rtol=0, atol=1e-5)
+
+
+def _diverging_rows(dev):
+    """(1, 18) float64 sums of a cloud and its copy moved by noise whose
+    error jumps more than 100x above the least so far at the third row."""
+    from icp_tpu_torch.ops.alignment import compute_alignment_stats
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for sigma in (0.05, 0.03, 0.6, 0.01):
+        p = torch.tensor(rng.standard_normal((200, 3)), device=dev)
+        y = p + sigma * torch.tensor(rng.standard_normal((200, 3)), device=dev)
+        rows.append(qcp.pack_stats(compute_alignment_stats(p, y)).contiguous())
+    return rows
+
+
+def _same_nan(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("case", ["diverged", "nonfinite", "unguarded"])
+def test_qcp_step_kernel_status_word_matches_plain(dev, case):
+    """K2's guard: the status word, the least error in slot 28 and the
+    state bit-equal to the plain version step by step; unguarded, the
+    status stays 0 and slot 28 is written 0, as before the guard."""
+    rows = _diverging_rows(dev)
+    if case == "nonfinite":
+        rows[1] = rows[1].clone()
+        rows[1][0, 3] = float("nan")
+    outs = []
+    for fn in (qcp.qcp_step, qcp.qcp_step_plain):
+        st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(8, dev), qcp.new_err_buffer(8, dev)
+        words = []
+        for r in rows:
+            fn(r, st, ctl, errs, with_scale=False, err_factor=1.0, threshold=-float("inf"),
+               guard=case != "unguarded")
+            words.append(ctl.tolist())
+        outs.append((st, words, errs))
+    (sk, wk, ek), (sp, wp, ep) = outs
+    assert wk == wp and _same_nan(sk, sp) and _same_nan(ek, ep)
+    if case == "diverged":
+        assert wk[2] == wk[3] == [3, 1, 8, qcp.GUARD_DIVERGED]
+        assert float(sk[0, qcp.BEST_SLOT]) == float(ek[1])
+    elif case == "nonfinite":
+        assert wk[1] == [2, 1, 8, qcp.GUARD_NONFINITE]
+    else:
+        assert wk[3] == [4, 0, 8, 0] and float(sk[0, qcp.BEST_SLOT]) == 0.0
+
+
+def test_icp_fused_kernel_status_word_matches_plain(dev):
+    """K3's last block runs K2's guarded step: a NaN scene row gives status
+    1 at once, as the plain version; on a clean cloud the guarded launch
+    writes the unguarded state but for slot 28 (the least error)."""
+    scene, model = _cloud(31, 3000), _cloud(32, 2000)
+    bad = scene.clone()
+    bad[5, 1] = float("nan")
+    for cloud, status in ((bad, qcp.GUARD_NONFINITE), (scene, qcp.GUARD_OK)):
+        prep = icp_fused.prepare_fused_inputs(cloud.to(dev), model.to(dev))
+        runs = []
+        for guard in (True, False):
+            st, ctl, errs = qcp.identity_state(dev), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+            icp_fused.fused_icp_step(prep, st, ctl, errs, threshold=1e-5, guard=guard)
+            runs.append((st, ctl, errs))
+        (st, ctl, errs), (ust, uctl, uerrs) = runs
+        pst, pctl, perrs = qcp.identity_state(dev), qcp.new_loop_control(4, dev), qcp.new_err_buffer(4, dev)
+        qcp.qcp_step_plain(prep.rows, pst, pctl, perrs, threshold=1e-5, guard=True)
+        assert ctl.tolist() == pctl.tolist() == [1, int(status != 0), 4, status]
+        assert _same_nan(st, pst) and _same_nan(errs, perrs)
+        assert _same_nan(st[0, :qcp.BEST_SLOT], ust[0, :qcp.BEST_SLOT]) and _same_nan(errs, uerrs)
+        assert uctl.tolist()[3] == 0 and float(ust[0, qcp.BEST_SLOT]) == 0.0
+
+
+@pytest.mark.parametrize("bucketed", [False, True], ids=["trimmed", "trimmed_bucketed"])
+def test_trimmed_loop_launches_one_k1_and_one_k2_an_iteration(dev, bucketed):
+    """The trimmed cow loop takes the pipeline: a K1 and a K2 launch each
+    launched iteration (whole chunks of 8), no K3, 8 iterations as the JAX
+    fixture; bucket padding (4,096 rows) changes neither."""
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.engine.icp import _CHUNK
+    from icp_tpu_torch.io.csv import load_matrix
+    from icp_tpu_torch.ops.padding import pad_to_bucket
+
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+    ref, tr1 = (load_matrix(os.path.join(data, f)) for f in ("cow_ref.txt", "cow_tr1.txt"))
+    kw = {}
+    if bucketed:
+        (ref, m_n), (tr1, s_n) = pad_to_bucket(ref), pad_to_bucket(tr1)
+        kw = dict(scene_n=s_n, model_n=m_n)
+    _build.reset_counts()
+    res = icp(ref, tr1, ICPConfig(max_iter=30, trim_fraction=0.1), **kw)
+    iters = int(res.iters)
+    launched = min(30, -(-iters // _CHUNK) * _CHUNK)
+    assert iters == 8
+    assert _build.LAUNCHES["nn_dense"] == _build.LAUNCHES["qcp_step"] == launched
+    assert _build.LAUNCHES["icp_fused"] == 0

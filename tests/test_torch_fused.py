@@ -75,10 +75,10 @@ def test_fused_step_after_done_is_a_no_op():
     prep = tf.prepare_fused_inputs(p, p * 1.1)
     state, ctl, errs = tq.identity_state(), tq.new_loop_control(1), tq.new_err_buffer(1)
     tf.fused_icp_step(prep, state, ctl, errs, threshold=1e-5, err_factor=2.0)
-    assert ctl.tolist() == [1, 1, 1]  # the bound of 1 is reached
+    assert ctl.tolist() == [1, 1, 1, 0]  # the bound of 1 is reached
     before = state.clone()
     tf.fused_icp_step(prep, state, ctl, errs, threshold=1e-5, err_factor=2.0)
-    assert ctl.tolist() == [1, 1, 1]
+    assert ctl.tolist() == [1, 1, 1, 0]
     np.testing.assert_array_equal(state[0, 13:].numpy(), before[0, 13:].numpy())
     assert float(state[0, 0]) == 1.0 and float(state[0, 10:13].abs().sum()) == 0.0
 

@@ -128,7 +128,14 @@ def test_cli_gicp_matches_jax_fixtures(tmp_path, name, iters):
 
 
 def test_trim_is_not_ported():
+    """Trim, which raised ``NotImplementedError`` before it was ported, runs
+    as JAX's trimmed GICP (float64, same normals: the same iterations,
+    points within atol 1e-8)."""
     model, scene, nm, ns, _, _ = _case(6, n_model=200, n_scene=200)
-    with pytest.raises(NotImplementedError):
-        icp_generalized(model, scene, ICPConfig(trim_fraction=0.1), model_normals=nm,
-                        scene_normals=ns, device="cpu")
+    base = dict(max_iter=20, trim_fraction=0.1, nn_method="bcast", threshold=1e-12)
+    jres = j_gicp.icp_generalized(model, scene, icp_tpu.ICPConfig(dtype=jnp.float64, **base),
+                                  model_normals=nm, scene_normals=ns)
+    res = icp_generalized(model, scene, ICPConfig(dtype=torch.float64, **base),
+                          model_normals=nm, scene_normals=ns, device="cpu")
+    assert int(res.iters) == int(jres.iters) >= 2
+    np.testing.assert_allclose(res.points.numpy(), np.asarray(jres.points), atol=1e-8)

@@ -140,14 +140,23 @@ def test_guard_raises_on_non_finite(cow):
 
 
 def test_input_checks_and_options_not_ported(cow):
+    """The input checks, and the two options that raised
+    ``NotImplementedError`` before they were ported: trim runs, and
+    ``guard="device"`` leaves a clean run bit-equal to the unguarded one."""
     with pytest.raises(ValueError, match="same number"):
         icp(cow["ref"], cow["cow_tr1"][:100], device="cpu")
     with pytest.raises(ValueError, match="at least 4"):
         icp(cow["ref"][:3], cow["cow_tr1"][:3], device="cpu")
-    with pytest.raises(NotImplementedError):
-        icp(cow["ref"], cow["cow_tr1"], ICPConfig(trim_fraction=0.1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        icp(cow["ref"], cow["cow_tr1"], guard="device", device="cpu")
+    trimmed = icp(cow["ref"], cow["cow_tr1"], ICPConfig(max_iter=10, trim_fraction=0.1),
+                  device="cpu")
+    assert 1 <= int(trimmed.iters) <= 10 and math.isfinite(float(trimmed.err))
+    plain = icp(cow["ref"], cow["cow_tr1"], ICPConfig(max_iter=10), device="cpu")
+    guarded = icp(cow["ref"], cow["cow_tr1"], ICPConfig(max_iter=10), guard="device",
+                  device="cpu")
+    assert int(guarded.iters) == int(plain.iters) == GOLDEN_ITERS["cow_tr1"]
+    assert torch.equal(guarded.points, plain.points)
+    with pytest.raises(ValueError, match="guard"):
+        icp(cow["ref"], cow["cow_tr1"], guard="host", device="cpu")
 
 
 def test_auto_resolution_mirrors_jax():

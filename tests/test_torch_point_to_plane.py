@@ -131,9 +131,18 @@ def test_rodrigues_matches_jax():
 
 
 def test_options_not_ported_and_default_device(monkeypatch):
-    model, scene, _, _, _ = _case(seed=5, n_model=200, n_scene=200)
-    with pytest.raises(NotImplementedError):
-        icp_point_to_plane(model, scene, ICPConfig(trim_fraction=0.1), device="cpu")
+    """Trim, which raised ``NotImplementedError`` before it was ported, runs
+    as JAX's trimmed point-to-plane (float64, same normals: the same
+    iterations, points within atol 1e-8); the input check and the card
+    default stay."""
+    model, scene, normals, _, _ = _case(seed=5, n_model=200, n_scene=200)
+    base = dict(max_iter=20, trim_fraction=0.1, nn_method="bcast", threshold=1e-12)
+    jres = j_p2pl(model, scene, icp_tpu.ICPConfig(dtype=jnp.float64, **base),
+                  normals=jnp.asarray(normals))
+    res = icp_point_to_plane(model, scene, ICPConfig(dtype=torch.float64, **base),
+                             normals=normals, device="cpu")
+    assert int(res.iters) == int(jres.iters) >= 2
+    np.testing.assert_allclose(res.points.numpy(), np.asarray(jres.points), atol=1e-8)
     with pytest.raises(ValueError, match="same number"):
         icp_point_to_plane(model, scene[:100], ICPConfig(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -146,22 +155,23 @@ def _fixture_trace(fixdir, name):
         return [float(e) for _, e in _TRACE_RE.findall(f.read())]
 
 
-def check_cli_against_fixtures(tmp_path, engine, fixdir, name, iters):
-    """``--engine engine --device cpu`` on cow_ref + ``name`` (30 iterations)
-    against the JAX CLI's trace and ``output.txt`` in ``fixdir``."""
+def check_cli_against_fixtures(tmp_path, engine, fixdir, name, iters, extra=(), prefix=""):
+    """``--engine engine --device cpu`` (and ``extra`` flags) on cow_ref +
+    ``name`` (30 iterations) against the JAX CLI's trace and ``output.txt``
+    in ``fixdir`` (files ``{prefix}{name}_*``)."""
     r = run_cli([data_path("cow_ref.txt"), data_path(f"{name}.txt"), "30",
-                 "--engine", engine, "--device", "cpu"], tmp_path)
+                 "--engine", engine, "--device", "cpu", *extra], tmp_path)
     assert r.returncode == 0, r.stderr
     pairs = _TRACE_RE.findall(r.stderr)
     assert [int(i) for i, _ in pairs] == list(range(iters))
     got = np.array([float(e) for _, e in pairs])
-    want = np.array(_fixture_trace(fixdir, name))
+    want = np.array(_fixture_trace(fixdir, prefix + name))
     assert len(want) == iters
     big = want > 1e-6
     np.testing.assert_allclose(got[big], want[big], rtol=1e-2)
     assert np.all(got[~big] < 1e-5)  # below the convergence threshold, as JAX
     np.testing.assert_allclose(load_matrix(str(tmp_path / "output.txt")),
-                               load_matrix(os.path.join(fixdir, f"{name}_output.txt")),
+                               load_matrix(os.path.join(fixdir, f"{prefix}{name}_output.txt")),
                                atol=1e-5)
 
 

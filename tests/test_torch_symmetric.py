@@ -21,7 +21,8 @@ import torch
 import icp_tpu
 from icp_tpu.engine.symmetric import icp_symmetric as j_sym
 from icp_tpu.ops.normals import estimate_normals as j_normals
-from icp_tpu_torch import ICPConfig, icp, icp_generalized, icp_point_to_plane, icp_symmetric
+from icp_tpu_torch import ICPConfig, icp_symmetric
+from icp_tpu_torch.engine.plane import ENGINES, run_engine
 from icp_tpu_torch.kernels import nn_bf16
 from icp_tpu_torch.utils.convert import similarity_from_numpy, similarity_to_numpy
 from tests.test_symmetric import _rigid, _surface
@@ -105,11 +106,7 @@ def test_warm_start_and_estimated_normals_match_jax():
                                atol=1e-9)
 
 
-ENGINES = {"icp": icp, "point_to_plane": icp_point_to_plane, "symmetric": icp_symmetric,
-           "gicp": icp_generalized}
-
-
-@pytest.mark.parametrize("engine", sorted(ENGINES))
+@pytest.mark.parametrize("engine", ENGINES)
 def test_bf16_reaches_the_prefilter_in_every_engine(monkeypatch, engine):
     """``nn_method="bf16"`` goes through ``ops/distance`` to K9 (its plain
     version on the CPU), once per launched iteration, and still registers
@@ -127,11 +124,11 @@ def test_bf16_reaches_the_prefilter_in_every_engine(monkeypatch, engine):
     R, t = _rigid(rng, 0.1)
     scene = model @ R.T + t
     cfg = ICPConfig(max_iter=40, threshold=1e-10, nn_method="bf16", validate_inputs=False)
-    res = ENGINES[engine](model.astype(np.float32), scene.astype(np.float32), cfg,
-                          device="cpu")
+    res = run_engine(engine, model.astype(np.float32), scene.astype(np.float32), cfg,
+                     device="cpu")
     iters = int(res.iters)
     # the gated loops launch whole chunks of 8; icp's host loop stops at once
-    steps = iters if engine == "icp" else min(40, 8 * math.ceil(iters / 8))
+    steps = iters if engine == "point_to_point" else min(40, 8 * math.ceil(iters / 8))
     assert calls == [500] * steps and iters >= 1
     if engine == "symmetric":
         dev = np.linalg.norm(res.points.numpy() - model.astype(np.float32), axis=1)
@@ -144,7 +141,14 @@ def test_cli_symmetric_matches_jax_fixtures(tmp_path, name, iters):
 
 
 def test_trim_is_not_ported():
+    """Trim, which raised ``NotImplementedError`` before it was ported, runs
+    as JAX's trimmed symmetric engine (float64, same normals: the same
+    iterations, points within atol 1e-8)."""
     model, scene, nm, ns, _, _ = _case(5, n_model=200, n_scene=200)
-    with pytest.raises(NotImplementedError):
-        icp_symmetric(model, scene, ICPConfig(trim_fraction=0.1), normals=nm,
-                      scene_normals=ns, device="cpu")
+    base = dict(max_iter=20, trim_fraction=0.1, nn_method="bcast", threshold=1e-12)
+    jres = j_sym(model, scene, icp_tpu.ICPConfig(dtype=jnp.float64, **base), normals=nm,
+                 scene_normals=ns)
+    res = icp_symmetric(model, scene, ICPConfig(dtype=torch.float64, **base), normals=nm,
+                        scene_normals=ns, device="cpu")
+    assert int(res.iters) == int(jres.iters) >= 2
+    np.testing.assert_allclose(res.points.numpy(), np.asarray(jres.points), atol=1e-8)
