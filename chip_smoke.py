@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``icp_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,scale]
+    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,scale]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -28,7 +28,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      float32 and float64 statistics, bit-equal to plain, one launch a
      call; K8 at cow and the grid seed, bit-equal to plain and to K1, three
      launches alike with its merge workspace clean after each, its and
-     K1's device microseconds a call beside each other;
+     K1's device microseconds a call beside each other; K6 and K7 at k = 64
+     (lists of two slots a lane, the neighbours FPFH fetches): K6 on bun000
+     subsampled to 4,026 rows and on the tied lattice, K7's seed and exact
+     launches on horse, exactly equal to plain, the K7 path equal to K6;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (grid
@@ -69,7 +72,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``icp_resumable`` killed after one chunk of 3 and resumed, bit-equal
      to the uninterrupted chunked run; metrics — the CLI's ``--metrics
      --metrics-ops`` on cow and horse;
-  6. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
+  6. slam (``[slam]`` lines): ``icp_batched`` at B = 8 on cow and cow moved
+     by seeded similarities, 10 iterations, bcast/eigh held to each pair's
+     ``icp_fixed_iters`` and pallas/qcp_fused (K3, one launch a pair and
+     iteration) bit-equal to it; ``register_chain_batched`` on the five
+     bunny scans at full resolution (bcast/eigh held to the padded pairs,
+     and "auto": the grid path pair by pair); ``global_register`` on two
+     partly overlapping bunny crops held to the known pose; the
+     ``icp-slam-torch`` CLI at the JAX fixture's flags
+     (``tests/fixtures/torch_slam/``) held to its pairs, closures and
+     poses, and at full resolution with ``--init fpfh --detect-closures
+     --refine`` (closure 0<-4, trimmed errors under 5e-4, the closure's
+     inconsistency shrunk by the pose graph), with its wall seconds and
+     launches;
+  7. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
      jitter, a known similarity): K4 on the first and the third grid
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
@@ -139,6 +155,13 @@ PLANE_CASES = {
 BOTH_NORMALS = ("symmetric", "gicp")
 TRACE_RTOL = 1e-2  # on entries > 1e-6: float32 coordinates, see ROADMAP C6
 NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
+FPFH_K = 64  # the neighbours fpfh_features fetches: max(k + 1, orient_k = 64)
+BUNNY = ["bun000", "bun045", "bun180", "bun270", "bun315"]
+# The closure threshold of the full-resolution SLAM run: 2,048 random rows
+# of a whole scan score the closure 0<-4 at 0.093 (the port) and 0.098
+# (JAX, seed 0) on the CPU, below the CLI's default 0.15 in both, and the
+# best wrong pair at 0.034-0.044; 0.06 lies between.
+FULL_CLOSURE_MIN = 0.06
 # The card's peaks for the bounds (H100 SXM data sheet, the on-chip
 # measurement table): float32 outside the tensor cores, and HBM3.
 PEAK_FLOPS = 67e12
@@ -438,7 +461,7 @@ def tied_lattice(seed: int):
 
 
 def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
-                phase: str = "kernels") -> dict:
+                phase: str = "kernels", k: int = NORMAL_K) -> dict:
     """K7's seed and exact launches (and, with ``cap1``, the exact pass on
     a capacity-1 table) for the kd-sorted query ``q`` against ``kgrid``:
     each held bit for bit against its plain version (on the query tiles
@@ -447,13 +470,13 @@ def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
     tiles past the capacity, work items and folded pairs."""
     import torch
 
-    from icp_tpu_torch.kernels import knn_grid, nn_grid
+    from icp_tpu_torch.kernels import _build, knn_grid, nn_grid
 
     nj, tm = kgrid.tiles.shape[0], kgrid.model_tile
     bd2 = nn_grid.tile_box_dists(q, kgrid, scene_tile=tn)
-    seed_tab = knn_grid.seed_table(bd2, NORMAL_K, tm)
-    d_seed, _ = knn_grid.knn_worklist(*seed_tab, q, kgrid.tiles, tn, NORMAL_K)
-    kth = d_seed[:, NORMAL_K - 1].contiguous()
+    seed_tab = knn_grid.seed_table(bd2, k, tm)
+    d_seed, _ = knn_grid.knn_worklist(*seed_tab, q, kgrid.tiles, tn, k)
+    kth = d_seed[:, k - 1].contiguous()
     tables = {"seed": (seed_tab, None),
               "exact": (knn_grid.cull_table(bd2, kth, tn, min(cap, nj)), kth)}
     if cap1:
@@ -462,8 +485,10 @@ def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
     heavy = q.shape[0] > 100_000
     out = {}
     for label, ((cand, counts), kb) in tables.items():
-        args = (cand, counts, q, kgrid.tiles, tn, NORMAL_K)
+        args = (cand, counts, q, kgrid.tiles, tn, k)
+        before = _build.LAUNCHES["knn_grid"]
         dk, ik = knn_grid.knn_worklist(*args, bound=kb)
+        launches = _build.LAUNCHES["knn_grid"] - before
         if sample is None:
             dp, ip = knn_grid.knn_worklist_plain(*args, bound=kb)
             rows = slice(None)
@@ -472,7 +497,7 @@ def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
             rows = (sel[:, None] * tn + torch.arange(tn, device=q.device)).flatten()
             dp, ip = knn_grid.knn_worklist_plain(
                 cand[sel].contiguous(), counts[sel].contiguous(), q[rows].contiguous(),
-                kgrid.tiles, tn, NORMAL_K, None if kb is None else kb[rows].contiguous())
+                kgrid.tiles, tn, k, None if kb is None else kb[rows].contiguous())
         require(torch.equal(ik[rows], ip), f"K7 {label}: indices differ from plain")
         err = max_abs(dk[rows], dp)
         require(err == 0.0, f"K7 {label}: d2 differs from plain by {err}")
@@ -486,12 +511,13 @@ def k7_launches(q, kgrid, tn: int, cap: int, *, cap1: bool = False, sample=None,
             plain_ms = cuda_ms(lambda: knn_grid.knn_worklist_plain(*args, bound=kb), 2, warmup=1)
         shape = k7_table(cand, counts, nj, tm, tn)
         ops = PAIR_OPS * shape["folded_pairs"]
-        nbts = nbytes(cand, counts, q, kgrid.tiles, kb) + 8 * q.shape[0] * NORMAL_K
+        nbts = nbytes(cand, counts, q, kgrid.tiles, kb) + 8 * q.shape[0] * k
         b = bound(ops, nbts)
         out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "ops": ops,
                       "bytes": nbts}
-        say(phase, kernel="knn_grid", launch=label, tiles=f"{cand.shape[0]}x{nj}", query_tile=tn,
-            capacity=cand.shape[1], **shape, with_bound=kb is not None,
+        say(phase, kernel="knn_grid", launch=label, k=k, tiles=f"{cand.shape[0]}x{nj}",
+            query_tile=tn,
+            capacity=cand.shape[1], **shape, with_bound=kb is not None, launches=launches,
             checked_tiles="all" if sample is None else int(sel.numel()), equal_plain=True,
             ms=f"{ms:.4f}", plain_ms="not timed" if plain_ms is None else f"{plain_ms:.4f}",
             bound_ms=f"{b[0]:.4f}", bound_by=b[1])
@@ -794,6 +820,40 @@ def phase_kernels(seed: int, record: dict):
                                      sum(v["bytes"] for v in main7)))
     say("kernels", kernel="knn_grid", shape="48485x48485", k=NORMAL_K, equal_to_knn_dense=True,
         ms=f"{record['knn_grid']['ms']:.4f}", bound_ms=f"{record['knn_grid']['bound_ms']:.4f}")
+
+    # K6 and K7 at k = 64, lists of two slots a lane: the neighbours FPFH
+    # fetches.  K6 on bun000 subsampled to at most 4,096 rows as
+    # global_register subsamples it, and on the tied lattice; K7's seed and
+    # exact launches on horse (fpfh_features' grid path, tiles of 256 and
+    # 64); each exactly equal to its plain version, and the K7 path to K6.
+    bun = torch.tensor(_load("bun000.txt"), **f32)
+    bun_sub = bun[::-(-bun.shape[0] // 4096)].contiguous()
+    for label, q, pts in (("bunny_fpfh", bun_sub, bun_sub), ("lattice", lat_q, lat_p)):
+        before = _build.LAUNCHES["knn_dense"]
+        dk, ik = knn_dense.knn_dense(q, pts, FPFH_K)
+        launches = _build.LAUNCHES["knn_dense"] - before
+        dp, ip = knn_dense.knn_dense_plain(q, pts, FPFH_K)
+        require(torch.equal(ik, ip) and torch.equal(dk, dp),
+                f"K6 {label} k {FPFH_K}: differs from plain")
+        n, m = q.shape[0], pts.shape[0]
+        b = bound(PAIR_OPS * n * m, 12 * (n + m) + 8 * n * FPFH_K)
+        say("kernels", kernel="knn_dense", case=f"{label}_k{FPFH_K}", shape=f"{n}x{m}",
+            k=FPFH_K, launches=launches, equal_plain=True,
+            ties_share=f"{float((dk[:, 1:] == dk[:, :-1]).double().mean()):.4f}",
+            ms=f"{cuda_ms(lambda: knn_dense.knn_dense(q, pts, FPFH_K), 20):.4f}",
+            plain_ms=f"{cuda_ms(lambda: knn_dense.knn_dense_plain(q, pts, FPFH_K), 5):.4f}",
+            bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    k7_long = k7_launches(q7, kgrid, tn7, 32, k=FPFH_K)
+    idx_long = knn_indices(horse_ref, FPFH_K, method="grid")
+    d6, i6 = knn_dense.knn_dense(horse_ref, horse_ref, FPFH_K)
+    require(torch.equal(idx_long, i6), f"K7 k {FPFH_K}: horse neighbours differ from K6")
+    b = bound(sum(v["ops"] for v in k7_long.values() if "ops" in v),
+              sum(v["bytes"] for v in k7_long.values() if "bytes" in v))
+    say("kernels", kernel="knn_grid", case=f"horse_k{FPFH_K}", shape="48485x48485", k=FPFH_K,
+        equal_to_knn_dense=True, ms=f"{k7_long['seed']['ms'] + k7_long['exact']['ms']:.4f}",
+        plain_ms=f"{k7_long['seed']['plain_ms'] + k7_long['exact']['plain_ms']:.4f}",
+        k6_ms=f"{cuda_ms(lambda: knn_dense.knn_dense(horse_ref, horse_ref, FPFH_K), 5):.4f}",
+        bound_ms=f"{b[0]:.4f}", bound_by=b[1])
 
     # K8: K1's shapes (cow 2,903^2, the grid seed 49,152 x 3,031); indices
     # equal to K1's and to the plain version's, three launches alike and
@@ -1879,12 +1939,276 @@ def phase_scale(seed: int):
         holder.clear()
 
 
+def _similarity_np(rng, max_deg: float):
+    """(R, s, t): a rotation of up to ``max_deg`` degrees about a seeded axis,
+    a scale within 3% of 1 and a small shift."""
+    import numpy as np
+
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    ang = np.deg2rad(rng.uniform(0.5, max_deg))
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    R = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+    return R, rng.uniform(0.97, 1.03), 0.05 * rng.standard_normal(3)
+
+
+def _slam_batched(seed: int) -> dict:
+    """``icp_batched`` at B = 8 on cow-size pairs (cow_ref and cow_ref moved
+    by seeded similarities), 10 fixed iterations: the default path
+    (bcast/eigh, tensor ops with a pair axis) held to ``icp_fixed_iters``
+    pair by pair, and the kernel path (``pallas``/``qcp_fused``: K3, one
+    launch an iteration a pair) bit-equal to each pair's own run."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch.engine.batched import icp_batched
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    rng = np.random.default_rng(seed + 10)
+    cow = _load("cow_ref.txt").astype(np.float32)
+    n_pairs, n_iters = 8, 10
+    models = np.repeat(cow[None], n_pairs, 0)
+    scenes = []
+    for _ in range(n_pairs):
+        R, sc, t = _similarity_np(rng, 8.0)
+        scenes.append((sc * cow @ R.T + t).astype(np.float32))
+    scenes = np.stack(scenes)
+    launches = {}
+    for path, kw in (("bcast_eigh", dict(solver="eigh", nn_method="bcast")),
+                     ("pallas_qcp_fused", dict(solver="qcp_fused", nn_method="pallas"))):
+        res, used = _counted(lambda: icp_batched(models, scenes, n_iters=n_iters, **kw))
+        seconds = statistics.median(
+            _wall(lambda: icp_batched(models, scenes, n_iters=n_iters, **kw)) for _ in range(3))
+        worst_p = worst_e = 0.0
+        for b in range(n_pairs):
+            one = icp_fixed_iters(models[b], scenes[b], n_iters=n_iters, **kw)
+            if path == "pallas_qcp_fused":
+                require(torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
+                        and all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform)),
+                        f"slam batched {path}: pair {b} differs from its own run")
+            worst_p = max(worst_p, max_abs(res.points[b], one.points))
+            # float32 sums over a pair axis (bcast) against one pair's:
+            # errors within rtol 1e-4 / atol 1e-7 and points within 1e-5
+            # (JAX's batched test)
+            worst_e = max(worst_e, abs(float(res.err[b]) - float(one.err))
+                          - 1e-4 * abs(float(one.err)))
+        require(worst_p <= 1e-5 and worst_e <= 1e-7,
+                f"slam batched {path}: {worst_p:.3g} / {worst_e:.3g} from the per-pair runs")
+        if path == "pallas_qcp_fused":
+            require(used["icp_fused"] == n_pairs * n_iters and used["nn_dense"] == 0
+                    and used["qcp_step"] == 0, f"slam batched {path}: K3 path not taken ({used})")
+            _add(launches, used)
+        err = res.err.double()
+        require(bool(torch.isfinite(err).all()) and float(err.max()) < 1e-4,
+                f"slam batched {path}: errors {err.tolist()}")
+        say("slam", case="icp_batched", path=path, pairs=n_pairs, rows=cow.shape[0],
+            iters=n_iters, points_max_abs_err_vs_pair=f"{worst_p:.3e}",
+            err_excess_over_rtol_vs_pair=f"{worst_e:.3e}", bit_equal=path == "pallas_qcp_fused",
+            err_max=f"{float(err.max()):.3e}", ms=f"{seconds * 1e3:.3f}",
+            ms_per_pair=f"{seconds * 1e3 / n_pairs:.3f}",
+            ms_per_pair_iter=f"{seconds * 1e3 / n_pairs / n_iters:.4f}", launches=used)
+    return launches
+
+
+def _slam_chain_batched() -> dict:
+    """``register_chain_batched`` on the five bunny scans at full resolution
+    (unequal counts bucketed to 40,960 rows), 10 fixed iterations: the
+    default path (bcast/eigh, one batch) held to each padded pair's
+    ``icp_fixed_iters``, and ``"auto"`` (the grid path pair by pair: K1's
+    seed, K4 and K2 each iteration)."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch.engine.batched import register_chain_batched
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.ops.padding import auto_quantum, bucket_size, pad_to_bucket
+
+    clouds = [_load(f"{v}.txt").astype(np.float32) for v in BUNNY]
+    n_pairs, n_iters = len(clouds) - 1, 10
+    launches = {}
+    for path, kw in (("bcast_eigh", {}), ("auto", dict(solver="auto", nn_method="auto"))):
+        out, used = _counted(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
+        seconds = _wall(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
+        require(len(out) == n_pairs and all(
+            r.points.shape == (len(c), 3) and bool(torch.isfinite(r.points).all())
+            for r, c in zip(out, clouds[1:])), f"slam chain {path}: bad results")
+        worst = 0.0
+        if path == "bcast_eigh":
+            pad = max(len(c) for c in clouds)  # batch_pairs' bucket
+            pad = bucket_size(pad, auto_quantum(pad))
+            for b in range(n_pairs):
+                mp, mn = pad_to_bucket(clouds[b], n_pad=pad)
+                sp, sn = pad_to_bucket(clouds[b + 1], n_pad=pad)
+                one = icp_fixed_iters(mp, sp, n_iters=n_iters, scene_n=sn, model_n=mn)
+                worst = max(worst, max_abs(out[b].transform.R, one.transform.R),
+                            max_abs(out[b].transform.t, one.transform.t))
+            require(worst <= 1e-4, f"slam chain {path}: {worst:.3g} from the per-pair runs")
+        else:
+            require(used["nn_grid"] >= n_pairs * n_iters and used["qcp_step"] >= n_pairs * n_iters
+                    and used["nn_dense"] >= n_pairs, f"slam chain {path}: grid path ({used})")
+            _add(launches, used)
+        say("slam", case="register_chain_batched", path=path, pairs=n_pairs,
+            rows=",".join(str(len(c)) for c in clouds), iters=n_iters,
+            transform_max_abs_err_vs_pair=f"{worst:.3e}" if path == "bcast_eigh" else "n/a",
+            errs=",".join(f"{float(r.err):.3e}" for r in out), ms=f"{seconds * 1e3:.1f}",
+            ms_per_pair=f"{seconds * 1e3 / n_pairs:.1f}", launches=used)
+    return launches
+
+
+def _slam_global_register() -> dict:
+    """``global_register`` on two partly overlapping crops of bun000 (a
+    third of each shared), the scene moved by 150 degrees about z and a
+    shift, as tests/test_global_reg.py builds them: the pose within 6
+    degrees and 0.03 of the truth, that test's bounds."""
+    import numpy as np
+
+    from icp_tpu_torch.engine.global_reg import global_register
+
+    pts = _load("bun000.txt").astype(np.float32)
+    x = pts[:, 0]
+    lo, hi = x.min(), x.max()
+    a = pts[x < lo + 0.6 * (hi - lo)]
+    b = pts[x > lo + 0.4 * (hi - lo)]
+    a, b = a[::max(1, a.shape[0] // 1500)], b[::max(1, b.shape[0] // 1500)]
+    th = np.deg2rad(150.0)
+    R = np.array([[np.cos(th), -np.sin(th), 0.0], [np.sin(th), np.cos(th), 0.0],
+                  [0.0, 0.0, 1.0]], np.float32)
+    t = np.array([0.3, -0.2, 0.1], np.float32)
+    scene = (b @ R.T + t).astype(np.float32)
+    res, used = _counted(lambda: global_register(a, scene, seed=0))
+    seconds = _wall(lambda: global_register(a, scene, seed=0))
+    R_got, t_got = res.transform.R.cpu().numpy(), res.transform.t.cpu().numpy()
+    rot = float(np.rad2deg(np.arccos(np.clip((np.trace(R_got @ R) - 1.0) / 2.0, -1.0, 1.0))))
+    dt = float(np.linalg.norm(t_got - (-R.T @ t)))
+    require(rot < 6.0 and dt < 0.03, f"slam global_register: {rot:.3f} deg, {dt:.4f} off")
+    require(used["knn_dense"] >= 3, f"slam global_register: K6 not taken ({used})")
+    say("slam", case="global_register", model_rows=a.shape[0], scene_rows=b.shape[0],
+        rot_err_deg=f"{rot:.4f}", t_err=f"{dt:.5f}", mutual=int(res.n_mutual),
+        inlier_fraction=f"{float(res.inlier_fraction):.4f}", ms=f"{seconds * 1e3:.1f}",
+        launches=used)
+    return used
+
+
+_SLAM_PAIR_RE = re.compile(r"\[slam\] pair (\d+)->(\d+): iters=(\d+) err=(\S+)")
+_SLAM_CLOSURE_RE = re.compile(r"\[slam\] closure candidate (\d+)<-(\d+): inliers=(\S+)")
+_SLAM_DRIFT_RE = re.compile(r"\[slam\] closure (\d+)<-(\d+) inconsistency: rot (\S+) -> (\S+), "
+                            r"trans (\S+) -> (\S+)")
+
+
+def _run_slam_cli(args: list[str], device: str = "cuda"):
+    """(exit code, stderr, seconds, launches) of one ``icp-slam-torch`` run,
+    the launch counts set to 0 just before it and read just after."""
+    import torch
+
+    from icp_tpu_torch.kernels import _build
+    from icp_tpu_torch.slam.cli import main as slam_main
+
+    _build.reset_counts()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = slam_main([*args, "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rc, err.getvalue(), time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def _slam_cli_fixture(tmp: str, device: str = "cuda") -> dict:
+    """``icp-slam-torch`` on the five scans with the JAX fixture's flags
+    (``tests/fixtures/torch_slam/README.md``): the same closure pairs, each
+    pair's iterations, its error within rtol 1e-2, and the poses within
+    5e-3 (R) and 5e-4 (t): RANSAC draws differ, the dense path is K1 and
+    K6 on the card against JAX's bcast on the CPU."""
+    import numpy as np
+
+    fix = os.path.join(FIXTURES, "torch_slam")
+    with open(os.path.join(fix, "README.md")) as f:
+        line = next(ln for ln in f if "icp_tpu.slam.cli" in ln)
+    args = [os.path.join(ROOT, a) if a.startswith("data/") else a
+            for a in line.split("icp_tpu.slam.cli", 1)[1].split()]
+    poses = os.path.join(tmp, "fixture_poses.npz")
+    rc, err, seconds, used = _run_slam_cli(
+        args + ["--output-prefix", os.path.join(tmp, "fixture_"), "--poses", poses], device)
+    require(rc == 0, f"slam cli fixture: exit {rc}\n{err[-3000:]}")
+    with open(os.path.join(fix, "stderr.txt")) as f:
+        want = f.read()
+    got_pairs, want_pairs = _SLAM_PAIR_RE.findall(err), _SLAM_PAIR_RE.findall(want)
+    require([g[:3] for g in got_pairs] == [w[:3] for w in want_pairs],
+            f"slam cli fixture: pairs/iterations {got_pairs} against {want_pairs}")
+    err_rel = max(abs(float(g[3]) - float(w[3])) / float(w[3])
+                  for g, w in zip(got_pairs, want_pairs))
+    require(err_rel <= 1e-2, f"slam cli fixture: errors {err_rel:.3g} relative from JAX's")
+    got_c = [c[:2] for c in _SLAM_CLOSURE_RE.findall(err)]
+    require(got_c == [c[:2] for c in _SLAM_CLOSURE_RE.findall(want)],
+            f"slam cli fixture: closures {got_c}")
+    got, ref = np.load(poses), np.load(os.path.join(fix, "poses.npz"))
+    dR, dt = float(np.abs(got["R"] - ref["R"]).max()), float(np.abs(got["t"] - ref["t"]).max())
+    require(dR <= 5e-3 and dt <= 5e-4, f"slam cli fixture: poses {dR:.3g} / {dt:.3g} off")
+    say("slam", case="cli_fixture", flags=" ".join(a for a in args if not a.startswith(ROOT)),
+        pairs=";".join(f"{g[0]}->{g[1]}:{g[2]}:{g[3]}" for g in got_pairs),
+        closures=",".join(f"{c[0]}<-{c[1]}" for c in got_c), err_max_rel_err=f"{err_rel:.3e}",
+        poses_R_max_abs_err=f"{dR:.3e}", poses_t_max_abs_err=f"{dt:.3e}",
+        seconds=f"{seconds:.2f}", launches=used)
+    return used
+
+
+def _slam_cli_full(tmp: str, device: str = "cuda", subsample: int = 1) -> dict:
+    """``icp-slam-torch`` on the five scans at full resolution (31,702-40,257
+    rows: the grid path, K7 normals) with ``--engine point_to_plane --init
+    fpfh --trim 0.3 --multiscale 4 1 --detect-closures --closure-min-inliers
+    0.06 --refine``: closure 0<-4 found, every pair's trimmed error under 5e-4, and the pose graph
+    shrinking the closure's inconsistency (to 0.6 of it, rotation and
+    translation), as tests/test_bunny_chain.py asks of its chain."""
+    import numpy as np
+
+    flags = ["--subsample", str(subsample), "--engine", "point_to_plane", "--init", "fpfh",
+             "--trim", "0.3", "--multiscale", "4", "1", "--detect-closures",
+             "--closure-min-inliers", str(FULL_CLOSURE_MIN), "--refine"]
+    poses = os.path.join(tmp, "full_poses.npz")
+    rc, err, seconds, used = _run_slam_cli(
+        [os.path.join(ROOT, "data", f"{v}.txt") for v in BUNNY] + flags
+        + ["--output-prefix", os.path.join(tmp, "full_"), "--poses", poses], device)
+    require(rc == 0, f"slam cli full: exit {rc}\n{err[-3000:]}")
+    pairs = _SLAM_PAIR_RE.findall(err)
+    require(len(pairs) == 4 and all(float(p[3]) < 5e-4 for p in pairs),
+            f"slam cli full: pair errors {pairs}")
+    closures = _SLAM_CLOSURE_RE.findall(err)
+    require(("0", "4") in [c[:2] for c in closures], f"slam cli full: closures {closures}")
+    drift = {(d[0], d[1]): tuple(map(float, d[2:])) for d in _SLAM_DRIFT_RE.findall(err)}
+    require(("0", "4") in drift, f"slam cli full: no pose graph over closure 0<-4\n{err[-2000:]}")
+    r0, r1, t0, t1 = drift[("0", "4")]
+    require(r1 < 0.6 * r0 and t1 < 0.6 * t0,
+            f"slam cli full: closure inconsistency rot {r0} -> {r1}, trans {t0} -> {t1}")
+    ba = re.search(r"\[slam\] bundle adjust: cost=(\S+)", err)
+    got = np.load(poses)
+    require(ba is not None and all(bool(np.isfinite(got[k]).all()) for k in "sRt"),
+            f"slam cli full: bundle adjustment\n{err[-2000:]}")
+    say("slam", case="cli_full_resolution", flags=" ".join(flags),
+        pairs=";".join(f"{p[0]}->{p[1]}:{p[2]}:{p[3]}" for p in pairs),
+        closures=",".join(f"{c[0]}<-{c[1]}:{c[2]}" for c in closures),
+        rot_inconsistency=f"{r0:.4g}->{r1:.4g}", trans_inconsistency=f"{t0:.4g}->{t1:.4g}",
+        bundle_adjust_cost=ba.group(1), wall_seconds=f"{seconds:.2f}",
+        **{f"launches_{k}": used[k] for k in ("nn_dense", "icp_fused", "nn_grid", "knn_dense",
+                                              "knn_grid")}, launches=used)
+    return used
+
+
+def phase_slam(seed: int, tmp: str) -> dict:
+    """The slam phase: batching, global registration and the SLAM CLI on the
+    card; returns the launches of the main-path runs."""
+    launches = {}
+    for used in (_slam_batched(seed), _slam_chain_batched(), _slam_global_register(),
+                 _slam_cli_fixture(tmp), _slam_cli_full(tmp)):
+        _add(launches, used)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,cli,features,scale",
-                    help="comma list of kernels, cli, features, scale (device and build "
-                         "always run)")
+    ap.add_argument("--phases", default="kernels,cli,features,slam,scale",
+                    help="comma list of kernels, cli, features, slam, scale (device and "
+                         "build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1912,6 +2236,9 @@ def main(argv=None) -> int:
     if "features" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             _add(launches, phase_features(tmp))
+    if "slam" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            _add(launches, phase_slam(args.seed, tmp))
     if "scale" in phases:
         phase_scale(args.seed)
     kernels = []

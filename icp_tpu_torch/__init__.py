@@ -9,6 +9,14 @@ PyTorch version.
 """
 
 from icp_tpu_torch.config import GRID_AUTO_THRESHOLD, ICPConfig
+from icp_tpu_torch.engine.batched import batch_pairs, icp_batched, register_chain_batched
+from icp_tpu_torch.engine.global_reg import (
+    GlobalRegResult,
+    compatibility_scores,
+    global_register,
+    match_features,
+    ransac_alignment,
+)
 from icp_tpu_torch.engine.icp import (
     ICPGuardError,
     ICPResult,
@@ -31,6 +39,7 @@ from icp_tpu_torch.ops.alignment import (
     find_alignment,
 )
 from icp_tpu_torch.ops.distance import closest_point_indices
+from icp_tpu_torch.ops.fpfh import fpfh_features
 from icp_tpu_torch.ops.normals import estimate_normals, orient_normals
 from icp_tpu_torch.ops.padding import auto_quantum, pad_to_bucket
 from icp_tpu_torch.ops.transform import (
@@ -39,6 +48,23 @@ from icp_tpu_torch.ops.transform import (
     identity_similarity,
     inverse,
 )
+from icp_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_np
+from icp_tpu_torch.slam.closure import (
+    ClosureCandidate,
+    chain_edges_from_pairs,
+    detect_loop_closures,
+    overlap_fraction,
+    refine_closures,
+    verified_inlier_fraction,
+)
+from icp_tpu_torch.slam.pairwise import (
+    PairwiseResult,
+    chain_to_world_poses,
+    initialize_pca,
+    register_chain,
+    register_pair,
+)
+from icp_tpu_torch.slam.pose_graph import PoseEdge, bundle_adjust, optimize_pose_graph
 
 __version__ = "0.1.0"
 
@@ -73,4 +99,29 @@ __all__ = [
     "compose",
     "identity_similarity",
     "inverse",
+    "icp_batched",
+    "batch_pairs",
+    "register_chain_batched",
+    "voxel_downsample",
+    "voxel_downsample_np",
+    "fpfh_features",
+    "GlobalRegResult",
+    "match_features",
+    "compatibility_scores",
+    "ransac_alignment",
+    "global_register",
+    "PairwiseResult",
+    "initialize_pca",
+    "register_pair",
+    "register_chain",
+    "chain_to_world_poses",
+    "PoseEdge",
+    "optimize_pose_graph",
+    "bundle_adjust",
+    "ClosureCandidate",
+    "detect_loop_closures",
+    "overlap_fraction",
+    "verified_inlier_fraction",
+    "chain_edges_from_pairs",
+    "refine_closures",
 ]

@@ -28,26 +28,33 @@
 //  2. fold (persistent blocks, as many as the SMs hold): a block takes the
 //     next item from the counter (a 32-way search finds its tile) and
 //     streams its tiles through a kStages-deep ring of 128-row float4
-//     stages filled by cp.async.  Each warp holds kQ = 8 queries of the
-//     tile, and for each a k-best list across its 32 lanes: one 64-bit key
-//     (d2 bits high, original index low) a lane, ascending, so the
-//     lexicographic (d2, index) order is one compare.  Lane l reads row l
-//     of a 32-row batch once and computes its distance to each of the
-//     warp's queries (8 independent chains); each query filters the batch
-//     with one integer compare against min(slot k-1's bits, its limit) and
-//     one ballot.  Survivors are appended to the query's 32-key buffer in
-//     shared memory (the ballot's prefix count is a lane's place); a full
-//     buffer, and the last at the item's end, is sorted across the warp
-//     (bitonic) and merged into the list in one step: the element-wise
-//     least of the list and the reversed buffer holds the 32 least keys as
-//     a bitonic sequence, and five half-cleaner stages sort it.  No lane
-//     runs a chain alone, no list is indexed at run time, and there is no
-//     local memory.  The limit is the caller's bound (the seed pass's k-th
+//     stages filled by cp.async.  Each warp holds Q queries of the tile
+//     (8 at one slot, 4 at more), and for each a k-best list across its 32 lanes
+//     in SLOTS = ceil(k / 32) register slots a lane (a template parameter,
+//     1, 2 or 4, so k <= 128; entry e = 32 s + l is slot s of lane l, and
+//     every slot index is a compile-time constant: a list indexed at run
+//     time spills to local memory): one 64-bit key an entry (d2 bits high,
+//     original index low), ascending, so the lexicographic (d2, index)
+//     order is one compare.  Lane l reads row l of a 32-row batch once and
+//     computes its distance to each of the warp's queries (Q independent
+//     chains); each query filters the batch with one integer compare
+//     against min(entry k-1's bits, its limit) and one ballot.  Survivors
+//     are appended to the query's 32-key buffer in shared memory (the
+//     ballot's prefix count is a lane's place); a full buffer, and the last
+//     at the item's end, is sorted across the warp (bitonic) and merged
+//     into the list in one step: the element-wise least of the list and
+//     the reversed buffer (which touches the last slot only) holds the
+//     32 SLOTS least keys as a bitonic sequence, and log2(32 SLOTS)
+//     half-cleaner stages sort it (across slots in registers, within a slot
+//     by shuffles).  No lane runs a chain alone, and there is no local
+//     memory.  The limit is the caller's bound (the seed pass's k-th
 //     distance of the point: every true neighbour is within it, so rows
-//     beyond it are no candidates) or, without one, the k-th least of the
-//     lanes' minima over the item's rows (32 distinct rows: no row beyond
-//     it is among the item's k nearest).  A tile of one item writes its
-//     lists to the output; the items of a longer list write theirs to
+//     beyond it are no candidates) or, without one, a bound from the
+//     lanes' SLOTS least distances over the item's rows (the lanes' last
+//     kept values sorted across the warp: the j-th is at or above
+//     (j + 1) SLOTS distinct rows, j + 1 = ceil(k / SLOTS), so no row
+//     beyond it is among the item's k nearest).  A tile of one item writes
+//     its lists to the output; the items of a longer list write theirs to
 //     scratch slots.
 //  3. merge (a block a query tile of more than one item, a warp a query):
 //     the k lexicographically least keys of the query's partial lists, 32
@@ -65,8 +72,8 @@
 
 namespace {
 
-constexpr int kQ = 8;             // queries a warp
-constexpr int kGroup = 64;        // queries a block folds in one pass over its rows: 8 warps
+constexpr int kWarps = 8;         // a block of the fold: Q queries a warp, 8 Q a pass
+constexpr int kMaxK = 128;        // 4 slots a lane
 constexpr int kStageRows = 128;   // float4 rows a ring stage (tm is a multiple of 128)
 constexpr int kStages = 4;        // ring depth: 8 KB of shared memory
 constexpr unsigned kFull = 0xffffffffu;
@@ -177,24 +184,58 @@ __device__ __forceinline__ T warp_sort(T v, int lane) {
   return v;
 }
 
-// The 32 least keys of the sorted list l and the sorted batch b, sorted:
-// the element-wise least of l and b reversed is a bitonic sequence that
-// holds them, and five half-cleaner stages sort it.
-__device__ __forceinline__ u64 warp_merge(u64 l, u64 b, int lane) {
-  u64 v = umin64(l, __shfl_sync(kFull, b, 31 - lane));
+// Entry s of a lane's slots, selected without a run-time index.
+template <int S>
+__device__ __forceinline__ u64 slot_at(const u64 (&key)[S], int s) {
+  u64 v = key[0];
 #pragma unroll
-  for (int stride = 16; stride > 0; stride >>= 1) {
-    const u64 other = __shfl_xor_sync(kFull, v, stride);
-    v = (lane & stride) == 0 ? umin64(v, other) : umax64(v, other);
-  }
+  for (int t = 1; t < S; ++t)
+    if (t == s) v = key[t];
   return v;
 }
 
-// One query's k-best list across the warp (key l in lane l, ascending by
-// (d2 bits, original index)), its filter kb = min(slot k-1's bits, lim)
+// Entry k-1 of the list, in every lane.
+template <int S>
+__device__ __forceinline__ u64 kth_key(const u64 (&key)[S], int k) {
+  return __shfl_sync(kFull, slot_at(key, (k - 1) >> 5), (k - 1) & 31);
+}
+
+// The list (entry e = 32 s + lane, ascending) becomes the 32 S least keys
+// of itself and the sorted batch b (one key a lane): the element-wise least
+// of the list and b reversed (b's 32 keys, reversed, face the last slot;
+// the rest of the reversed batch is empty) is a bitonic sequence that holds
+// them, and the half-cleaner stages sort it: strides of 32 and more across
+// slots in registers, then five shuffle stages within each slot.
+template <int S>
+__device__ __forceinline__ void list_merge(u64 (&key)[S], u64 b, int lane) {
+  key[S - 1] = umin64(key[S - 1], __shfl_sync(kFull, b, 31 - lane));
+#pragma unroll
+  for (int half = S / 2; half > 0; half >>= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if ((s & half) == 0) {
+        const u64 lo = umin64(key[s], key[s + half]);
+        key[s + half] = umax64(key[s], key[s + half]);
+        key[s] = lo;
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      const u64 other = __shfl_xor_sync(kFull, key[s], stride);
+      key[s] = (lane & stride) == 0 ? umin64(key[s], other) : umax64(key[s], other);
+    }
+  }
+}
+
+// One query's k-best list across the warp (S slots a lane, ascending by
+// (d2 bits, original index)), its filter kb = min(entry k-1's bits, lim)
 // and its buffer of admitted rows in shared memory (cnt of 32 used).
+template <int S>
 struct QueryList {
-  u64 key;
+  u64 key[S];
   unsigned kb;
   int cnt;
 
@@ -202,8 +243,8 @@ struct QueryList {
   __device__ __forceinline__ void flush(const u64* buf, unsigned lim, int k, int lane) {
     __syncwarp();
     const u64 b = lane < cnt ? buf[lane] : kNoKey;
-    key = warp_merge(key, warp_sort(b, lane), lane);
-    kb = min(lim, key_bits(__shfl_sync(kFull, key, k - 1)));
+    list_merge(key, warp_sort(b, lane), lane);
+    kb = min(lim, key_bits(kth_key(key, k)));
     cnt = 0;
     __syncwarp();
   }
@@ -223,13 +264,15 @@ __device__ __forceinline__ unsigned row_index(float w) {
   return w < 16777216.f ? static_cast<unsigned>(w) : static_cast<unsigned>(INT_MAX);
 }
 
-__global__ void __launch_bounds__(kGroup / kQ * 32)
+template <int S, int Q>
+__global__ void __launch_bounds__(kWarps * 32)
 knn_grid_fold_kernel(const int* __restrict__ cand, const int* __restrict__ counts, int ni, int cap,
                      int g, int gf, const float* __restrict__ query,
                      const float* __restrict__ bound, int tn, int nj, int tm,
                      const float4* __restrict__ tiles, int k, int* __restrict__ plan,
                      u64* __restrict__ scratch, float* __restrict__ d2_out,
                      int* __restrict__ idx_out) {
+  constexpr int kGroup = kWarps * Q;  // queries a block folds in one pass over its rows
   __shared__ __align__(16) float4 ring[kStages][kStageRows];
   __shared__ u64 s_buf[kGroup][32];   // each query's buffer of admitted rows
   __shared__ unsigned s_lim[kGroup];  // each query's limit
@@ -279,45 +322,57 @@ knn_grid_fold_kernel(const int* __restrict__ cand, const int* __restrict__ count
     };
 
     for (int q0 = 0; q0 < tn; q0 += kGroup) {  // one pass over the rows a group of queries
-      const int qw = q0 + warp * kQ;            // the warp's first query
-      const int nq = max(0, min(kQ, tn - qw));  // uniform in the warp
-      unsigned* lim = s_lim + warp * kQ;
-      u64* const buf = &s_buf[warp * kQ][0];  // query j's buffer: buf + 32 * j
-      float px[kQ], py[kQ], pz[kQ];
-      QueryList L[kQ];
+      const int qw = q0 + warp * Q;             // the warp's first query
+      const int nq = max(0, min(Q, tn - qw));   // uniform in the warp
+      unsigned* lim = s_lim + warp * Q;
+      u64* const buf = &s_buf[warp * Q][0];  // query j's buffer: buf + 32 * j
+      float px[Q], py[Q], pz[Q];
+      QueryList<S> L[Q];
 #pragma unroll
-      for (int j = 0; j < kQ; ++j) {
+      for (int j = 0; j < Q; ++j) {
         const long long row = static_cast<long long>(ti) * tn + qw + j;
         px[j] = j < nq ? query[3 * row] : 0.f;
         py[j] = j < nq ? query[3 * row + 1] : 0.f;
         pz[j] = j < nq ? query[3 * row + 2] : 0.f;
-        L[j].key = kEmptyKey;
+#pragma unroll
+        for (int s = 0; s < S; ++s) L[j].key[s] = kEmptyKey;
         L[j].cnt = 0;
         L[j].kb = bound != nullptr && j < nq ? min(kEmptyBits, __float_as_uint(bound[row]))
                                              : kEmptyBits;
       }
       if (bound == nullptr && nq > 0) {
-        // each lane's least distance over its rows of the item (32 distinct
-        // rows): their k-th least bounds the item's k-th distance
-        unsigned lmin[kQ];
+        // each lane's S least distances over its rows of the item (distinct
+        // rows), ascending; the lanes' last kept values sorted across the
+        // warp bound the item's k-th distance
+        unsigned lmin[Q][S];
 #pragma unroll
-        for (int j = 0; j < kQ; ++j) lmin[j] = kFull;
+        for (int j = 0; j < Q; ++j)
+#pragma unroll
+          for (int s = 0; s < S; ++s) lmin[j][s] = kFull;
         for (int t = 0; t < n_tiles; ++t) {
           const float4* rows = tiles + static_cast<long long>(tile_of(t0 + t)) * tm;
 #pragma unroll 4
           for (int r = lane; r < tm; r += 32) {
             const float4 q = __ldg(rows + r);
 #pragma unroll
-            for (int j = 0; j < kQ; ++j)
-              lmin[j] = min(lmin[j], __float_as_uint(sqdist_rn(px[j], py[j], pz[j], q)));
+            for (int j = 0; j < Q; ++j) {
+              unsigned v = __float_as_uint(sqdist_rn(px[j], py[j], pz[j], q));
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const unsigned lo = min(lmin[j][s], v);
+                v = max(lmin[j][s], v);
+                lmin[j][s] = lo;
+              }
+            }
           }
         }
+        const int kr = (k + S - 1) / S - 1;
 #pragma unroll
-        for (int j = 0; j < kQ; ++j)  // no branch: the kQ sorts interleave
-          L[j].kb = min(kEmptyBits, __shfl_sync(kFull, warp_sort(lmin[j], lane), k - 1));
+        for (int j = 0; j < Q; ++j)  // no branch: the Q sorts interleave
+          L[j].kb = min(kEmptyBits, __shfl_sync(kFull, warp_sort(lmin[j][S - 1], lane), kr));
       }
 #pragma unroll
-      for (int j = 0; j < kQ; ++j)
+      for (int j = 0; j < Q; ++j)
         if (j < nq && lane == 0) lim[j] = L[j].kb;
       __syncwarp();
 
@@ -336,18 +391,18 @@ knn_grid_fold_kernel(const int* __restrict__ cand, const int* __restrict__ count
           const float4 q = ring_s[r0 + lane];
           // every query's distance and filter first (independent chains),
           // then the appends of the few survivors
-          unsigned bits[kQ], surv[kQ], any = 0;
+          unsigned bits[Q], surv[Q], any = 0;
 #pragma unroll
-          for (int j = 0; j < kQ; ++j) bits[j] = __float_as_uint(sqdist_rn(px[j], py[j], pz[j], q));
+          for (int j = 0; j < Q; ++j) bits[j] = __float_as_uint(sqdist_rn(px[j], py[j], pz[j], q));
 #pragma unroll
-          for (int j = 0; j < kQ; ++j) {
+          for (int j = 0; j < Q; ++j) {
             surv[j] = j < nq ? __ballot_sync(kFull, bits[j] <= L[j].kb) : 0u;
             any |= surv[j];
           }
           if (any) {
             const unsigned ri = row_index(q.w);
 #pragma unroll
-            for (int j = 0; j < kQ; ++j) {
+            for (int j = 0; j < Q; ++j) {
               const u64 row_key = (static_cast<u64>(bits[j]) << 32) | ri;
               if (surv[j]) L[j].append(buf + 32 * j, lim[j], surv[j], row_key, k, lane);
             }
@@ -357,19 +412,24 @@ knn_grid_fold_kernel(const int* __restrict__ cand, const int* __restrict__ count
       cp_async_wait<0>();  // no copy of this pass stays in flight
 
 #pragma unroll
-      for (int j = 0; j < kQ; ++j)  // no branch: the kQ sorts and merges interleave
+      for (int j = 0; j < Q; ++j)  // no branch: the Q sorts and merges interleave
         L[j].flush(buf + 32 * j, lim[j], k, lane);
 #pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        if (j < nq && lane < k) {
+      for (int j = 0; j < Q; ++j) {
+        if (j < nq) {
           const long long qi = qw + j;
-          if (f.items == 1) {
-            const long long o = (static_cast<long long>(ti) * tn + qi) * k + lane;
-            d2_out[o] = __uint_as_float(key_bits(L[j].key));
-            idx_out[o] = static_cast<int>(static_cast<unsigned>(L[j].key));
-          } else {
-            const long long slot = plan[ni + 2 + ti] + c;
-            scratch[(slot * tn + qi) * k + lane] = L[j].key;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const int e = 32 * s + lane;
+            if (e >= k) continue;
+            if (f.items == 1) {
+              const long long o = (static_cast<long long>(ti) * tn + qi) * k + e;
+              d2_out[o] = __uint_as_float(key_bits(L[j].key[s]));
+              idx_out[o] = static_cast<int>(static_cast<unsigned>(L[j].key[s]));
+            } else {
+              const long long slot = plan[ni + 2 + ti] + c;
+              scratch[(slot * tn + qi) * k + e] = L[j].key[s];
+            }
           }
         }
       }
@@ -378,6 +438,7 @@ knn_grid_fold_kernel(const int* __restrict__ cand, const int* __restrict__ count
   }
 }
 
+template <int S>
 __global__ void __launch_bounds__(256)
 knn_grid_merge_kernel(const int* __restrict__ counts, int ni, int cap, int g, int gf, int tn,
                       int nj, int k, const int* __restrict__ plan,
@@ -390,30 +451,37 @@ knn_grid_merge_kernel(const int* __restrict__ counts, int ni, int cap, int g, in
   const long long slot0 = plan[ni + 2 + ti];
   const int n_keys = f.items * k;
   for (int qi = threadIdx.x >> 5; qi < tn; qi += blockDim.x >> 5) {
-    u64 list = kEmptyKey;
+    u64 list[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) list[s] = kEmptyKey;
     unsigned kb = kEmptyBits;
     for (int e0 = 0; e0 < n_keys; e0 += 32) {
       const int e = e0 + lane;
       u64 key = e < n_keys ? scratch[((slot0 + e / k) * tn + qi) * k + e % k] : kNoKey;
       if (key == kEmptyKey || key_bits(key) > kb) key = kNoKey;
       if (__ballot_sync(kFull, key != kNoKey)) {  // 32 partial keys a step
-        list = warp_merge(list, warp_sort(key, lane), lane);
-        kb = key_bits(__shfl_sync(kFull, list, k - 1));
+        list_merge(list, warp_sort(key, lane), lane);
+        kb = key_bits(kth_key(list, k));
       }
     }
-    if (lane < k) {
-      const long long o = (static_cast<long long>(ti) * tn + qi) * k + lane;
-      d2_out[o] = __uint_as_float(key_bits(list));
-      idx_out[o] = static_cast<int>(static_cast<unsigned>(list));
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int e = 32 * s + lane;
+      if (e < k) {
+        const long long o = (static_cast<long long>(ti) * tn + qi) * k + e;
+        d2_out[o] = __uint_as_float(key_bits(list[s]));
+        idx_out[o] = static_cast<int>(static_cast<unsigned>(list[s]));
+      }
     }
   }
 }
 
-// Blocks of `threads` threads of `kernel` the card holds at once (the
-// SMs' count times the blocks an SM holds), asked once a device.
-template <typename F>
+// Blocks of `threads` threads of the fold kernel with S slots the card
+// holds at once (the SMs' count times the blocks an SM holds), asked once
+// a device and instantiation.
+template <int S, typename F>
 int resident_blocks(F kernel, int threads, int* out) {
-  static int cached[64][2];  // (threads, blocks) per device
+  static int cached[64][2];  // (threads, blocks) per device, one table per S
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -431,6 +499,29 @@ int resident_blocks(F kernel, int threads, int* out) {
     cached[dev][0] = threads;
   }
   return 0;
+}
+
+// The fold and, where a tile has more than one item, the merge, with S
+// slots a lane (Q = 8 queries a warp at one slot, 4 at two and four: at
+// two slots and 8 queries ptxas spills the lists at its 128 registers).
+template <int S>
+int fold_and_merge(const int* cand, const int* counts, int ni, int cap, int g, int gf,
+                   const float* query, const float* bound, int tn, int nj, int tm,
+                   const float4* tiles, int k, int* plan, int items, unsigned long long* scratch,
+                   float* d2_out, int* idx_out, cudaStream_t stream) {
+  constexpr int Q = S >= 2 ? 4 : 8;
+  const int threads = (min(tn, kWarps * Q) + Q - 1) / Q * 32;
+  int resident = 0;  // persistent: at most one block an item
+  int code = resident_blocks<S>(knn_grid_fold_kernel<S, Q>, threads, &resident);
+  if (code != 0) return code;
+  knn_grid_fold_kernel<S, Q><<<min(items, resident), threads, 0, stream>>>(
+      cand, counts, ni, cap, g, gf, query, bound, tn, nj, tm, tiles, k, plan, scratch, d2_out,
+      idx_out);
+  code = static_cast<int>(cudaGetLastError());
+  if (code != 0 || scratch == nullptr) return code;
+  knn_grid_merge_kernel<S><<<ni, 256, 0, stream>>>(counts, ni, cap, g, gf, tn, nj, k, plan,
+                                                   scratch, d2_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -452,24 +543,20 @@ ICP_EXPORT int knn_grid_plan(const int* counts, int ni, int cap, int nj, int g, 
 }
 
 // items: the plan's total; scratch: its slots x tn x k 64-bit words (null
-// when there are none); bound: (ni * tn,) float32 or null.
+// when there are none); bound: (ni * tn,) float32 or null; k <= kMaxK.
 ICP_EXPORT int knn_grid_launch(const int* cand, const int* counts, int ni, int cap, int g, int gf,
                                const float* query, const float* bound, int tn, int nj, int tm,
                                const float4* tiles, int k, int* plan, int items,
                                unsigned long long* scratch, float* d2_out, int* idx_out,
                                cudaStream_t stream) {
-  if (ni < 1 || tn < 1 || k < 1 || k > 32 || tm % kStageRows != 0 || items < 1)
+  if (ni < 1 || tn < 1 || k < 1 || k > kMaxK || tm % kStageRows != 0 || items < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (min(tn, kGroup) + kQ - 1) / kQ * 32;
-  int resident = 0;  // persistent: at most one block an item
-  int code = resident_blocks(knn_grid_fold_kernel, threads, &resident);
-  if (code != 0) return code;
-  knn_grid_fold_kernel<<<min(items, resident), threads, 0, stream>>>(
-      cand, counts, ni, cap, g, gf, query, bound, tn, nj, tm, tiles, k, plan, scratch, d2_out,
-      idx_out);
-  code = static_cast<int>(cudaGetLastError());
-  if (code != 0 || scratch == nullptr) return code;
-  knn_grid_merge_kernel<<<ni, 256, 0, stream>>>(counts, ni, cap, g, gf, tn, nj, k, plan, scratch,
-                                                d2_out, idx_out);
-  return static_cast<int>(cudaGetLastError());
+  if (k <= 32)
+    return fold_and_merge<1>(cand, counts, ni, cap, g, gf, query, bound, tn, nj, tm, tiles, k,
+                             plan, items, scratch, d2_out, idx_out, stream);
+  if (k <= 64)
+    return fold_and_merge<2>(cand, counts, ni, cap, g, gf, query, bound, tn, nj, tm, tiles, k,
+                             plan, items, scratch, d2_out, idx_out, stream);
+  return fold_and_merge<4>(cand, counts, ni, cap, g, gf, query, bound, tn, nj, tm, tiles, k,
+                           plan, items, scratch, d2_out, idx_out, stream);
 }

@@ -15,7 +15,10 @@ import torch
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points
 
-MAX_K = 32  # the kernels' longest k-best list
+# The kernels' longest k-best list: 4 register slots a lane of a warp.  The
+# JAX kernels take any k <= len(points); above this the wrappers raise (on
+# the CPU too, so the two devices accept the same calls).
+MAX_K = 128
 _PLAIN_BLOCK_ELEMS = 1 << 24  # distance elements per block of the plain version
 
 
@@ -23,8 +26,8 @@ def check_k(fn: str, k: int, m: int) -> None:
     if k > m:
         raise ValueError(f"{fn}: k={k} exceeds point count {m}")
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"{fn}: k={k} outside 1..{MAX_K} (the kernels keep the "
-                         "k best in registers)")
+        raise ValueError(f"{fn}: k={k} outside 1..{MAX_K}: the kNN kernels keep the "
+                         f"k best in registers, at most {MAX_K}")
 
 
 def knn_dense(query: torch.Tensor, points: torch.Tensor, k: int):

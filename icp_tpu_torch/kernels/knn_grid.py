@@ -88,8 +88,7 @@ def knn_worklist(cand: torch.Tensor, counts: torch.Tensor, query: torch.Tensor,
     the missing places."""
     check_table("knn_grid", cand, counts, query, tiles, scene_tile)
     _check_bound(bound, query)
-    if not 1 <= k <= 32:
-        raise ValueError(f"knn_grid: k={k} outside 1..32")
+    check_k("knn_grid", k, k)
     dev = query.device
     if dev.type == "cpu":
         return knn_worklist_plain(cand, counts, query, tiles, scene_tile, k, bound)

@@ -29,29 +29,41 @@ from icp_tpu_torch.utils.precision import in_full_float32
 
 
 class AlignmentStats(NamedTuple):
-    """Sufficient statistics of a (p, y) correspondence set (plain sums)."""
+    """Sufficient statistics of a (p, y) correspondence set (plain sums),
+    with any leading batch axes."""
 
-    sum_p: torch.Tensor  # (3,)
-    sum_y: torch.Tensor  # (3,)
-    sum_py: torch.Tensor  # (3, 3) = sum_i p_i y_i^T
-    sum_pp: torch.Tensor  # () = sum_i ||p_i||^2
-    sum_yy: torch.Tensor  # () = sum_i ||y_i||^2
-    n: torch.Tensor  # () point count (float)
+    sum_p: torch.Tensor  # (..., 3)
+    sum_y: torch.Tensor  # (..., 3)
+    sum_py: torch.Tensor  # (..., 3, 3) = sum_i p_i y_i^T
+    sum_pp: torch.Tensor  # (...) = sum_i ||p_i||^2
+    sum_yy: torch.Tensor  # (...) = sum_i ||y_i||^2
+    n: torch.Tensor  # (...) point count (float)
 
 
 class Similarity(NamedTuple):
-    """A similarity transform y = s * R @ p + t."""
+    """A similarity transform y = s * R @ p + t (a batch of them with
+    leading axes on every field)."""
 
-    s: torch.Tensor  # () scale
-    R: torch.Tensor  # (3, 3) rotation
-    t: torch.Tensor  # (3,) translation
+    s: torch.Tensor  # (...) scale
+    R: torch.Tensor  # (..., 3, 3) rotation
+    t: torch.Tensor  # (..., 3) translation
+
+
+def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A @ x over leading batch axes (one matrix-vector product unbatched)."""
+    return A @ x if x.dim() == 1 else (A @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis (``torch.dot`` unbatched)."""
+    return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(-1)
 
 
 def compute_alignment_stats(p: torch.Tensor, y: torch.Tensor, acc_dtype=None,
                             weights: torch.Tensor | None = None) -> AlignmentStats:
-    """Accumulate the alignment statistics of (N, 3) clouds in ``acc_dtype``
-    (default: ``p.dtype``).  ``weights`` (N,): optional per-row weights;
-    ``n`` becomes their sum.
+    """Accumulate the alignment statistics of (..., N, 3) clouds in
+    ``acc_dtype`` (default: ``p.dtype``); leading axes are a batch.
+    ``weights`` (..., N): optional per-row weights; ``n`` becomes their sum.
 
     The 3x3 cross term is a matmul: in float32 it needs full float32, which
     the entry points guarantee (``utils.precision.full_float32``)."""
@@ -60,73 +72,80 @@ def compute_alignment_stats(p: torch.Tensor, y: torch.Tensor, acc_dtype=None,
     ya = y.to(acc_dtype)
     if weights is None:
         return AlignmentStats(
-            sum_p=pa.sum(0),
-            sum_y=ya.sum(0),
-            sum_py=pa.T @ ya,
-            sum_pp=(pa * pa).sum(),
-            sum_yy=(ya * ya).sum(),
-            n=torch.tensor(float(p.shape[0]), dtype=acc_dtype, device=p.device),
+            sum_p=pa.sum(-2),
+            sum_y=ya.sum(-2),
+            sum_py=pa.transpose(-1, -2) @ ya,
+            sum_pp=(pa * pa).sum((-2, -1)),
+            sum_yy=(ya * ya).sum((-2, -1)),
+            n=torch.full(p.shape[:-2], float(p.shape[-2]), dtype=acc_dtype, device=p.device),
         )
     w = weights.to(acc_dtype)
-    pw = pa * w[:, None]
+    pw = pa * w[..., None]
     return AlignmentStats(
-        sum_p=pw.sum(0),
-        sum_y=(ya * w[:, None]).sum(0),
-        sum_py=pw.T @ ya,
-        sum_pp=(w * (pa * pa).sum(1)).sum(),
-        sum_yy=(w * (ya * ya).sum(1)).sum(),
-        n=w.sum(),
+        sum_p=pw.sum(-2),
+        sum_y=(ya * w[..., None]).sum(-2),
+        sum_py=pw.transpose(-1, -2) @ ya,
+        sum_pp=(w * (pa * pa).sum(-1)).sum(-1),
+        sum_yy=(w * (ya * ya).sum(-1)).sum(-1),
+        n=w.sum(-1),
     )
 
 
 def horn_n_matrix(S: torch.Tensor) -> torch.Tensor:
-    """Horn's symmetric, traceless 4x4 N-matrix (reference ``src/cpu.cc:121-126``)."""
-    tr = S[0, 0] + S[1, 1] + S[2, 2]
-    A = S[1, 2] - S[2, 1]
-    B = S[2, 0] - S[0, 2]
-    C = S[0, 1] - S[1, 0]
+    """Horn's symmetric, traceless 4x4 N-matrix of (..., 3, 3) S (reference
+    ``src/cpu.cc:121-126``)."""
+    def e(i, j):
+        return S[..., i, j]
+
+    tr = e(0, 0) + e(1, 1) + e(2, 2)
+    A = e(1, 2) - e(2, 1)
+    B = e(2, 0) - e(0, 2)
+    C = e(0, 1) - e(1, 0)
     rows = [
         [tr, A, B, C],
-        [A, S[0, 0] - S[1, 1] - S[2, 2], S[0, 1] + S[1, 0], S[0, 2] + S[2, 0]],
-        [B, S[0, 1] + S[1, 0], S[1, 1] - S[0, 0] - S[2, 2], S[1, 2] + S[2, 1]],
-        [C, S[0, 2] + S[2, 0], S[1, 2] + S[2, 1], S[2, 2] - S[0, 0] - S[1, 1]],
+        [A, e(0, 0) - e(1, 1) - e(2, 2), e(0, 1) + e(1, 0), e(0, 2) + e(2, 0)],
+        [B, e(0, 1) + e(1, 0), e(1, 1) - e(0, 0) - e(2, 2), e(1, 2) + e(2, 1)],
+        [C, e(0, 2) + e(2, 0), e(1, 2) + e(2, 1), e(2, 2) - e(0, 0) - e(1, 1)],
     ]
-    return torch.stack([torch.stack(r) for r in rows])
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
-    """Unit quaternion (w, x, y, z) -> 3x3 rotation with y = R p."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    """Unit quaternions (..., 4) (w, x, y, z) -> (..., 3, 3) rotations with
+    y = R p."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     rows = [
         [w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)],
         [2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z],
     ]
-    return torch.stack([torch.stack(r) for r in rows])
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
 def _finite_or_nan(x: torch.Tensor, solve):
-    """``solve(x)``, or NaN of its shape where ``x`` is not all finite: the
-    solve runs on the identity instead, so it cannot raise, and the check
-    stays on the device."""
-    finite = torch.isfinite(x).all()
-    out = solve(torch.where(finite, x, torch.eye(x.shape[0], dtype=x.dtype, device=x.device)))
+    """``solve(x)`` on (..., d, d) matrices, NaN for each matrix that is not
+    all finite: the solve runs on the identity there instead, so it cannot
+    raise, and the check stays on the device."""
+    finite = torch.isfinite(x).all(-1).all(-1)
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    out = solve(torch.where(finite[..., None, None], x, eye))
+    finite = finite.reshape(finite.shape + (1,) * (out.dim() - finite.dim()))
     return torch.where(finite, out, torch.full_like(out, float("nan")))
 
 
 def max_eigvec_eigh(N: torch.Tensor) -> torch.Tensor:
-    """Largest-eigenvalue unit eigenvector (eigenvalues ascend); NaN for a
-    non-finite N."""
-    return _finite_or_nan(N, lambda a: torch.linalg.eigh(a)[1][:, -1])
+    """Largest-eigenvalue unit eigenvector of each (..., 4, 4) N (eigenvalues
+    ascend); NaN for a non-finite N."""
+    return _finite_or_nan(N, lambda a: torch.linalg.eigh(a)[1][..., :, -1])
 
 
 def _adjugate4(A: torch.Tensor) -> torch.Tensor:
     cof = torch.empty_like(A)
     for i in range(4):
         for j in range(4):
-            minor = A[[r for r in range(4) if r != i]][:, [c for c in range(4) if c != j]]
-            cof[i, j] = (-1.0) ** (i + j) * torch.linalg.det(minor)
-    return cof.T
+            minor = A[..., [r for r in range(4) if r != i], :][..., [c for c in range(4) if c != j]]
+            cof[..., i, j] = (-1.0) ** (i + j) * torch.linalg.det(minor)
+    return cof.transpose(-1, -2)
 
 
 def max_eigvec_qcp(N: torch.Tensor, S: torch.Tensor, gp: torch.Tensor,
@@ -136,11 +155,12 @@ def max_eigvec_qcp(N: torch.Tensor, S: torch.Tensor, gp: torch.Tensor,
     polynomial ``l^4 + c2 l^2 + c1 l + c0`` (c2 = -2 tr(S^T S),
     c1 = -8 det S, c0 = det N) from the Cauchy-Schwarz bound
     ``sqrt(gp gy)``, the adjugate of ``N - l I`` and shifted power steps;
-    the solve runs on N / (gp + gy)."""
+    the solve runs on N / (gp + gy).  Leading axes are a batch."""
     dt = N.dtype
     scale = 1.0 / torch.clamp(gp + gy, min=1e-30)
-    N, S, gp, gy = N * scale, S * scale, gp * scale, gy * scale
-    c2 = -2.0 * (S * S).sum()
+    N, S = N * scale[..., None, None], S * scale[..., None, None]
+    gp, gy = gp * scale, gy * scale
+    c2 = -2.0 * (S * S).sum((-2, -1))
     c1 = -8.0 * torch.linalg.det(S)
     c0 = torch.linalg.det(N)
     lam0 = torch.sqrt(torch.clamp(gp * gy, min=0.0))
@@ -152,45 +172,50 @@ def max_eigvec_qcp(N: torch.Tensor, S: torch.Tensor, gp: torch.Tensor,
                          torch.ones_like(dp), dp)
         lam = lam - p / dp
     eye = torch.eye(4, dtype=dt, device=N.device)
-    adj = _adjugate4(N - lam * eye)
-    norms = (adj * adj).sum(0)
-    v = adj[:, torch.argmax(norms)]
-    v = torch.where(norms.max() < 1e-16, torch.ones_like(v), v)
-    B = N + (lam0 + 1.0) * eye
+    adj = _adjugate4(N - lam[..., None, None] * eye)
+    norms = (adj * adj).sum(-2)
+    v = torch.take_along_dim(adj, torch.argmax(norms, -1)[..., None, None], dim=-1)[..., 0]
+    v = torch.where(norms.amax(-1, keepdim=True) < 1e-16, torch.ones_like(v), v)
+    B = N + (lam0 + 1.0)[..., None, None] * eye
     tiny = torch.finfo(dt).tiny
     for _ in range(power_iters):
-        w = B @ v
-        v = w * torch.rsqrt(torch.clamp((w * w).sum(), min=tiny))
-    return v * torch.rsqrt(torch.clamp((v * v).sum(), min=tiny))
+        w = matvec(B, v)
+        v = w * torch.rsqrt(torch.clamp((w * w).sum(-1, keepdim=True), min=tiny))
+    return v * torch.rsqrt(torch.clamp((v * v).sum(-1, keepdim=True), min=tiny))
 
 
 def rotation_kabsch(S: torch.Tensor) -> torch.Tensor:
-    """Kabsch/Umeyama rotation from S = sum p' y'^T, reflection corrected;
-    NaN for a non-finite S."""
+    """Kabsch/Umeyama rotation from each (..., 3, 3) S = sum p' y'^T,
+    reflection corrected; NaN for a non-finite S."""
 
     def solve(a):
         U, _, Vh = torch.linalg.svd(a)
-        V = Vh.T
-        d = torch.sign(torch.linalg.det(V @ U.T))
-        D = torch.diag(torch.stack([torch.ones_like(d), torch.ones_like(d), d]))
-        return V @ D @ U.T
+        V = Vh.transpose(-1, -2)
+        d = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))
+        D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
+        return V @ D @ U.transpose(-1, -2)
 
     return _finite_or_nan(S, solve)
 
 
 def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
                          with_scale: bool = True) -> Similarity:
-    """Closed-form similarity from the sufficient statistics."""
+    """Closed-form similarity from the sufficient statistics (a batch of
+    them with leading axes: ``solver="qcp_fused"``, one kernel launch a
+    problem, takes one)."""
     n = stats.n
-    mu_p = stats.sum_p / n
-    mu_y = stats.sum_y / n
+    mu_p = stats.sum_p / n[..., None]
+    mu_y = stats.sum_y / n[..., None]
     # centred cross-covariance and energies via the shift identities
-    S = stats.sum_py - n * torch.outer(mu_p, mu_y)
-    gp = stats.sum_pp - n * torch.dot(mu_p, mu_p)
-    gy = stats.sum_yy - n * torch.dot(mu_y, mu_y)
+    S = stats.sum_py - n[..., None, None] * (mu_p[..., :, None] * mu_y[..., None, :])
+    gp = stats.sum_pp - n * _dot(mu_p, mu_p)
+    gy = stats.sum_yy - n * _dot(mu_y, mu_y)
     if solver == "kabsch":
         R = rotation_kabsch(S)
     elif solver == "qcp_fused":
+        if S.dim() != 2:
+            raise ValueError("solver='qcp_fused' solves one problem a launch; batched "
+                             "statistics take 'qcp', 'eigh' or 'kabsch'")
         # the whole 4x4 solve in one launch of K5 (float64) on S, gp and gy
         # as they are, as JAX's horn_rotation_pallas
         # (icp_tpu/ops/alignment.py:284-292)
@@ -205,9 +230,9 @@ def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
             q = max_eigvec_qcp(N, S, gp, gy)
         else:
             raise ValueError(f"unknown solver: {solver}")
-        R = quat_to_rot(q / torch.linalg.norm(q))
+        R = quat_to_rot(q / torch.linalg.norm(q, dim=-1, keepdim=True))
     s = torch.sqrt(gy / gp) if with_scale else torch.ones_like(gp)
-    t = mu_y - s * (R @ mu_p)
+    t = mu_y - s[..., None] * matvec(R, mu_p)
     return Similarity(s=s, R=R, t=t)
 
 

@@ -22,6 +22,11 @@ device fills, the bin pick an ``argmax`` and ``index_select``
 (``bincount`` would read its maximum, a 0-d index tensor its value).
 The tensors that depend only on N (the edge steps, the rows' bin copies,
 unit weights) are built once and kept for the next call at that N.
+
+``histogram_quantile_rows`` is the same quantile for each row of a (B, N)
+batch (the batched engine's trim), counted by comparing every value with
+every edge, as JAX counts: the counts are exact integers either way, so
+each row's tau is bit-equal to ``histogram_quantile`` of that row.
 """
 
 from __future__ import annotations
@@ -70,4 +75,30 @@ def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None
         idx = (cnt >= target).to(torch.uint8).argmax().reshape(1)  # first covering bin
         lo = torch.where(idx > 0, edges.index_select(0, (idx - 1).clamp(min=0)), lo)[0]
         hi = edges.index_select(0, idx)[0]
+    return hi
+
+
+def histogram_quantile_rows(d2: torch.Tensor, q: float,
+                            w: torch.Tensor | None = None) -> torch.Tensor:
+    """``histogram_quantile`` of each row of (B, N) ``d2`` (with (B, N)
+    weights ``w``), as (B,): the edges in the same operation order, the
+    counts from a (B, N, bins) comparison."""
+    dt, dev = d2.dtype, d2.device
+    steps = torch.arange(1, _BINS + 1, dtype=dt, device=dev)
+    wv = None if w is None else w.to(dt)
+    masked = d2 if wv is None else torch.where(wv > 0, d2, 0.0)
+    hi = masked.amax(-1) + 1e-12
+    lo = torch.zeros_like(hi)
+    n_total = (torch.full_like(hi, d2.shape[-1]) if wv is None else wv.sum(-1))
+    target = n_total * q
+    for _ in range(_ROUNDS):
+        edges = lo[:, None] + (hi - lo)[:, None] * steps / _BINS  # (B, bins)
+        le = (d2[:, :, None] <= edges[:, None, :]).to(dt)  # NaN: in no bin
+        if wv is not None:
+            le = le * wv[:, :, None]
+        cnt = le.sum(1)  # (B, bins): weight of the values <= each edge
+        idx = (cnt >= target[:, None]).to(torch.uint8).argmax(-1, keepdim=True)
+        lo = torch.where(idx[:, 0] > 0,
+                         torch.gather(edges, 1, (idx - 1).clamp(min=0))[:, 0], lo)
+        hi = torch.gather(edges, 1, idx)[:, 0]
     return hi

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from icp_tpu_torch.ops.alignment import Similarity
+from icp_tpu_torch.ops.alignment import Similarity, matvec
 
 
 def identity_similarity(dtype=torch.float32, device=None) -> Similarity:
@@ -33,8 +33,9 @@ def cast_similarity(sim: Similarity, dtype, device=None) -> Similarity:
 
 
 def apply_similarity(p: torch.Tensor, sim: Similarity) -> torch.Tensor:
-    """p -> s R p + t for an (N, 3) cloud (rows = points)."""
-    return p @ (sim.s * sim.R).T + sim.t
+    """p -> s R p + t for an (..., N, 3) cloud (rows = points), leading axes
+    a batch of clouds and similarities."""
+    return p @ (sim.s[..., None, None] * sim.R).transpose(-1, -2) + sim.t[..., None, :]
 
 
 def residual_error(p: torch.Tensor, y: torch.Tensor, sim: Similarity) -> torch.Tensor:
@@ -51,11 +52,12 @@ def apply_and_error(p: torch.Tensor, y: torch.Tensor, sim: Similarity):
 
 
 def compose(inner: Similarity, outer: Similarity) -> Similarity:
-    """Apply ``inner`` first, then ``outer``: x -> s_o R_o (s_i R_i x + t_i) + t_o."""
+    """Apply ``inner`` first, then ``outer``: x -> s_o R_o (s_i R_i x + t_i) + t_o
+    (leading axes a batch)."""
     return Similarity(
         s=outer.s * inner.s,
         R=outer.R @ inner.R,
-        t=outer.s * (outer.R @ inner.t) + outer.t,
+        t=outer.s[..., None] * matvec(outer.R, inner.t) + outer.t,
     )
 
 

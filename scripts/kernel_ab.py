@@ -50,9 +50,10 @@ iteration counts; device microseconds come from ``torch.profiler`` (the
 mean of a kernel's launches; for the fused iteration, K3's and K2's
 kernels summed, each launch from its start state).  ``--sections`` picks
 ``dense`` (K1, K10, K9), ``grid`` (K4, K6, K7, the loops and the 1M pair;
-the longest part), ``fused`` (K3, K2, the cow loop) and
-``chunked_rotation`` (K8, K5, the cow bcast loop); default dense and
-grid.  Prints one JSON line, with the card's name and power limit, and
+the longest part), ``knn`` (K6 and K7 at horse's and cow's k 17 and 32
+and the lattice, grid's kNN lines alone), ``fused`` (K3, K2, the cow
+loop) and ``chunked_rotation`` (K8, K5, the cow bcast loop); default
+dense and grid.  Prints one JSON line, with the card's name and power limit, and
 exits 1 without a card.
 """
 
@@ -320,6 +321,16 @@ def main(argv=None) -> int:
         out.update(fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1))
     if "chunked_rotation" in sections:
         out.update(chunked_rotation_section(cs, cow_ref, cow_tr1, horse_ref, p0))
+    lat_q, lat_p = cs.tied_lattice(6)
+    if "knn" in sections:
+        out["k7_horse"] = k7_ms(horse_ref, 10)
+        for label, q, pts, k, reps in (("cow", cow_ref, cow_ref, 17, 20),
+                                       ("horse", horse_ref, horse_ref, 17, 5),
+                                       ("cow_k32", cow_ref, cow_ref, 32, 20),
+                                       ("lattice", lat_q, lat_p, 17, 20)):
+            out[f"k6_{label}_ms"] = cs.cuda_ms(lambda: knn_dense.knn_dense(q, pts, k), reps)
+            out[f"k6_{label}_device_us"] = cs.device_us(
+                lambda: knn_dense.knn_dense(q, pts, k), ("knn_dense_kernel",), reps=10)
     if "grid" not in sections:
         print(json.dumps(out), flush=True)
         return 0
@@ -331,7 +342,6 @@ def main(argv=None) -> int:
     out["k4_horse_cap1"] = k4_ms(grid, p0, u0, tn, 1)
     out["k4_horse_payload"] = k4_ms(grid, p0, u0, tn, 16, payload=True)
 
-    lat_q, lat_p = cs.tied_lattice(6)
     for label, q, pts, k, reps in (("cow", cow_ref, cow_ref, 17, 20),
                                    ("horse", horse_ref, horse_ref, 17, 5),
                                    ("cow_k32", cow_ref, cow_ref, 32, 20),

@@ -415,9 +415,12 @@ def test_qcp_rotation_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("n,m,k", [(1, 17, 17), (700, 2049, 5), (3000, 1500, 17), (300, 900, 32),
                                    (500, 1000, 1), (257, 20, 17), (129, 1001, 32),
-                                   ("lattice", None, 17)])
+                                   ("lattice", None, 17), (300, 900, 33), (4096, 4096, 64),
+                                   (129, 1001, 128), (70, 128, 128), ("lattice", None, 64),
+                                   ("lattice", None, 128)])
 def test_knn_dense_kernel_matches_plain(dev, n, m, k):
-    """k 1, 17 and 32; m < 32 and m not a multiple of 32; ``lattice``: an
+    """k 1, 17 and 32 (one slot a lane), 33 and 64 (two) and 128 (four); m <
+    32, m not a multiple of 32 and m = k; ``lattice``: an
     integer lattice, every point twice, queried at its sites and half-way
     between them, so many distances are exactly equal."""
     if n == "lattice":
@@ -435,7 +438,7 @@ def test_knn_dense_kernel_matches_plain(dev, n, m, k):
     assert torch.equal(ik, ip) and torch.equal(dk, dp)
 
 
-@pytest.mark.parametrize("k,cap", [(17, 32), (8, 1)])
+@pytest.mark.parametrize("k,cap", [(17, 32), (8, 1), (33, 32), (64, 32), (64, 1), (128, 32)])
 def test_knn_grid_kernel_matches_plain_and_dense(dev, k, cap):
     pts = _cloud(11, 5000).to(dev)
     grid = nn_grid.build_model_grid(pts, target_tile=256)
@@ -472,9 +475,19 @@ def test_knn_worklist_kernel_with_and_without_the_bound(dev, case):
     ``duplicates``: 2,048 points and their mirror images across x = 0 (other
     kd tiles), queried on that plane, so every distance ties across two
     work items and the lowest original index must win."""
+    _worklist_case(dev, case, 17)
+
+
+@pytest.mark.parametrize("case", ["straggler", "duplicates"])
+@pytest.mark.parametrize("k", [33, 64, 128])
+def test_knn_worklist_kernel_long_lists(dev, case, k):
+    """The same cases with lists of two and four slots a lane."""
+    _worklist_case(dev, case, k)
+
+
+def _worklist_case(dev, case, k):
     from icp_tpu_torch.engine.grid import _prepare_scene
 
-    k = 17
     if case == "straggler":
         pts = _cloud(13, 20000).to(dev)
         cap = 1
@@ -777,3 +790,40 @@ def test_trimmed_loop_launches_one_k1_and_one_k2_an_iteration(dev, bucketed):
     assert iters == 8
     assert _build.LAUNCHES["nn_dense"] == _build.LAUNCHES["qcp_step"] == launched
     assert _build.LAUNCHES["icp_fused"] == 0
+
+
+@pytest.mark.parametrize("bucketed", [False, True], ids=["fused", "bucketed_pipeline"])
+def test_batched_pallas_path_is_each_pairs_own_run(dev, bucketed):
+    """``icp_batched(nn_method="pallas", solver="qcp_fused")`` on 4 pairs, 6
+    iterations: unmasked pairs take K3, one launch an iteration (4 x 6 and
+    no K1 or K2); bucket-padded ones K1 + K2 (4 x 6 each, no K3); each pair
+    bit-equal to its own ``icp_fixed_iters``."""
+    from icp_tpu_torch.engine.batched import batch_pairs, icp_batched
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    rng = np.random.default_rng(21)
+    pairs = []
+    for b in range(4):
+        m = rng.standard_normal((900 + 50 * b * bucketed, 3)).astype(np.float32)
+        th = 0.05 * (b + 1)
+        R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+        pairs.append((m, (m @ R.T + 0.05 * b).astype(np.float32)))
+    if bucketed:
+        models, scenes, m_ns, s_ns = batch_pairs(pairs, quantum=512)
+    else:
+        models, scenes = np.stack([m for m, _ in pairs]), np.stack([s for _, s in pairs])
+        m_ns = s_ns = None
+    kw = dict(n_iters=6, solver="qcp_fused", nn_method="pallas")
+    _build.reset_counts()
+    res = icp_batched(models, scenes, scene_ns=s_ns, model_ns=m_ns, device=dev, **kw)
+    used = dict(_build.LAUNCHES)
+    if bucketed:
+        assert used["nn_dense"] == used["qcp_step"] == 24 and used["icp_fused"] == 0
+    else:
+        assert used["icp_fused"] == 24 and used["nn_dense"] == used["qcp_step"] == 0
+    for b in range(4):
+        one = icp_fixed_iters(models[b], scenes[b], device=dev,
+                              scene_n=None if s_ns is None else int(s_ns[b]),
+                              model_n=None if m_ns is None else int(m_ns[b]), **kw)
+        assert torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
+        assert all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform))

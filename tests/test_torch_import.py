@@ -16,7 +16,9 @@ def test_import_leaves_jax_out():
             "icp_tpu_torch.engine.point_to_plane, icp_tpu_torch.engine.symmetric, "
             "icp_tpu_torch.engine.gicp, icp_tpu_torch.kernels.nn_bf16, "
             "icp_tpu_torch.kernels.knn_grid, "
-            "icp_tpu_torch.utils.convert; "
+            "icp_tpu_torch.utils.convert, icp_tpu_torch.engine.batched, "
+            "icp_tpu_torch.engine.global_reg, icp_tpu_torch.slam.cli, "
+            "icp_tpu_torch.slam.closure; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -35,7 +35,7 @@ def _within_ulps(got, want, ulps=4):
     assert np.all(np.abs(got - want) <= tol), float(np.abs(got - want).max())
 
 
-@pytest.mark.parametrize("k", [1, 5, 17, 32])
+@pytest.mark.parametrize("k", [1, 5, 17, 32, 33, 64])
 def test_knn_dense_plain_matches_jax(k):
     q, p = _cloud(1, 300), _cloud(2, 700, 1.2)
     jd, ji = knn_pallas(jnp.asarray(q), jnp.asarray(p), k, query_tile=64, point_tile=256)
@@ -69,8 +69,24 @@ def test_knn_k_exceeds_points_raises():
     grid = tg.build_model_grid(p, target_tile=128)
     with pytest.raises(ValueError, match="exceeds point count"):
         tkg.knn_grid(p, grid, 6)
-    with pytest.raises(ValueError, match="outside 1..32"):
-        tkd.knn_dense(torch.tensor(_cloud(4, 40)), torch.tensor(_cloud(5, 40)), 33)
+    with pytest.raises(ValueError, match="outside 1..128"):
+        tkd.knn_dense(torch.tensor(_cloud(4, 140)), torch.tensor(_cloud(5, 140)), 129)
+
+
+def test_knn_cap_of_128_where_jax_has_none():
+    """JAX's kNN takes any k <= len(points); the port's kernels keep at most
+    128 in registers, and both wrappers refuse more with a ValueError naming
+    the cap (on the CPU too: no fall back to the plain version)."""
+    q, p = _cloud(6, 40), _cloud(7, 200)
+    _, ji = knn_pallas(jnp.asarray(q), jnp.asarray(p), 129, query_tile=32, point_tile=128)
+    assert np.asarray(ji).shape == (40, 129)
+    with pytest.raises(ValueError, match="at most 128"):
+        tkd.knn_dense(torch.tensor(q), torch.tensor(p), 129)
+    grid = tg.build_model_grid(torch.tensor(p), target_tile=128)
+    with pytest.raises(ValueError, match="at most 128"):
+        tkg.knn_grid(torch.tensor(q), grid, 129)
+    d2, idx = tkd.knn_dense(torch.tensor(q), torch.tensor(p), 128)  # the cap itself runs
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji)[:, :128])
 
 
 def _grid_case(seed, n_pts=1500, n_query=700):
@@ -94,6 +110,35 @@ def test_knn_grid_matches_jax_and_dense(k, max_candidates):
     dd, di = tkd.knn_dense(torch.tensor(query), torch.tensor(pts), k)
     assert torch.equal(idx, di) and torch.equal(d2, dd)
     assert _build.LAUNCHES["knn_grid"] == 0  # CPU tensors take the plain version
+
+
+def _same_up_to_near_ties(idx, d2, ji, jd, ulps=4):
+    """Indices equal to JAX's except at ranks where JAX's contracted
+    distances make two neighbours tie within ``ulps`` and its lowest index
+    wins: there the port's index is one that JAX ranks within ``ulps`` of
+    that rank's distance (or at the list's end, past it)."""
+    _within_ulps(d2, jd, ulps)
+    idx, ji, jd = np.asarray(idx), np.asarray(ji), np.asarray(jd, np.float32)
+    for r, c in np.argwhere(idx != ji):
+        tol = ulps * np.spacing(jd[r, c])
+        near = np.abs(jd[r] - jd[r, c]) <= tol
+        assert idx[r, c] in ji[r][near] or (near[-1] and idx[r, c] not in ji[r]), (r, c)
+
+
+@pytest.mark.parametrize("k,max_candidates", [(33, 16), (64, 16), (64, 1)])
+def test_knn_grid_long_lists_match_jax_and_dense(k, max_candidates):
+    """k above 32, the lists of two slots a lane (FPFH fetches 64): equal
+    to the port's dense kNN bit for bit, and to JAX's up to its near ties
+    (at k = 64 XLA's contracted distances tie neighbours 1-2 ulp apart)."""
+    pts, query, jgrid, tgrid = _grid_case(10 + k)
+    jd, ji = jkg.knn_grid(jnp.asarray(query), jgrid, k, scene_tile=64,
+                          max_candidates=max_candidates)
+    d2, idx = tkg.knn_grid(torch.tensor(query), tgrid, k, scene_tile=64,
+                           max_candidates=max_candidates)
+    assert idx.shape == (query.shape[0], k)
+    _same_up_to_near_ties(idx.numpy(), d2.numpy(), ji, jd)
+    dd, di = tkd.knn_dense(torch.tensor(query), torch.tensor(pts), k)
+    assert torch.equal(idx, di) and torch.equal(d2, dd)
 
 
 def test_knn_grid_carried_grid_equals_the_ports_own():
