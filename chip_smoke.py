@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``icp_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,scale]
+    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,sharded,scale]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -85,7 +85,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --refine`` (closure 0<-4, trimmed errors under 5e-4, the closure's
      inconsistency shrunk by the pose graph), with its wall seconds and
      launches;
-  7. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
+  7. sharded (``[sharded]`` lines): the sharded engines on a world-1 NCCL
+     group (``parallel/``), each held against its single-device engine on
+     the card (the same iterations, points within atol 1e-4 and rtol
+     2e-4): ``icp_sharded`` on cow (K1 each hop, K5 each iteration; ring
+     and all-gather traced, trimmed), ``icp_sharded_2d`` on a 1 x 1 mesh,
+     the sharded grid (K4 each hop) on horse, horse with a capacity of one
+     candidate and the 1M pair (10 iterations, timed over 7-10);
+     ``icp_point_to_plane_sharded`` on cow (K6 normals) and it,
+     ``icp_symmetric_sharded`` and ``icp_generalized_sharded`` on horse (K7
+     normals, K4's normals payload); ``bundle_adjust_sharded`` on the bunny
+     chain's correspondences (poses within 1e-5 of ``bundle_adjust``); and
+     ``icp-torch --sharded`` on cow_tr1 against the reference fixture.
+     Each line gives ms/iter and device launches an iteration beside the
+     single-device engine's, the K1, K4, K5, K6 and K7 launches, and the
+     card's name and power limit.  Under ``torchrun`` (``python -m
+     torch.distributed.run --standalone --nproc-per-node 4 chip_smoke.py
+     --phases sharded``) every rank runs the phase on its own card at the
+     group's world size, ``icp_sharded_2d`` on a (2, world / 2) mesh, and
+     rank 0 alone prints;
+  8. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
      jitter, a known similarity): K4 on the first and the third grid
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
@@ -2203,12 +2222,303 @@ def phase_slam(seed: int, tmp: str) -> dict:
     return launches
 
 
+# the sharded engines against the single-device ones on the card: the
+# parity bound of __graft_entry__.py's _assert_parity (atol, rtol)
+SHARDED_ATOL, SHARDED_RTOL = 1e-4, 2e-4
+SHARDED_COUNTS = ("nn_dense", "nn_grid", "qcp_rotation", "knn_dense", "knn_grid")
+
+
+def _group() -> dict:
+    """The process group's size and backend, for the ``[sharded]`` lines."""
+    import torch.distributed as dist
+
+    return {"world": dist.get_world_size(), "backend": dist.get_backend()}
+
+
+def _parity(label: str, got, want) -> float:
+    """Max |got - want| of two results' points, held to the parity bound
+    with the same iterations."""
+    import torch
+
+    g = got.result if hasattr(got, "result") else got
+    w = want.result if hasattr(want, "result") else want
+    require(int(g.iters) == int(w.iters),
+            f"sharded {label}: {int(g.iters)} iterations, single-device {int(w.iters)}")
+    a, b = g.points.double(), w.points.double()
+    require(a.shape == b.shape and bool(torch.isfinite(a).all()), f"sharded {label}: bad points")
+    ok = bool(((a - b).abs() <= SHARDED_ATOL + SHARDED_RTOL * b.abs()).all())
+    require(ok, f"sharded {label}: points {max_abs(a, b):.3g} from the single-device run")
+    return max_abs(a, b)
+
+
+def _ms_per_iter(run, k1: int, k2: int) -> float:
+    """Host-clock ms an iteration: the median of three runs of ``k2`` and of
+    ``k1`` fixed iterations (``run(k)``, each ending in a synchronize),
+    their difference over ``k2 - k1``."""
+    run(k1)
+    t1 = statistics.median(_wall(lambda: run(k1)) for _ in range(3))
+    t2 = statistics.median(_wall(lambda: run(k2)) for _ in range(3))
+    return (t2 - t1) / (k2 - k1) * 1e3
+
+
+def _sharded_case(label: str, sharded, single, timed, k: tuple, smi: str, **info) -> dict:
+    """One ``[sharded]`` line: ``sharded()`` (its launches counted) held
+    against ``single()``, and ms/iter and device launches an iteration of
+    both from ``timed(entry, n)``, which runs ``n`` fixed iterations of
+    ``entry`` ("sharded" or "single")."""
+    got, used = _counted(sharded)
+    want = single()
+    err = _parity(label, got, want)
+    ms = _ms_per_iter(lambda n: timed("sharded", n), *k)
+    single_ms = _ms_per_iter(lambda n: timed("single", n), *k)
+    # runs of k[0] and k[1] iterations, as the ms/iter
+    per_iter = {entry: launches_per_iter(lambda n, e=entry: timed(e, n + k[0] - 1), k[1] - k[0])
+                for entry in ("sharded", "single")}
+    res = got.result if hasattr(got, "result") else got
+    say("sharded", case=label, **_group(), iters=int(res.iters),
+        points_max_abs_err_vs_single=f"{err:.3e}", ms_per_iter=f"{ms:.4f}",
+        single_ms_per_iter=f"{single_ms:.4f}", iter_counts=f"{k[0]},{k[1]}",
+        device_launches_per_iter=f"{per_iter['sharded']:.1f}",
+        single_device_launches_per_iter=f"{per_iter['single']:.1f}", **info,
+        **{f"launches_{c}": used[c] for c in SHARDED_COUNTS}, card=repr(smi))
+    return used
+
+
+def _sharded_point_to_point(mesh, smi: str, seed: int) -> dict:
+    """``icp_sharded`` (ring and all-gather, traced; trimmed; K1 each hop,
+    K5 each iteration) and ``icp_sharded_2d`` on a (2, world / 2) mesh (1 x
+    1 at world size 1) on cow; the
+    sharded grid (K4 each hop) on horse, horse with a capacity of one
+    candidate, and the 1M pair, 10 iterations (timed over iterations 7-10,
+    past K4's first, larger tables)."""
+    import torch
+    import torch.distributed as dist
+
+    from icp_tpu_torch import ICPConfig, icp, icp_sharded, icp_sharded_2d, make_mesh_2d
+
+    total = {}
+    world = dist.get_world_size()
+    n_sp = 2 if world % 2 == 0 else 1
+    mesh2 = make_mesh_2d(n_sp, world // n_sp)
+    clouds = {name: tuple(torch.tensor(_load(f"{name}_{s}.txt"), dtype=torch.float32,
+                                       device="cuda") for s in ("ref", "tr1"))
+              for name in ("cow", "horse")}
+    m1, s1, _ = scale_pair(seed)
+    clouds["scale_1m"] = (m1, s1)
+    cases = [  # label, clouds, config keywords, sharded entry keywords, iteration counts
+        ("cow_ring", "cow", dict(nn_method="pallas"), dict(trace=True), (1, 21)),
+        ("cow_allgather", "cow", dict(nn_method="pallas"), dict(ring=False, trace=True), (1, 21)),
+        ("cow_trimmed", "cow", dict(nn_method="pallas", trim_fraction=0.1), {}, (1, 21)),
+        ("cow_2d", "cow", dict(nn_method="pallas"), dict(mesh2d=True), (1, 21)),
+        ("horse_grid", "horse", {}, dict(trace=True), (1, 11)),
+        ("horse_grid_cap1", "horse", dict(grid_max_candidates=1), {}, (1, 6)),
+        ("scale_1m_grid", "scale_1m", dict(max_iter=10, threshold=-math.inf), {}, (6, 10)),
+    ]
+    for label, name, cfg_kw, kw, k in cases:
+        model, scene = clouds[name]
+        kw = dict(kw)
+        two_d = kw.pop("mesh2d", False)
+
+        def sharded(cfg, kw=kw, two_d=two_d, model=model, scene=scene):
+            if two_d:
+                return icp_sharded_2d(model, scene, cfg, mesh=mesh2, **kw)
+            return icp_sharded(model, scene, cfg, mesh=mesh, **kw)
+
+        def timed(entry, n, cfg_kw=cfg_kw, sharded=sharded, model=model, scene=scene):
+            cfg = ICPConfig(**{**cfg_kw, "max_iter": n, "threshold": -math.inf})
+            res = sharded(cfg) if entry == "sharded" else icp(model, scene, cfg)
+            res = res.result if hasattr(res, "result") else res
+            require(int(res.iters) == n, f"sharded {label}: timed run stopped early")
+
+        cfg = ICPConfig(**{"max_iter": 30, **cfg_kw})
+        used = _sharded_case(label, lambda: sharded(cfg), lambda: icp(model, scene, cfg,
+                                                                        trace=kw.get("trace", False)),
+                             timed, k, smi, rows=scene.shape[0])
+        hop = "nn_grid" if name != "cow" else "nn_dense"
+        require(used[hop] >= 1 and used["qcp_rotation"] >= 1,
+                f"sharded {label}: {hop} or K5 not launched ({used})")
+        _add(total, used)
+    return total
+
+
+def _sharded_plane(mesh, smi: str) -> dict:
+    """The sharded plane engines through their entry points
+    (``icp_point_to_plane_sharded``, ``icp_symmetric_sharded``,
+    ``icp_generalized_sharded``), 30 iterations, as a user calls them
+    (normals estimated inside): point-to-plane on cow (K6 normals, K1 each
+    hop) and the three on horse (K7 normals, ``gn_sharded_grid`` with K4's
+    normals payload), each against the single-device engine."""
+    import torch
+
+    from icp_tpu_torch import (ICPConfig, icp_generalized_sharded, icp_point_to_plane_sharded,
+                               icp_symmetric_sharded)
+    from icp_tpu_torch.engine.plane import run_engine
+    from icp_tpu_torch.ops.normals import estimate_normals
+
+    def sharded(engine, model, scene, cfg, model_normals=None, scene_normals=None, **kw):
+        """The engine's sharded entry point, the normals under its own
+        keywords."""
+        if engine == "point_to_plane":
+            return icp_point_to_plane_sharded(model, scene, cfg, normals=model_normals,
+                                              mesh=mesh, **kw)
+        if engine == "symmetric":
+            return icp_symmetric_sharded(model, scene, cfg, normals=model_normals,
+                                         scene_normals=scene_normals, mesh=mesh, **kw)
+        return icp_generalized_sharded(model, scene, cfg, model_normals=model_normals,
+                                       scene_normals=scene_normals, mesh=mesh, **kw)
+
+    total = {}
+    for name, engines in (("cow", ("point_to_plane",)),
+                          ("horse", ("point_to_plane", "symmetric", "gicp"))):
+        model, scene = (torch.tensor(_load(f"{name}_{s}.txt"), dtype=torch.float32,
+                                     device="cuda") for s in ("ref", "tr1"))
+        normals = {"model_normals": estimate_normals(model),
+                   "scene_normals": estimate_normals(scene)}
+        for engine in engines:
+            cfg = ICPConfig(max_iter=30)
+
+            def timed(entry, n, engine=engine, model=model, scene=scene):
+                c = ICPConfig(max_iter=n, threshold=-math.inf)
+                fn = sharded if entry == "sharded" else run_engine
+                res = fn(engine, model, scene, c, **normals)
+                require(int(res.iters) == n, f"sharded {engine}: timed run stopped early")
+
+            used = _sharded_case(
+                f"{engine}_{name}",
+                lambda: sharded(engine, model, scene, cfg, trace=True),
+                lambda: run_engine(engine, model, scene, cfg, trace=True), timed, (1, 11),
+                smi, rows=scene.shape[0])
+            knn = "knn_dense" if name == "cow" else "knn_grid"
+            hop = "nn_dense" if name == "cow" else "nn_grid"
+            require(used[knn] >= 1 and used[hop] >= 1,
+                    f"sharded {engine}_{name}: {knn} or {hop} not launched ({used})")
+            _add(total, used)
+    return total
+
+
+def _sharded_bundle_adjust(mesh, smi: str) -> dict:
+    """``bundle_adjust_sharded`` against ``bundle_adjust`` on the bunny
+    chain's correspondences, made as ``icp-slam-torch --refine`` makes
+    them, from the chain at the SLAM fixture's flags (every 16th point,
+    point-to-plane, PCA init, trim 0.3, scales 4 and 1): poses within
+    1e-5."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.ops.distance import closest_point_indices
+    from icp_tpu_torch.ops.padding import resolve_auto_bucket
+    from icp_tpu_torch.ops.transform import apply_similarity
+    from icp_tpu_torch.slam.pairwise import chain_to_world_poses, register_chain
+    from icp_tpu_torch.slam.pose_graph import bundle_adjust, bundle_adjust_sharded
+
+    clouds = [_load(f"{v}.txt")[::16].astype(np.float32) for v in BUNNY]
+    cfg = ICPConfig(max_iter=30, validate_inputs=False, with_scale=False, trim_fraction=0.3)
+    pairs = register_chain(clouds, cfg, multiscale=(4, 1), init="pca", engine="point_to_plane",
+                           bucket_quantum=resolve_auto_bucket(clouds), device="cuda")
+    poses = chain_to_world_poses(pairs)
+    corr = []
+    for k, pr in enumerate(pairs):
+        src = torch.as_tensor(clouds[k + 1], device="cuda")
+        tgt = torch.as_tensor(clouds[k], device="cuda")
+        idx = closest_point_indices(apply_similarity(src, pr.transform), tgt, method="pallas")
+        corr.append((k, k + 1, tgt[idx.long()], src))
+    single, cost = bundle_adjust(poses, corr, n_iters=8)
+    (got, got_cost), used = _counted(lambda: bundle_adjust_sharded(poses, corr, mesh=mesh,
+                                                                    n_iters=8))
+    err = max(max(max_abs(a.R, b.R), max_abs(a.t, b.t)) for a, b in zip(got, single))
+    require(err <= 1e-5 and math.isfinite(got_cost),
+            f"sharded bundle_adjust: poses {err:.3g} from bundle_adjust")
+    ms = statistics.median(_wall(lambda: bundle_adjust_sharded(poses, corr, mesh=mesh))
+                           for _ in range(3)) * 1e3
+    single_ms = statistics.median(_wall(lambda: bundle_adjust(poses, corr))
+                                  for _ in range(3)) * 1e3
+    say("sharded", case="bundle_adjust_bunny", **_group(),
+        rows=sum(len(c[2]) for c in corr), poses_max_abs_err_vs_single=f"{err:.3e}",
+        cost=f"{got_cost:.6g}", single_cost=f"{cost:.6g}", ms=f"{ms:.3f}",
+        single_ms=f"{single_ms:.3f}", card=repr(smi))
+    return used
+
+
+def _sharded_cli(tmp: str, smi: str) -> dict:
+    """``icp-torch --device cuda --sharded`` on cow_tr1 10 against the
+    reference binary's fixture, as the cli phase holds the unsharded run
+    (rank 0 prints and writes; the other ranks check their exit code)."""
+    import torch.distributed as dist
+
+    out_path = os.path.join(tmp, "sharded_cow_tr1_output.txt")
+    rc, got, err, seconds, used = _run_cli(
+        [os.path.join(ROOT, "data", "cow_ref.txt"), os.path.join(ROOT, "data", "cow_tr1.txt"),
+         "10", "--output", out_path, "--sharded"])
+    require(rc == 0, f"sharded cli: exit {rc}\n{err}")
+    if dist.get_rank() != 0:
+        require(not got, "sharded cli: a rank other than 0 printed the trace")
+        return used
+    worst = _check_trace("sharded_cow_tr1", got,
+                         _golden(os.path.join(FIXDIR, "cow_tr1_stderr.txt")), 7)
+    off = _check_output("sharded_cow_tr1", out_path,
+                        os.path.join(FIXDIR, "cow_tr1_output.txt"), 1e-5)
+    require(used["nn_dense"] >= 7 and used["qcp_rotation"] >= 7,
+            f"sharded cli: K1 + K5 path not taken ({used})")
+    say("sharded", case="cli_cow_tr1", **_group(), iters=len(got),
+        trace_max_rel_err=f"{worst:.3e}", output_max_abs_err=f"{off:.3e}",
+        seconds=f"{seconds:.3f}", **{f"launches_{c}": used[c] for c in SHARDED_COUNTS},
+        card=repr(smi))
+    return used
+
+
+def phase_sharded(seed: int, tmp: str, smi: str) -> dict:
+    """The sharded engines on an NCCL group (world size 1 unless
+    ``chip_smoke.py`` runs under ``torchrun``): each against its
+    single-device engine on the rank's card; returns the launches of the
+    sharded runs."""
+    import torch.distributed as dist
+
+    from icp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    require(dist.get_backend() == "nccl", f"sharded: an NCCL group expected, got "
+                                          f"{dist.get_backend()}")
+    launches = {}
+    try:
+        for used in (_sharded_point_to_point(mesh, smi, seed), _sharded_plane(mesh, smi),
+                     _sharded_bundle_adjust(mesh, smi), _sharded_cli(tmp, smi)):
+            _add(launches, used)
+    finally:
+        dist.destroy_process_group()
+    missing = [k for k in ("nn_dense", "nn_grid", "qcp_rotation", "knn_dense", "knn_grid")
+               if not launches.get(k)]
+    require(not missing, f"sharded: kernels never launched on the sharded paths: {missing}")
+    return launches
+
+
+@contextlib.contextmanager
+def _torchrun_rank():
+    """Under ``torchrun`` (``--nproc-per-node 4 chip_smoke.py --phases
+    sharded``): this process joins the environment's NCCL group on its
+    ``LOCAL_RANK`` card, and every rank but 0 runs with its standard output
+    silenced.  Otherwise nothing."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        yield
+        return
+    import torch.distributed as dist
+
+    from icp_tpu_torch.parallel.mesh import ensure_process_group
+
+    ensure_process_group()
+    if dist.get_rank() == 0:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,cli,features,slam,scale",
-                    help="comma list of kernels, cli, features, slam, scale (device and "
-                         "build always run)")
+    ap.add_argument("--phases", default="kernels,cli,features,slam,sharded,scale",
+                    help="comma list of kernels, cli, features, slam, sharded, scale (device "
+                         "and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2220,11 +2530,18 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     import icp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    with _torchrun_rank():
+        return run_phases(args.seed, phases)
+
+
+def run_phases(seed: int, phases: set) -> int:
+    import torch
+
     smi = phase_device()
     phase_build()
     record = {}
     if "kernels" in phases:
-        phase_kernels(args.seed, record)
+        phase_kernels(seed, record)
     launches = {}
     if "cli" in phases:
         out_dir = os.path.join(ROOT, "chiprun_out", "chip_smoke")
@@ -2238,9 +2555,12 @@ def main(argv=None) -> int:
             _add(launches, phase_features(tmp))
     if "slam" in phases:
         with tempfile.TemporaryDirectory() as tmp:
-            _add(launches, phase_slam(args.seed, tmp))
+            _add(launches, phase_slam(seed, tmp))
+    if "sharded" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            _add(launches, phase_sharded(seed, tmp, smi))
     if "scale" in phases:
-        phase_scale(args.seed)
+        phase_scale(seed)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = record.get(name, entry(None, None, None, (None, None)))

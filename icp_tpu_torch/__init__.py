@@ -26,9 +26,9 @@ from icp_tpu_torch.engine.icp import (
     icp_resumable,
     icp_step,
 )
-from icp_tpu_torch.engine.gicp import disk_covariances, icp_generalized
-from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
-from icp_tpu_torch.engine.symmetric import icp_symmetric
+from icp_tpu_torch.engine.gicp import disk_covariances, icp_generalized, icp_generalized_sharded
+from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane, icp_point_to_plane_sharded
+from icp_tpu_torch.engine.symmetric import icp_symmetric, icp_symmetric_sharded
 from icp_tpu_torch.io.csv import load_matrix, write_matrix
 from icp_tpu_torch.kernels.nn_bf16 import closest_point_indices_bf16
 from icp_tpu_torch.ops.alignment import (
@@ -49,6 +49,8 @@ from icp_tpu_torch.ops.transform import (
     inverse,
 )
 from icp_tpu_torch.ops.voxel import voxel_downsample, voxel_downsample_np
+from icp_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from icp_tpu_torch.parallel.sharded import icp_sharded, icp_sharded_2d, make_mesh_2d
 from icp_tpu_torch.slam.closure import (
     ClosureCandidate,
     chain_edges_from_pairs,
@@ -64,7 +66,12 @@ from icp_tpu_torch.slam.pairwise import (
     register_chain,
     register_pair,
 )
-from icp_tpu_torch.slam.pose_graph import PoseEdge, bundle_adjust, optimize_pose_graph
+from icp_tpu_torch.slam.pose_graph import (
+    PoseEdge,
+    bundle_adjust,
+    bundle_adjust_sharded,
+    optimize_pose_graph,
+)
 
 __version__ = "0.1.0"
 
@@ -79,8 +86,11 @@ __all__ = [
     "icp_resumable",
     "icp_step",
     "icp_point_to_plane",
+    "icp_point_to_plane_sharded",
     "icp_symmetric",
+    "icp_symmetric_sharded",
     "icp_generalized",
+    "icp_generalized_sharded",
     "disk_covariances",
     "closest_point_indices_bf16",
     "estimate_normals",
@@ -99,6 +109,11 @@ __all__ = [
     "compose",
     "identity_similarity",
     "inverse",
+    "icp_sharded",
+    "icp_sharded_2d",
+    "make_mesh",
+    "make_mesh_2d",
+    "init_distributed",
     "icp_batched",
     "batch_pairs",
     "register_chain_batched",
@@ -118,6 +133,7 @@ __all__ = [
     "PoseEdge",
     "optimize_pose_graph",
     "bundle_adjust",
+    "bundle_adjust_sharded",
     "ClosureCandidate",
     "detect_loop_closures",
     "overlap_fraction",

@@ -17,9 +17,12 @@ are all here (``icp_tpu/engine/cli.py:116-133``): ``--trim``;
 ``--checkpoint PATH`` (a plain run saves its result there), with
 ``--checkpoint-every K`` and ``--resume`` the chunked ``icp_resumable``;
 ``--metrics PATH`` (``run_with_metrics``'s JSON record, with
-``--metrics-ops`` the op times); the run modes exclude each other and the
-plane engines take only the plain one.  ``--sharded`` is not ported yet
-and exits -1 with a one-line message.
+``--metrics-ops`` the op times); ``--sharded``, the engine's sharded form
+(``parallel/sharded.py``) over every rank of the process group: under
+``torchrun`` its group (rank 0 alone prints the trace and writes
+``output.txt`` and the checkpoint), otherwise this process alone at world
+size 1.  The run modes exclude each other and the plane engines take only
+the plain and ``--sharded`` ones.
 """
 
 from __future__ import annotations
@@ -59,7 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="point_to_point",
                    choices=["point_to_point", "point_to_plane", "gicp",
                             "symmetric"])
-    p.add_argument("--sharded", action="store_true", help="not ported yet")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the points over the ranks of the process group (torchrun), "
+                        "or run the sharded engine at world size 1")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
                    help="save transform state (s, R, t, iter, err) as npz")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
@@ -80,19 +85,45 @@ def build_parser() -> argparse.ArgumentParser:
 def _run_mode_error(args) -> str | None:
     """JAX's rules for the run-mode flags (``icp_tpu/engine/cli.py:116-133``),
     or None when the combination is allowed."""
-    if args.sharded:
-        return "--sharded is not ported yet to icp_tpu_torch"
     if (args.checkpoint_every or args.resume) and not args.checkpoint:
         return "--checkpoint-every/--resume require --checkpoint PATH"
     modes = [m for m, on in (("--checkpoint-every/--resume",
                               args.checkpoint_every or args.resume),
+                             ("--sharded", args.sharded),
                              ("--metrics", bool(args.metrics))) if on]
     if len(modes) > 1:
         return f"{' and '.join(modes)} cannot be combined"
-    if args.engine != "point_to_point" and modes:
+    if args.engine != "point_to_point" and (args.checkpoint_every or args.resume
+                                            or args.metrics):
         return (f"--engine {args.engine} supports only the plain and "
                 "--sharded run modes")
     return None
+
+
+def _run_sharded(engine: str, model, scene, cfg, device: str):
+    """(result, its error trace, this rank) of the engine's sharded form on
+    a mesh over the process group: ``torchrun``'s, or a world-1 group made
+    here and taken down after the run."""
+    import torch.distributed as dist
+
+    from icp_tpu_torch.engine.gicp import icp_generalized_sharded
+    from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane_sharded
+    from icp_tpu_torch.engine.symmetric import icp_symmetric_sharded
+    from icp_tpu_torch.parallel.mesh import make_mesh
+    from icp_tpu_torch.parallel.sharded import icp_sharded
+
+    run = {"point_to_point": icp_sharded, "point_to_plane": icp_point_to_plane_sharded,
+           "symmetric": icp_symmetric_sharded, "gicp": icp_generalized_sharded}[engine]
+    own_group = not dist.is_initialized()
+    mesh = make_mesh(device)
+    try:
+        tr = run(model, scene, cfg, mesh=mesh, trace=True)
+        rank = dist.get_rank()
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    iters = int(tr.result.iters)
+    return tr.result, tr.errs[:iters].cpu().numpy(), rank
 
 
 @in_full_float32
@@ -132,8 +163,12 @@ def main(argv=None) -> int:
         trim_fraction=args.trim,
     )
     errs = None
+    rank = 0
     try:
-        if args.checkpoint_every or args.resume:
+        if args.sharded:
+            res, errs, rank = _run_sharded(args.engine, model, scene, cfg, args.device)
+            iters = int(res.iters)
+        elif args.checkpoint_every or args.resume:
             from icp_tpu_torch.engine.icp import icp_resumable
 
             res = icp_resumable(model, scene, cfg, checkpoint_path=args.checkpoint,
@@ -157,6 +192,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return -1
+    if rank != 0:
+        return 0
     if errs is not None:
         # Reference's per-iteration stderr log (src/cpu.cc:61,74).
         for i, e in enumerate(errs):

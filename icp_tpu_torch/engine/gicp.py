@@ -21,7 +21,9 @@ Trim and bucket padding as in ``engine/point_to_plane.py``.
 The float32 einsums of the sums stand where JAX writes
 ``Precision.HIGHEST``: they need full-float32 matmuls, which
 ``icp_generalized`` runs under (``utils.precision.full_float32``).  Rigid
-only; the sharded variant is not ported yet.
+only.  ``icp_generalized_sharded`` is the multi-process form
+(``parallel/sharded.gn_sharded``): the model covariances ride the ring (the
+model normals, in the grid loop), the scene's are split with its rows.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from icp_tpu_torch.config import ICPConfig
 from icp_tpu_torch.engine.icp import _validate, as_points
 from icp_tpu_torch.engine.plane import PlaneEngine, run_plane
-from icp_tpu_torch.engine.point_to_plane import _rodrigues, _solve6
+from icp_tpu_torch.engine.point_to_plane import _reduced, _rodrigues, _solve6
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
@@ -71,10 +73,11 @@ def _rotate_covariances(R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return R @ C @ R.T
 
 
-def _gicp_system(p, y, Cy, cov_p, weights=None):
+def _gicp_system(p, y, Cy, cov_p, weights=None, reduce=None):
     """Residuals and the 6x6 normal equations of matched (p, y) under
     ``M = (C_y + C_p)^-1``, rows weighted by ``weights`` (padding rows 0)
-    -> (sim, p_new, err)."""
+    -> (sim, p_new, err); ``reduce``: the sums over the ranks of a sharded
+    run."""
     dt, dev = p.dtype, p.device
     n = p.shape[0]
     M = _inv3_batched(Cy + cov_p)
@@ -90,13 +93,14 @@ def _gicp_system(p, y, Cy, cov_p, weights=None):
     Jr = J.reshape(n * 3, 6)
     A = Jr.T @ (M @ J).reshape(n * 3, 6)
     b = Jr.T @ (M @ (y - p)[:, :, None]).reshape(n * 3)
-    x = _solve6(A, b)
+    x = _solve6(*_reduced(reduce, A, b))
     sim = Similarity(s=torch.ones((), dtype=dt, device=dev), R=_rodrigues(x[:3]), t=x[3:])
     p_new = apply_similarity(p, sim)
     dn = y - p_new
     e = (dn * (M @ dn[:, :, None])[:, :, 0]).sum(1)
-    nw = n if weights is None else weights.sum()
-    return sim, p_new, e.sum() / nw
+    if weights is None:
+        return sim, p_new, e.sum() / n
+    return sim, p_new, torch.div(*_reduced(reduce, e.sum(), weights.sum()))
 
 
 def gicp_engine(eps: float) -> PlaneEngine:
@@ -140,3 +144,16 @@ def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
     return run_plane(gicp_engine(eps), cfg, model, model_normals, scene,
                      disk_covariances(scene_normals, eps), init=init, trace=trace,
                      scene_n=scene_n, model_n=model_n)
+
+
+def icp_generalized_sharded(model, scene, config: Optional[ICPConfig] = None, *,
+                            model_normals=None, scene_normals=None, normal_k: int = 16,
+                            eps: float = 1e-3, mesh=None, trace: bool = False):
+    """GICP with the scene and model rows split over the ranks of a
+    ``points`` mesh, as ``icp_point_to_plane_sharded``; trimmed runs take
+    the distributed quantile."""
+    from icp_tpu_torch.parallel.sharded import gn_sharded
+
+    return gn_sharded("gicp", model, scene, config, model_normals=model_normals,
+                      scene_normals=scene_normals, normal_k=normal_k, eps=eps, mesh=mesh,
+                      trace=trace)

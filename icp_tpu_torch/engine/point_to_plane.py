@@ -14,7 +14,8 @@ ride K4's payload slot; the cull bound is the Euclidean ``||y -
 p_new||^2``).  Trimmed runs keep the best correspondences by Euclidean
 distance, as every engine; bucket-padded runs (``scene_n``/``model_n``)
 estimate the normals on the sentinel-padded model, where they are exact for
-the real rows.  Rigid only; the sharded variant is not ported yet.
+the real rows.  Rigid only.  ``icp_point_to_plane_sharded`` is the
+multi-process form (``parallel/sharded.gn_sharded``).
 """
 
 from __future__ import annotations
@@ -47,15 +48,16 @@ def _rodrigues(omega: torch.Tensor) -> torch.Tensor:
     return torch.where(theta < 1e-12, eye, R)
 
 
-def _gauss_newton_step(p, y, nv, w=None) -> Similarity:
+def _gauss_newton_step(p, y, nv, w=None, reduce=None) -> Similarity:
     """The rigid step minimising the linearised plane residual of (p, y, n),
-    rows weighted by ``w`` (padding rows 0)."""
+    rows weighted by ``w`` (padding rows 0); ``reduce``: the sums over the
+    ranks of a sharded run (None: these rows are all of them)."""
     r = (nv * (p - y)).sum(1)
     J = torch.cat([torch.linalg.cross(p, nv, dim=1), nv], dim=1)  # (N, 6)
     if w is not None:
         r = r * w
         J = J * w[:, None]
-    x = _solve6(J.T @ J, J.T @ r)
+    x = _solve6(*_reduced(reduce, J.T @ J, J.T @ r))
     return Similarity(s=torch.ones((), dtype=p.dtype, device=p.device),
                       R=_rodrigues(x[:3]), t=x[3:])
 
@@ -67,19 +69,25 @@ def _solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return -torch.linalg.solve_ex(A + _DAMPING * eye6, b).result
 
 
-def mean_sq(res: torch.Tensor, w=None) -> torch.Tensor:
+def _reduced(reduce, *sums):
+    """``sums`` over the ranks by ``reduce`` (None: as they are)."""
+    return sums if reduce is None else reduce(*sums)
+
+
+def mean_sq(res: torch.Tensor, w=None, reduce=None) -> torch.Tensor:
     """Mean squared residual: over the rows, or of the ``w``-weighted
-    residuals over ``w``'s sum."""
+    residuals over ``w``'s sum (both summed by ``reduce`` over the ranks)."""
     if w is None:
         return (res * res).sum() / res.shape[0]
     res = res * w
-    return (res * res).sum() / w.sum()
+    num, den = _reduced(reduce, (res * res).sum(), w.sum())
+    return num / den
 
 
-def _p2pl_step(p, y, nv, _, w):
-    sim = _gauss_newton_step(p, y, nv, w)
+def _p2pl_step(p, y, nv, _, w, reduce=None):
+    sim = _gauss_newton_step(p, y, nv, w, reduce)
     p_new = apply_similarity(p, sim)
-    return sim, p_new, mean_sq((nv * (p_new - y)).sum(1), w)
+    return sim, p_new, mean_sq((nv * (p_new - y)).sum(1), w, reduce)
 
 
 POINT_TO_PLANE = PlaneEngine(step=_p2pl_step)
@@ -114,3 +122,19 @@ def icp_point_to_plane(model, scene, config: Optional[ICPConfig] = None, *,
         init = cast_similarity(init, cfg.dtype, model.device)
     return run_plane(POINT_TO_PLANE, cfg, model, normals, scene, init=init, trace=trace,
                      scene_n=scene_n, model_n=model_n)
+
+
+def icp_point_to_plane_sharded(model, scene, config: Optional[ICPConfig] = None, *,
+                               normals=None, normal_k: int = 16, mesh=None,
+                               trace: bool = False):
+    """Point-to-plane ICP with the scene and model rows split over the ranks
+    of a ``points`` mesh (``parallel/mesh.make_mesh``): the ring fold with
+    the model normals riding the ring, the 6x6 normal equations
+    all-reduced and solved on every rank; an NN method resolving to
+    ``"grid"`` takes the sharded kd-tile loop.  Every rank passes the same
+    full clouds and gets the whole result; ``trace=True`` returns an
+    ``ICPTrace``."""
+    from icp_tpu_torch.parallel.sharded import gn_sharded
+
+    return gn_sharded("point_to_plane", model, scene, config, model_normals=normals,
+                      normal_k=normal_k, mesh=mesh, trace=trace)

@@ -23,7 +23,9 @@ The loops are ``engine/plane.py``'s: dense (NN by
 (y, n_y) gather) and grid (the model normals ride K4's payload slot; the
 scene normals are padded with the last normal and kd-permuted once with the
 points).  Trim and bucket padding as in ``engine/point_to_plane.py``.
-Rigid only; the sharded variant is not ported yet.
+Rigid only.  ``icp_symmetric_sharded`` is the multi-process form
+(``parallel/sharded.gn_sharded``): the scene normals are split with the
+scene rows and co-rotate there, the model normals ride the ring.
 """
 
 from __future__ import annotations
@@ -35,15 +37,16 @@ import torch
 from icp_tpu_torch.config import ICPConfig
 from icp_tpu_torch.engine.icp import _validate, as_points
 from icp_tpu_torch.engine.plane import PlaneEngine, run_plane
-from icp_tpu_torch.engine.point_to_plane import _rodrigues, _solve6, mean_sq
+from icp_tpu_torch.engine.point_to_plane import _reduced, _rodrigues, _solve6, mean_sq
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
 
 
-def _sym_step(p, y, nv, pn, w=None):
+def _sym_step(p, y, nv, pn, w=None, reduce=None):
     """One symmetric Gauss-Newton step of matched (p, y, n_y) with the scene
-    normals ``pn``, rows weighted by ``w`` -> (sim, p_new, err)."""
+    normals ``pn``, rows weighted by ``w`` -> (sim, p_new, err); ``reduce``:
+    the sums over the ranks of a sharded run."""
     flip = torch.where((pn * nv).sum(1) < 0.0, -1.0, 1.0).to(p.dtype)
     n = pn + flip[:, None] * nv
     r = (n * (p - y)).sum(1)
@@ -51,11 +54,11 @@ def _sym_step(p, y, nv, pn, w=None):
     if w is not None:
         r = r * w
         J = J * w[:, None]
-    x = _solve6(J.T @ J, J.T @ r)
+    x = _solve6(*_reduced(reduce, J.T @ J, J.T @ r))
     R = _rodrigues(x[:3])
     sim = Similarity(s=torch.ones((), dtype=p.dtype, device=p.device), R=R @ R, t=R @ x[3:])
     p_new = apply_similarity(p, sim)
-    return sim, p_new, mean_sq((n * (p_new - y)).sum(1), w)
+    return sim, p_new, mean_sq((n * (p_new - y)).sum(1), w, reduce)
 
 
 def _rotate_normals(R, pn):
@@ -97,3 +100,16 @@ def icp_symmetric(model, scene, config: Optional[ICPConfig] = None, *,
         init = cast_similarity(init, cfg.dtype, model.device)
     return run_plane(SYMMETRIC, cfg, model, normals, scene, scene_normals, init=init,
                      trace=trace, scene_n=scene_n, model_n=model_n)
+
+
+def icp_symmetric_sharded(model, scene, config: Optional[ICPConfig] = None, *,
+                          normals=None, scene_normals=None, normal_k: int = 16, mesh=None,
+                          trace: bool = False):
+    """Symmetric ICP with the scene and model rows split over the ranks of
+    a ``points`` mesh, as ``icp_point_to_plane_sharded``; the dense ring
+    path checks the inputs as ``icp_symmetric`` does."""
+    from icp_tpu_torch.parallel.sharded import gn_sharded
+
+    return gn_sharded("symmetric", model, scene, config, model_normals=normals,
+                      scene_normals=scene_normals, normal_k=normal_k, mesh=mesh,
+                      trace=trace, validate=True)

@@ -1,5 +1,5 @@
 """Masked approximate quantile by histogram refinement (port of
-``icp_tpu/ops/quantile.py``, its single-device form).
+``icp_tpu/ops/quantile.py``).
 
 Trimmed ICP needs a per-iteration distance threshold tau with
 ``count(d2 <= tau) >= q * N``.  Two rounds of 32-bin histogram refinement
@@ -23,6 +23,13 @@ device fills, the bin pick an ``argmax`` and ``index_select``
 The tensors that depend only on N (the edge steps, the rows' bin copies,
 unit weights) are built once and kept for the next call at that N.
 
+With ``group`` (a ``torch.distributed`` process group) the rows are one
+rank's shard of the values, JAX's ``axis=`` form inside ``shard_map``:
+the bin counts and the weight total are all-reduced with SUM and ``hi``
+with MAX.  The edges keep the single-device operation order, so the
+threshold of a sharded run equals the single-device one on the same
+values (``max`` commutes with the rounded ``+ 1e-12``).
+
 ``histogram_quantile_rows`` is the same quantile for each row of a (B, N)
 batch (the batched engine's trim), counted by comparing every value with
 every edge, as JAX counts: the counts are exact integers either way, so
@@ -34,6 +41,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 _ROUNDS = 2  # refinement rounds
 _BINS = 32  # bins a round
@@ -51,10 +59,19 @@ def _constants(n: int, dtype: torch.dtype, device: torch.device) -> tuple:
     return steps, spread, ones, torch.full((), n, dtype=dtype, device=device)
 
 
-def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    if group is not None:
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None, *,
+                       group=None) -> torch.Tensor:
     """Approximate q-quantile (0-d tensor) of the (N,) values ``d2`` over
     the rows where ``w > 0`` (all rows when ``w`` is None); ``w`` weighs
-    each row's count (0/1 masks in the engines)."""
+    each row's count (0/1 masks in the engines).  ``group``: the process
+    group whose ranks hold the other shards of the values (None: these
+    are all of them)."""
     dt, dev = d2.dtype, d2.device
     steps, spread, ones, n_total = _constants(d2.shape[0], dt, dev)
     wv = None if w is None else w.to(dt)
@@ -63,6 +80,9 @@ def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None
     lo = torch.zeros((), dtype=dt, device=dev)
     if wv is not None:
         n_total, ones = wv.sum(), wv
+    if group is not None:
+        hi = _all_reduce(hi.reshape(1), group, dist.ReduceOp.MAX)[0]
+        n_total = _all_reduce(n_total.reshape(1).clone(), group)[0]
     target = n_total * q
     for _ in range(_ROUNDS):
         edges = lo + (hi - lo) * steps / _BINS
@@ -71,7 +91,7 @@ def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None
         slot = torch.where(torch.isnan(d2), _BINS, torch.bucketize(d2, edges))
         cnt = torch.zeros(_SPREAD * (_BINS + 1), dtype=dt, device=dev).index_add_(
             0, slot + spread, ones).view(_SPREAD, _BINS + 1).sum(0)
-        cnt = cnt[:_BINS].cumsum(0)  # cnt[j]: weight of the values <= edges[j]
+        cnt = _all_reduce(cnt[:_BINS], group).cumsum(0)  # cnt[j]: weight of the values <= edges[j]
         idx = (cnt >= target).to(torch.uint8).argmax().reshape(1)  # first covering bin
         lo = torch.where(idx > 0, edges.index_select(0, (idx - 1).clamp(min=0)), lo)[0]
         hi = edges.index_select(0, idx)[0]

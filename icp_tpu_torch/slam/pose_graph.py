@@ -1,6 +1,5 @@
 """Pose-graph optimisation and point-level bundle adjustment (port of
-``icp_tpu/slam/pose_graph.py``; ``bundle_adjust_sharded`` waits for the
-sharded engines).
+``icp_tpu/slam/pose_graph.py``).
 
   * ``optimize_pose_graph``: Gauss-Newton on SE(3) poses (quaternion +
     translation, the gauge fixed at pose 0 by a large diagonal prior),
@@ -11,7 +10,10 @@ sharded engines).
     segmented sum over the blocks sorted by (row pose, column pose), in
     JAX's order of addition, with no atomics: deterministic on the card.
   * ``bundle_adjust``: r_k = T_a x_k - T_b y_k per correspondence, the
-    normal equations summed over the points, a damped dense solve.
+    normal equations summed over the points, a damped dense solve;
+    ``bundle_adjust_sharded`` splits the correspondences over the ranks of
+    a ``points`` mesh, all-reduces the normal equations each step and
+    solves them on every rank.
 
 Both run on the device of the poses (the card unless the caller passes
 ``device="cpu"`` or CPU tensors), in float32 as JAX does.
@@ -202,20 +204,14 @@ def _flatten_correspondences(correspondences):
             np.concatenate(ys))
 
 
-@in_full_float32
-def bundle_adjust(poses: Sequence[Similarity],
-                  correspondences: Sequence[Tuple[int, int, np.ndarray, np.ndarray]], *,
-                  n_iters: int = 8, damping: float = 1e-6,
-                  device=None) -> Tuple[list[Similarity], float]:
-    """Joint point-level refinement.  ``correspondences``: (scan_a, scan_b,
-    points_in_a, points_in_b) tuples, row k of the two arrays one matched
-    point in the two scans' frames.  Returns (poses, final cost)."""
-    dev = _device(poses, device)
+def _bundle_adjust(poses, a, b, xs, ys, *, n_iters: int, damping: float, dev,
+                   w=None, reduce=None) -> Tuple[list[Similarity], float]:
+    """The damped Gauss-Newton steps of ``bundle_adjust`` on the
+    correspondence rows (a, b, x, y); ``w``: row weights (0: padding) and
+    ``reduce`` the sums over the ranks of a sharded run."""
     n_poses = len(poses)
     flat = poses_to_params(poses, dev).reshape(-1)
     n_params = flat.shape[0]
-    a, b, xs, ys = (torch.as_tensor(v, device=dev) for v in _flatten_correspondences(
-        correspondences))
     f32 = dict(dtype=torch.float32, device=dev)
     a = torch.nn.functional.one_hot(a, n_poses).to(torch.float32)
     b = torch.nn.functional.one_hot(b, n_poses).to(torch.float32)
@@ -228,8 +224,13 @@ def bundle_adjust(poses: Sequence[Similarity],
 
     def terms(f):
         r, J = res(f, a, b, xs, ys), jac(f, a, b, xs, ys)  # (N, 3), (N, 3, 7P)
-        return (torch.einsum("nri,nrj->ij", J, J), torch.einsum("nri,nr->i", J, r),
-                (r * r).sum())
+        if w is None:
+            return (torch.einsum("nri,nrj->ij", J, J), torch.einsum("nri,nr->i", J, r),
+                    (r * r).sum())
+        Jw = J * w[:, None, None]
+        sums = (torch.einsum("nri,nrj->ij", Jw, J), torch.einsum("nri,nr->i", Jw, r),
+                (w * (r * r).sum(1)).sum())
+        return sums if reduce is None else reduce(*sums)
 
     gauge = torch.diag(torch.cat([torch.full((7,), 1e8, **f32),
                                   torch.zeros(n_params - 7, **f32)]))
@@ -246,3 +247,40 @@ def bundle_adjust(poses: Sequence[Similarity],
         flat = flat - torch.linalg.solve(H + Hq + damp + gauge, g + gq)
     _, _, cost = terms(flat)
     return params_to_poses(flat.reshape(n_poses, 7)), float(cost)
+
+
+@in_full_float32
+def bundle_adjust(poses: Sequence[Similarity],
+                  correspondences: Sequence[Tuple[int, int, np.ndarray, np.ndarray]], *,
+                  n_iters: int = 8, damping: float = 1e-6,
+                  device=None) -> Tuple[list[Similarity], float]:
+    """Joint point-level refinement.  ``correspondences``: (scan_a, scan_b,
+    points_in_a, points_in_b) tuples, row k of the two arrays one matched
+    point in the two scans' frames.  Returns (poses, final cost)."""
+    dev = _device(poses, device)
+    rows = (torch.as_tensor(v, device=dev) for v in _flatten_correspondences(correspondences))
+    return _bundle_adjust(poses, *rows, n_iters=n_iters, damping=damping, dev=dev)
+
+
+@in_full_float32
+def bundle_adjust_sharded(poses: Sequence[Similarity],
+                          correspondences: Sequence[Tuple[int, int, np.ndarray, np.ndarray]],
+                          *, mesh=None, n_iters: int = 8,
+                          damping: float = 1e-6) -> Tuple[list[Similarity], float]:
+    """``bundle_adjust`` with the correspondence rows padded (weight 0) and
+    split over the ranks of a ``points`` mesh (``parallel/mesh.make_mesh``;
+    with none, a mesh on the poses' device): the normal equations are
+    all-reduced each Gauss-Newton step and the dense solve runs on every
+    rank.  Every rank passes the same poses and correspondences and gets
+    the same result."""
+    from icp_tpu_torch.parallel.mesh import make_mesh, mesh_device, shard_rows
+    from icp_tpu_torch.parallel.sharded import reducer
+
+    mesh = mesh or make_mesh(_device(poses, None).type)
+    dev = mesh_device(mesh)
+    a, b, xs, ys = (torch.as_tensor(v, device=dev)
+                    for v in _flatten_correspondences(correspondences))
+    w = torch.ones(xs.shape[0], dtype=torch.float32, device=dev)
+    a, b, xs, ys, w = (shard_rows(v, mesh) for v in (a, b, xs, ys, w))
+    return _bundle_adjust(poses, a, b, xs, ys, n_iters=n_iters, damping=damping, dev=dev,
+                          w=w, reduce=reducer(mesh.get_group(mesh.mesh_dim_names[0])))

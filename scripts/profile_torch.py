@@ -24,9 +24,12 @@ The ``trim`` cells are the point-to-point loop with ``trim_fraction=0.1``:
 cow_tr1 on the pipeline (K1 + the quantile + K2), horse_tr1 and the 1M
 pair on the grid path (K4, the quantile of its distances, K2); their
 ``host_waits`` count the loop's flag reads (one a chunk of 8 iterations)
-and any other wait.
+and any other wait.  The ``sharded`` cells are ``icp_sharded`` on a
+world-1 NCCL group (cow_tr1 with K1 each hop and K5 each iteration,
+horse_tr1 on the sharded grid), each beside the same host-side breakdown
+of the host operations by their own CPU time.
 ``--cells`` picks cells (``cow``, ``horse``, ``1M``, ``bf16``, ``k5``,
-``trim``; default all);
+``trim``, ``sharded``; default all);
 ``--root`` names the checkout whose ``icp_tpu_torch`` is profiled (default
 this one; it needs ``engine/plane.py``), so two commits can be profiled in
 one call with this script.
@@ -54,7 +57,7 @@ OURS = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel", "qcp_step_kernel",
         "nn_grid_epilogue_kernel", "qcp_rotation_kernel", "knn_dense_kernel",
         "knn_grid_plan_kernel", "knn_grid_fold_kernel", "knn_grid_merge_kernel",
         "nn_chunked_kernel", "nn_bf16_kernel", "nn_bf16_prep_kernel", "nn_bf16_fold_kernel")
-CELLS = ("cow", "horse", "1M", "bf16", "k5", "trim")
+CELLS = ("cow", "horse", "1M", "bf16", "k5", "trim", "sharded")
 
 
 def _us(event) -> float:
@@ -82,9 +85,11 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def profile_cell(name, label, run, n_iters, out_dir):
+def profile_cell(name, label, run, n_iters, out_dir, host_top: int = 0):
     """``run(k)``: k iterations of the cell's loop (set-up included);
-    ``n_iters`` 0 profiles one call of ``run`` as it is."""
+    ``n_iters`` 0 profiles one call of ``run`` as it is.  ``host_top``:
+    also print that many host operations with the most CPU time of their
+    own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,6 +127,9 @@ def profile_cell(name, label, run, n_iters, out_dir):
         per = [_us(e) for e in kernels if f"::{ours}(" in e.name or f"::{ours}<" in e.name]
         if per:
             print(f"[{name}]   per-launch us {ours}: " + " ".join(f"{v:.1f}" for v in per))
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]
+    for a in host:
+        print(f"[{name}]   host {a.self_cpu_time_total / 1e3:9.3f} ms x{a.count:<5d} {a.key[:80]}")
     prof.export_chrome_trace(os.path.join(out_dir, f"{name}.json"))
 
 
@@ -180,6 +188,23 @@ def main(argv=None) -> int:
                                                          solver="qcp_fused", nn_method=nn,
                                                          trim_fraction=0.1).err), k, args.out)
             del model, scene
+    if "sharded" in cells_on:
+        from icp_tpu_torch import icp_sharded, make_mesh
+
+        mesh = make_mesh()
+        for name, nn in (("cow", "pallas"), ("horse", "grid")):
+            model = torch.tensor(chip_smoke._load(f"{name}_ref.txt"), **f32)
+            scene = torch.tensor(chip_smoke._load(f"{name}_tr1.txt"), **f32)
+            for entry, fn in (("single", icp_fixed_iters), ("sharded", None)):
+                if fn is None:
+                    run = lambda i: float(icp_sharded(model, scene, ICPConfig(
+                        max_iter=i, threshold=-math.inf, nn_method=nn), mesh=mesh).err)
+                else:
+                    run = lambda i: float(fn(model, scene, n_iters=i, solver="qcp_fused",
+                                             nn_method=nn).err)
+                profile_cell(f"{name}_{entry}", f"engine=point_to_point path={nn} world=1",
+                             run, 20, args.out, host_top=12)
+        torch.distributed.destroy_process_group()
     cells = [("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", 20),
              ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", 20), ("1M", None, None, "grid", 10)]
     for name, ref, scene_file, nn, k in cells:

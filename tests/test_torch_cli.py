@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from icp_tpu_torch.io.csv import load_matrix
+from icp_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.conftest import data_path
 from tests.test_golden_reference import _TRACE_RE, reference_output, reference_trace
 
@@ -62,17 +63,37 @@ def test_unequal_counts_exit_255(tmp_path):
     assert "same number of points" in r.stderr
 
 
-@pytest.mark.parametrize("flags", [["--sharded"], ["--engine", "gicp", "--sharded"],
-                                   ["--sharded", "--trim", "0.1"],
-                                   ["--sharded", "--checkpoint", "ck.npz"]])
-def test_flags_not_ported_exit_255(tmp_path, flags):
-    """``--sharded`` is the one flag not ported yet: it exits 255 whatever
-    comes with it (``--trim`` and ``--checkpoint`` run since they were
-    ported: ``test_torch_trim.py``, ``test_torch_utils.py``)."""
+def test_cli_sharded_checkpoint_saves_the_run(tmp_path):
+    """``--sharded --checkpoint`` runs the sharded engine and saves its
+    result, as JAX's CLI: the iterations, the error and the transform that
+    maps the scene onto ``output.txt``."""
+    r = run_cli([data_path("cow_ref.txt"), data_path("cow_tr1.txt"), "10", "--device", "cpu",
+                 "--sharded", "--checkpoint", "ck.npz"], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "[checkpoint] saved to ck.npz" in r.stderr
+    sim, iters, err, _ = load_checkpoint(str(tmp_path / "ck.npz"))
+    assert iters == r.stderr.count("[ICP] iteration number") == 7 and err < 1e-5
+    scene = load_matrix(data_path("cow_tr1.txt"))
+    moved = float(sim.s) * scene @ sim.R.numpy().T + sim.t.numpy()
+    np.testing.assert_allclose(load_matrix(str(tmp_path / "output.txt")), moved, atol=1e-5)
+    np.testing.assert_allclose(load_matrix(str(tmp_path / "output.txt")),
+                               reference_output("cow_tr1"), atol=1e-5)
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--sharded", "--metrics", "m.json"], "--sharded and --metrics cannot be combined"),
+    (["--sharded", "--checkpoint", "c.npz", "--checkpoint-every", "3"],
+     "--checkpoint-every/--resume and --sharded cannot be combined"),
+    (["--sharded", "--checkpoint", "c.npz", "--resume", "--engine", "gicp"],
+     "--checkpoint-every/--resume and --sharded cannot be combined"),
+])
+def test_cli_sharded_refusals_are_jax_s(tmp_path, flags, msg):
+    """``--sharded`` excludes the other run modes, with JAX's messages and
+    exit code (``icp_tpu/engine/cli.py:116-134``)."""
     r = run_cli([data_path("cow_ref.txt"), data_path("cow_tr1.txt"), "3", "--device", "cpu",
                  *flags], tmp_path)
     assert r.returncode == 255
-    assert "not ported yet" in r.stderr
+    assert msg in r.stderr
     assert not (tmp_path / "output.txt").exists()
 
 

@@ -827,3 +827,42 @@ def test_batched_pallas_path_is_each_pairs_own_run(dev, bucketed):
                               model_n=None if m_ns is None else int(m_ns[b]), **kw)
         assert torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
         assert all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform))
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A world-1 NCCL mesh (``make_mesh`` starts the group), taken down after."""
+    import torch.distributed as dist
+
+    from icp_tpu_torch.parallel.mesh import make_mesh
+
+    own = not dist.is_initialized()
+    yield make_mesh()
+    if own:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case", ["cow", "cow_trimmed", "horse_grid"])
+def test_sharded_world1_nccl_matches_single_device(dev, nccl_mesh, case):
+    """``icp_sharded`` on a world-1 NCCL group against ``icp`` on the card:
+    the same iterations and points within atol 1e-4, rtol 2e-4 (the
+    sharded-vs-single parity bound); cow takes K1 each hop and K5 each
+    iteration, horse K4 each hop."""
+    from icp_tpu_torch import ICPConfig, icp, icp_sharded
+    from icp_tpu_torch.io.csv import load_matrix
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+    name = "horse" if case == "horse_grid" else "cow"
+    model = load_matrix(os.path.join(root, f"{name}_ref.txt"))
+    scene = load_matrix(os.path.join(root, f"{name}_tr1.txt"))
+    cfg = ICPConfig(max_iter=30, nn_method="grid" if name == "horse" else "pallas",
+                    trim_fraction=0.1 if case == "cow_trimmed" else 0.0)
+    single = icp(model, scene, cfg)
+    _build.reset_counts()
+    sharded = icp_sharded(model, scene, cfg, mesh=nccl_mesh)
+    torch.cuda.synchronize()
+    iters = int(sharded.iters)
+    assert iters == int(single.iters)
+    torch.testing.assert_close(sharded.points, single.points, atol=1e-4, rtol=2e-4)
+    hops = _build.LAUNCHES["nn_grid" if name == "horse" else "nn_dense"]
+    assert hops >= iters and _build.LAUNCHES["qcp_rotation"] >= iters

@@ -180,14 +180,23 @@ def test_cli_point_to_plane_matches_jax_fixtures(tmp_path, name, iters):
     check_cli_against_fixtures(tmp_path, "point_to_plane", FIXDIR, name, iters)
 
 
-@pytest.mark.parametrize("engine", ["gicp", "symmetric"])
-def test_cli_other_engines_still_exit_255(tmp_path, engine):
-    """The engines run (``test_torch_symmetric.py``, ``test_torch_gicp.py``);
-    their sharded variants are not ported yet."""
-    r = run_cli([data_path("cow_ref.txt"), data_path("cow_tr1.txt"), "3", "--device", "cpu",
-                 "--engine", engine, "--sharded"], tmp_path)
-    assert r.returncode == 255 and "not ported yet" in r.stderr
-    assert not (tmp_path / "output.txt").exists()
+# (engine, fixture folder, iterations, extra flags, fixture prefix): each
+# engine's --sharded run (world size 1) on cow_tr1 against the fixtures of
+# its unsharded CLI test
+SHARDED_CLI = [("point_to_point", "reference", 7, [], ""),
+               ("point_to_plane", "torch_p2pl", 3, [], ""),
+               ("symmetric", "torch_sym", 3, [], ""),
+               ("gicp", "torch_gicp", 3, [], ""),
+               ("point_to_point", "torch_trim", 8, ["--trim", "0.1"], "point_to_point_")]
+
+
+@pytest.mark.parametrize("engine,folder,iters,extra,prefix", SHARDED_CLI,
+                         ids=[f"{e}-{f}" for e, f, _, _, _ in SHARDED_CLI])
+def test_cli_sharded_matches_fixtures(tmp_path, engine, folder, iters, extra, prefix):
+    """``--sharded`` runs every engine (``parallel/sharded.py`` on a world-1
+    gloo group) with the unsharded run's iterations, trace and output."""
+    check_cli_against_fixtures(tmp_path, engine, os.path.join(os.path.dirname(FIXDIR), folder),
+                               "cow_tr1", iters, extra=["--sharded", *extra], prefix=prefix)
 
 
 def test_p2pl_error_is_the_plain_mean_of_the_plane_residual():

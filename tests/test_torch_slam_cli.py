@@ -5,9 +5,12 @@ bunny scans (``tests/fixtures/torch_slam/``, made by
 
 Held: the same closure candidates (pairs and inlier fractions to two
 places), each chain pair's iterations, its trimmed error within rtol 1e-3,
-and the saved poses within 1e-4 (R) and 1e-5 (t): RANSAC draws different
-triplets in the two packages, and the closure's ICP refinement lands both
-on the same pose to float32 noise (3.5e-6 and 3.9e-7 measured).
+the same suspect chain edges (the lines naming them equal), the pose
+graph's cost within rtol 1e-3, the saved poses within 1e-4 (R) and 1e-5
+(t), and each output cloud within 1e-5 of its full scan moved by the
+fixture's pose: RANSAC draws different triplets in the two packages, and
+the closure's ICP refinement lands both on the same pose to float32 noise
+(3.5e-6 and 3.9e-7 measured).
 """
 
 import os
@@ -19,10 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from icp_tpu_torch.io.csv import load_matrix
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_slam")
 _PAIR_RE = re.compile(r"\[slam\] pair (\d+)->(\d+): iters=(\d+) err=(\S+)")
 _CLOSURE_RE = re.compile(r"\[slam\] closure candidate (\d+)<-(\d+): inliers=(\S+)")
+_SUSPECT_RE = re.compile(r"\[slam\] chain edge \d+->\d+ is unverifiable .*")
+_COST_RE = re.compile(r"\[slam\] pose graph: (\d+) closure edge\(s\), cost=(\S+)")
 
 
 def _fixture_command():
@@ -51,12 +58,22 @@ def test_slam_cli_cpu_matches_the_jax_fixture(tmp_path):
         np.testing.assert_allclose(float(g[3]), float(w[3]), rtol=1e-3)
     assert _CLOSURE_RE.findall(r.stderr) == _CLOSURE_RE.findall(want) == [("0", "4", "0.20")]
     assert "pose graph: 1 closure edge(s)" in r.stderr
+    assert _SUSPECT_RE.findall(r.stderr) == _SUSPECT_RE.findall(want)
+    assert len(_SUSPECT_RE.findall(want)) == 3
+    (got_n, got_cost), = _COST_RE.findall(r.stderr)
+    (want_n, want_cost), = _COST_RE.findall(want)
+    assert got_n == want_n == "1"
+    np.testing.assert_allclose(float(got_cost), float(want_cost), rtol=1e-3)
     poses, ref = np.load(tmp_path / "poses.npz"), np.load(os.path.join(FIXTURE, "poses.npz"))
     np.testing.assert_array_equal(poses["s"], ref["s"])
     np.testing.assert_allclose(poses["R"], ref["R"], atol=1e-4)
     np.testing.assert_allclose(poses["t"], ref["t"], atol=1e-5)
-    for k in range(5):
-        assert (tmp_path / f"registered_{k}.txt").exists()
+    scans = [a for a in _fixture_command() if a.endswith(".txt")]
+    assert len(scans) == 5
+    for k, scan in enumerate(scans):
+        moved = ref["s"][k] * load_matrix(scan) @ ref["R"][k].T + ref["t"][k]
+        np.testing.assert_allclose(load_matrix(str(tmp_path / f"registered_{k}.txt")), moved,
+                                   rtol=0, atol=1e-5, err_msg=f"registered_{k}.txt")
 
 
 def test_slam_cli_device_cuda_without_a_card_exits_minus_one(tmp_path):
