@@ -37,6 +37,14 @@
 //    composes, writes errs[it], advances ctl[0], raises ctl[1] with K2's
 //    rule (with `guard`, also on K2's status word in ctl[3]) and resets the
 //    counter.
+// The pair axis (the counterpart of JAX's vmap over the pallas_call): a
+// launch takes B pairs, each with its own scene, model rows, state block,
+// loop control, error buffer and workspace (keys, counters, rows), laid out
+// one pair after another.  The grid gains blockIdx.z, the pair, and every
+// block offsets all of these by it; gridDim.x stays one pair's scene
+// blocks, so the counters, the "last block" tests and the solve's row count
+// are each pair's, and each pair's last block runs that pair's step.  The
+// chunk is sized to one wave over B x scene blocks.  A single pair is B = 1.
 // No grid barrier, no spin-wait and no float atomics: the last block to
 // arrive needs none, and a run repeats bit for bit.  When ctl[1] is up at
 // the start every block returns and block (0, 0) writes the identity step,
@@ -57,16 +65,28 @@ constexpr int kStageRows = 128;  // model rows a ring stage (2 KB)
 constexpr int kStages = 4;
 constexpr int kSums = qcp_warp::kSums;  // 17 Horn sums + the row count
 constexpr unsigned long long kEmpty = dense_fold::kEmpty;
+constexpr int kStateSlots = 32;
+constexpr int kCtlSlots = 4;
+constexpr int kMaxPairs = 65535;  // gridDim.z
 
 __global__ void __launch_bounds__(kThreads)
 icp_fused_kernel(const float* __restrict__ p0, int n, const float4* __restrict__ mt, int m,
-                 int chunk_rows, double* state, int* ctl, double* errs,
+                 int chunk_rows, double* state, int* ctl, double* errs, int errs_len,
                  unsigned long long* keys, unsigned* counts, double* rows, StepArgs args) {
   constexpr int P = kPoints;
   __shared__ __align__(16) float4 ring[kStages][kStageRows];
   __shared__ double scratch[(kThreads / 32) * kSums];  // block_sum; then the solve's
   __shared__ bool last;
   static_assert((kThreads / 32) * kSums >= qcp_warp::kWarpScratch, "solve scratch");
+  const long long pair = blockIdx.z;  // this pair's slice of every array
+  p0 += pair * 3 * n;
+  mt += pair * m;
+  state += pair * kStateSlots;
+  ctl += pair * kCtlSlots;
+  errs += pair * errs_len;
+  keys += pair * n;
+  counts += pair * (gridDim.x + 1);
+  rows += pair * gridDim.x * kSums;
   if (ctl[1]) {  // done: the identity step, once
     if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < 13)
       state[threadIdx.x] =
@@ -208,39 +228,46 @@ icp_fused_kernel(const float* __restrict__ p0, int n, const float4* __restrict__
   if (threadIdx.x == 0) counts[gridDim.x] = 0;
 }
 
-int chunk_rows_for(int n, int m, int* out) {
+int chunk_rows_for(int pairs, int n, int m, int* out) {
   static int waves[64];  // the wave of each device, asked once
+  const long long scene_blocks = (n + kBlockPoints - 1) / kBlockPoints;
   return dense_fold::chunk_rows(icp_fused_kernel, kThreads, waves,
-                                (n + kBlockPoints - 1) / kBlockPoints, m, kStageRows, out);
+                                static_cast<long long>(pairs) * scene_blocks, m, kStageRows,
+                                out);
 }
+
+bool valid(int pairs, int n, int m) { return pairs >= 1 && pairs <= kMaxPairs && n >= 1 && m >= 1; }
 
 }  // namespace
 
-// Scene blocks of an n-point launch: the rows of the sums and the counters
-// (one more: the solve's) of the workspace.
+// Scene blocks of an n-point pair: the rows of its sums and its counters
+// (one more: the solve's) in the workspace.
 ICP_EXPORT int icp_fused_scene_blocks(int n) { return (n + kBlockPoints - 1) / kBlockPoints; }
 
-// The model rows of one chunk for an (n, m) launch on the current card.
-ICP_EXPORT int icp_fused_chunk_rows(int n, int m, int* chunk_rows) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return chunk_rows_for(n, m, chunk_rows);
+// The model rows of one chunk for a launch of `pairs` (n, m) pairs on the
+// current card.
+ICP_EXPORT int icp_fused_chunk_rows(int pairs, int n, int m, int* chunk_rows) {
+  if (!valid(pairs, n, m)) return static_cast<int>(cudaErrorInvalidValue);
+  return chunk_rows_for(pairs, n, m, chunk_rows);
 }
 
-// mt: (m, 4) float32 rows [-2x, -2y, -2z, |m|^2], 16-byte aligned; keys: n
-// words, all ones; counts: scene blocks + 1 words, zero; rows: (scene
-// blocks, 18) float64, this launch's sums on return.
-ICP_EXPORT int icp_fused_launch(const float* p0, int n, const float4* mt, int m, double* state,
-                                int* ctl, double* errs, unsigned long long* keys,
-                                unsigned* counts, double* rows, int with_scale, double threshold,
-                                double err_factor, int converge, int guard,
-                                cudaStream_t stream) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+// `pairs` pairs, each array laid out pair after pair: p0 (n, 3); mt (m, 4)
+// float32 rows [-2x, -2y, -2z, |m|^2], 16-byte aligned; state (32,); ctl
+// (4,); errs (errs_len,); keys: n words, all ones; counts: scene blocks + 1
+// words, zero; rows: (scene blocks, 18) float64, this launch's sums on
+// return.
+ICP_EXPORT int icp_fused_launch(const float* p0, int pairs, int n, const float4* mt, int m,
+                                double* state, int* ctl, double* errs, int errs_len,
+                                unsigned long long* keys, unsigned* counts, double* rows,
+                                int with_scale, double threshold, double err_factor,
+                                int converge, int guard, cudaStream_t stream) {
+  if (!valid(pairs, n, m)) return static_cast<int>(cudaErrorInvalidValue);
   int chunk_rows = 0;
-  const int code = chunk_rows_for(n, m, &chunk_rows);
+  const int code = chunk_rows_for(pairs, n, m, &chunk_rows);
   if (code != 0) return code;
-  const dim3 grid(icp_fused_scene_blocks(n), (m + chunk_rows - 1) / chunk_rows);
+  const dim3 grid(icp_fused_scene_blocks(n), (m + chunk_rows - 1) / chunk_rows, pairs);
   const StepArgs args{with_scale, threshold, err_factor, converge, guard};
   icp_fused_kernel<<<grid, kThreads, 0, stream>>>(p0, n, mt, m, chunk_rows, state, ctl, errs,
-                                                   keys, counts, rows, args);
+                                                   errs_len, keys, counts, rows, args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,6 +51,15 @@
 //  2. epilogue (a thread a point): writes the index and, when asked, the
 //     distance from the key (K10: plus |p|^2); the empty key gives index 0
 //     and +inf, as the plain version and the JAX kernel give for such rows.
+//
+// The pair axis (the counterpart of JAX's vmap over the pallas_call): a
+// launch takes B pairs of (n, 3) scenes and (m, 3) models laid out one
+// after another, and the fold's grid gains blockIdx.z, the pair; each
+// block offsets its scene, model and keys by its pair, so every index is
+// pair-local and every pair folds exactly as a launch of its own (the keys'
+// minimum does not depend on the chunking).  The chunk is sized to one wave
+// over B x scene blocks, the keys of all B x n points are cleared by one
+// memset and one epilogue covers them all.  A single pair is B = 1.
 #include "dense_fold.cuh"
 
 namespace {
@@ -83,6 +92,10 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
                      int m, int chunk_rows, bool aligned16, unsigned long long* __restrict__ keys) {
   constexpr int P = kPoints;
   __shared__ __align__(16) float ring[kStages][kStageFloats];
+  const long long pair = blockIdx.z;
+  scene += pair * 3 * n;
+  model += pair * 3 * m;
+  keys += pair * n;
   const int base = blockIdx.y * chunk_rows;  // the chunk's first model row
   const int rows = min(chunk_rows, m - base);
   const int nb = (rows + kStageRows - 1) / kStageRows;
@@ -104,7 +117,7 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
   auto issue = [&](int b) {
     const int r0 = b * kStageRows;
     const int nf = 3 * min(kStageRows, rows - r0);  // floats of this stage
-    const float* src = model + 3LL * (base + r0);  // 16-byte aligned when the model is
+    const float* src = model + 3LL * (base + r0);  // 16-byte aligned when aligned16
     float* dst = ring[b % kStages];
     const int n16 = aligned16 ? nf / 4 : 0;
     for (int t = threadIdx.x; t < n16; t += kThreads) cp_async16(dst + 4 * t, src + 4 * t);
@@ -161,11 +174,14 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
 }
 
 // add_pn: the expansion form's distance is |m|^2 - 2 p.m; |p|^2 goes back on.
-__global__ void nn_dense_epilogue_kernel(const unsigned long long* __restrict__ keys, int n,
-                                         const float* __restrict__ scene, bool add_pn,
-                                         int* __restrict__ idx_out, float* __restrict__ d2_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// A thread a point of all the pairs: keys, scene and outputs are (B, n)
+// in one run, and a key's index is already pair-local.
+__global__ void nn_dense_epilogue_kernel(const unsigned long long* __restrict__ keys,
+                                         long long total, const float* __restrict__ scene,
+                                         bool add_pn, int* __restrict__ idx_out,
+                                         float* __restrict__ d2_out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
   const unsigned long long key = keys[i];
   idx_out[i] = key == kEmpty ? 0 : static_cast<int>(static_cast<unsigned>(key));
   if (!d2_out) return;
@@ -185,43 +201,57 @@ FoldKernel fold_kernel(int form) {
   return form == kExpansion ? nn_dense_fold_kernel<kExpansion> : nn_dense_fold_kernel<kDiff>;
 }
 
-// Model rows a chunk: one wave of resident fold blocks (dense_fold.cuh).
-int chunk_rows_for(int n, int m, int form, int* out) {
+// Model rows a chunk: one wave of resident fold blocks over all the pairs'
+// scene blocks (dense_fold.cuh).
+int chunk_rows_for(int pairs, int n, int m, int form, int* out) {
   static int waves[2][64];  // the wave of each form and device, asked once
   const long long scene_blocks = (n + kThreads * kPoints - 1) / (kThreads * kPoints);
-  return dense_fold::chunk_rows(fold_kernel(form), kThreads, waves[form], scene_blocks, m,
-                                kStageRows, out);
+  return dense_fold::chunk_rows(fold_kernel(form), kThreads, waves[form],
+                                static_cast<long long>(pairs) * scene_blocks, m, kStageRows,
+                                out);
 }
 
-bool valid(int n, int m, int form) { return n >= 1 && m >= 1 && (form == kDiff || form == kExpansion); }
+constexpr int kMaxPairs = 65535;  // gridDim.z
+
+bool valid(int pairs, int n, int m, int form) {
+  return pairs >= 1 && pairs <= kMaxPairs && n >= 1 && m >= 1 &&
+         (form == kDiff || form == kExpansion);
+}
 
 }  // namespace
 
-// The model rows of one chunk of the fold for an (n, m) launch of `form`.
-ICP_EXPORT int nn_dense_chunk_rows(int n, int m, int form, int* chunk_rows) {
-  if (!valid(n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
-  return chunk_rows_for(n, m, form, chunk_rows);
+// The model rows of one chunk of the fold for a launch of `pairs` (n, m)
+// pairs of `form`.
+ICP_EXPORT int nn_dense_chunk_rows(int pairs, int n, int m, int form, int* chunk_rows) {
+  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+  return chunk_rows_for(pairs, n, m, form, chunk_rows);
 }
 
-// form: 0 diff-squares (K1), 1 expansion (K10); keys: n 64-bit words of
-// scratch; d2_out may be null.
-ICP_EXPORT int nn_dense_launch(const float* scene, int n, const float* model, int m, int form,
-                               unsigned long long* keys, int* idx_out, float* d2_out,
+// `pairs` (n, 3) scenes and (m, 3) models, each laid out after the other;
+// form: 0 diff-squares (K1), 1 expansion (K10); keys: pairs * n 64-bit
+// words of scratch; idx_out (and d2_out, which may be null): pairs * n,
+// the indices pair-local.
+ICP_EXPORT int nn_dense_launch(const float* scene, int pairs, int n, const float* model, int m,
+                               int form, unsigned long long* keys, int* idx_out, float* d2_out,
                                cudaStream_t stream) {
-  if (!valid(n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
   int chunk_rows = 0;
-  int code = chunk_rows_for(n, m, form, &chunk_rows);
+  int code = chunk_rows_for(pairs, n, m, form, &chunk_rows);
   if (code != 0) return code;
-  cudaError_t e = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * n, stream);
+  const long long total = static_cast<long long>(pairs) * n;
+  cudaError_t e = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * total, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const bool aligned16 = reinterpret_cast<unsigned long long>(model) % 16 == 0;
+  // each pair's model starts 12 m bytes after the last: 16-byte aligned
+  // with the first when m is a multiple of 4
+  const bool aligned16 =
+      reinterpret_cast<unsigned long long>(model) % 16 == 0 && (pairs == 1 || m % 4 == 0);
   const dim3 grid((n + kThreads * kPoints - 1) / (kThreads * kPoints),
-                  (m + chunk_rows - 1) / chunk_rows);
+                  (m + chunk_rows - 1) / chunk_rows, pairs);
   fold_kernel(form)<<<grid, kThreads, 0, stream>>>(scene, n, model, m, chunk_rows, aligned16,
                                                    keys);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  nn_dense_epilogue_kernel<<<(n + 255) / 256, 256, 0, stream>>>(keys, n, scene, form == kExpansion,
-                                                                idx_out, d2_out);
+  nn_dense_epilogue_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      keys, total, scene, form == kExpansion, idx_out, d2_out);
   return static_cast<int>(cudaGetLastError());
 }

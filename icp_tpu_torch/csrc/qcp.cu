@@ -36,6 +36,14 @@
 // in their type, so the caller packs, casts and slices nothing on the host
 // (kernels/qcp.py).
 //
+// The pair axis (the counterpart of JAX's vmap over the pallas_call): a
+// launch is one warp a pair, <<<B, 32>>>, each warp offsetting its inputs
+// and outputs by its pair (K2: the (B, rows, 18) partials, the (B, 32)
+// states, the (B, 4) controls and the (B, errs_len) error buffers; K5: the
+// (B, 3, 3) S, the (B,) gp and gy, the (B, 16) blocks and the (B, 3, 3) R),
+// so each pair's warp runs the single-pair solve on its own slots and the
+// single-pair entry points are the B = 1 launch.
+//
 // Numerics: float64 throughout.  The JAX kernel is float32, and its
 // closed-form residual gy + s^2 gp - 2 s lambda cancels to noise near
 // convergence (gp ~ gy ~ 8.4e3 against a residual of ~2e-2 on cow); in
@@ -59,22 +67,40 @@ namespace {
 
 using qcp_warp::StepArgs;
 
+constexpr int kStateSlots = 32;
+constexpr int kCtlSlots = 4;
+constexpr int kRotSlots = 16;
+constexpr int kMaxPairs = 1 << 30;
+
+// K2: one warp a pair (blockIdx.x).
 __global__ void __launch_bounds__(32)
 qcp_step_kernel(const double* __restrict__ partials, int n_rows, double* state, int* ctl,
-                double* errs, StepArgs args) {
+                double* errs, int errs_len, StepArgs args) {
   __shared__ double sm[qcp_warp::kWarpScratch];
-  qcp_warp::qcp_step_warp(partials, n_rows, state, ctl, errs, args, sm);
+  const long long pair = blockIdx.x;
+  qcp_warp::qcp_step_warp(partials + pair * n_rows * qcp_warp::kSums, n_rows,
+                          state + pair * kStateSlots, ctl + pair * kCtlSlots,
+                          errs + pair * errs_len, args, sm);
 }
 
-// K5: one warp.  S (3 x 3, row major), gp and gy in T (float or double),
-// widened to double exactly; out: the (1, 16) float64 block [R, q, lambda,
-// 0, 0]; r_out, when given: R again in T (the conversion rounds to
-// nearest, as .to(float32)).
+// K5: one warp a pair (blockIdx.x).  S (3 x 3, row major), gp and gy in T
+// (float or double), widened to double exactly; out: the (1, 16) float64
+// block [R, q, lambda, 0, 0]; r_out, when given: R again in T (the
+// conversion rounds to nearest, as .to(float32)).  in_stride: the T slots
+// from one pair's S to the next's (9; the packed entry's blocks, 16), gp
+// and gy likewise.
 template <typename T>
 __global__ void __launch_bounds__(32)
 qcp_rotation_kernel(const T* __restrict__ S_in, const T* __restrict__ gp,
-                    const T* __restrict__ gy, double* __restrict__ out, T* __restrict__ r_out) {
+                    const T* __restrict__ gy, int in_stride, int g_stride,
+                    double* __restrict__ out, T* __restrict__ r_out) {
   __shared__ double sm[qcp_warp::kWarpScratch];
+  const long long pair = blockIdx.x;
+  S_in += pair * in_stride;
+  gp += pair * g_stride;
+  gy += pair * g_stride;
+  out += pair * kRotSlots;
+  if (r_out) r_out += pair * 9;
   double S[9], R[9], q[4], lam;
 #pragma unroll
   for (int k = 0; k < 9; ++k) S[k] = static_cast<double>(S_in[k]);
@@ -95,34 +121,45 @@ qcp_rotation_kernel(const T* __restrict__ S_in, const T* __restrict__ gp,
   }
 }
 
+bool valid(int pairs) { return pairs >= 1 && pairs <= kMaxPairs; }
+
 }  // namespace
 
-// K5 on the JAX kernel's (1, 16) slots: [S (9), gp, gy, 0...] in.
-ICP_EXPORT int qcp_rotation_launch(const double* in, double* out, cudaStream_t stream) {
-  qcp_rotation_kernel<double><<<1, 32, 0, stream>>>(in, in + 9, in + 10, out, nullptr);
+// K5 on the JAX kernel's (1, 16) slots: `pairs` blocks [S (9), gp, gy,
+// 0...] in, as many out.
+ICP_EXPORT int qcp_rotation_launch(const double* in, int pairs, double* out,
+                                   cudaStream_t stream) {
+  if (!valid(pairs)) return static_cast<int>(cudaErrorInvalidValue);
+  qcp_rotation_kernel<double><<<pairs, 32, 0, stream>>>(in, in + 9, in + 10, kRotSlots,
+                                                        kRotSlots, out, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5 from S, gp and gy as the caller holds them: float64 (f64 != 0) or
-// float32; r_out (R in that type) may be null.
+// K5 from `pairs` S (3 x 3), gp and gy as the caller holds them: float64
+// (f64 != 0) or float32; r_out (`pairs` R in that type) may be null.
 ICP_EXPORT int qcp_rotation_from_launch(const void* S, const void* gp, const void* gy, int f64,
-                                        double* out, void* r_out, cudaStream_t stream) {
+                                        int pairs, double* out, void* r_out,
+                                        cudaStream_t stream) {
+  if (!valid(pairs)) return static_cast<int>(cudaErrorInvalidValue);
   if (f64)
-    qcp_rotation_kernel<double><<<1, 32, 0, stream>>>(
+    qcp_rotation_kernel<double><<<pairs, 32, 0, stream>>>(
         static_cast<const double*>(S), static_cast<const double*>(gp),
-        static_cast<const double*>(gy), out, static_cast<double*>(r_out));
+        static_cast<const double*>(gy), 9, 1, out, static_cast<double*>(r_out));
   else
-    qcp_rotation_kernel<float><<<1, 32, 0, stream>>>(
+    qcp_rotation_kernel<float><<<pairs, 32, 0, stream>>>(
         static_cast<const float*>(S), static_cast<const float*>(gp),
-        static_cast<const float*>(gy), out, static_cast<float*>(r_out));
+        static_cast<const float*>(gy), 9, 1, out, static_cast<float*>(r_out));
   return static_cast<int>(cudaGetLastError());
 }
 
-ICP_EXPORT int qcp_step_launch(const double* partials, int n_rows, double* state,
-                               int* ctl, double* errs, int with_scale,
+// K2 on `pairs` pairs: partials (pairs, n_rows, 18), state (pairs, 32), ctl
+// (pairs, 4), errs (pairs, errs_len).
+ICP_EXPORT int qcp_step_launch(const double* partials, int pairs, int n_rows, double* state,
+                               int* ctl, double* errs, int errs_len, int with_scale,
                                double threshold, double err_factor, int converge, int guard,
                                cudaStream_t stream) {
+  if (!valid(pairs) || n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const StepArgs args{with_scale, threshold, err_factor, converge, guard};
-  qcp_step_kernel<<<1, 32, 0, stream>>>(partials, n_rows, state, ctl, errs, args);
+  qcp_step_kernel<<<pairs, 32, 0, stream>>>(partials, n_rows, state, ctl, errs, errs_len, args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,36 @@
 """Batched registration: many cloud pairs in one call (port of
 ``icp_tpu/engine/batched.py``).
 
-JAX runs ``jax.vmap`` over the pair axis.  Here the default path (the
-``bcast`` NN with the ``eigh``, ``qcp`` or ``kabsch`` solver) is written
-with a leading pair axis on every tensor: one blocked (B, rows, M)
-distance pass, one gather, batched Horn sums and batched solves, so an
-iteration launches the same ops for B pairs as for one and there is no
-Python loop over the pairs inside it.  The kernel paths run pair by pair
-through ``icp_fixed_iters`` (the counterpart of ``vmap`` over a
-``pallas_call`` is a pair axis in the kernels, not written yet):
-``nn_method="pallas"`` takes K3 for an unmasked pair with
-``solver="qcp_fused"`` and K1 + K2 otherwise, ``"grid"`` takes K1, K4 and
-K2, and ``qcp_fused`` with the ``bcast`` NN takes K5.
+JAX runs ``jax.vmap`` over the pair axis, and Pallas batches each
+``pallas_call`` under it by a grid axis: one launch an iteration serves all
+B pairs.  Here every tensor of the batched paths carries a leading pair
+axis and the kernels take it in their grids, so an iteration launches the
+same ops and kernels for B pairs as for one, with no Python loop over the
+pairs and no host read inside the loop:
+
+  * ``nn_method="pallas"``, ``solver="qcp_fused"``, unmasked and untrimmed
+    with models of at most ``MAX_FUSED_MODEL`` rows: one launch of K3 an
+    iteration (``kernels/icp_fused.py``), each pair's state, loop control
+    and error buffer its own;
+  * the same bucket-padded (``scene_ns``), trimmed or with larger models:
+    one launch of K1 (``nn_dense_batched``), the gather, the weighted
+    float64 Horn sums with the pair axis and one launch of K2 (``qcp_step``
+    on (B, 1, 18) partials), then the apply;
+  * ``bcast``, ``matmul`` or ``pallas`` (K1, one launch) NN with the
+    ``eigh``, ``qcp``, ``kabsch`` or ``qcp_fused`` solver (K5, one launch of
+    ``qcp_rotation_from`` on (B, 3, 3) statistics): one blocked NN pass,
+    one gather, batched Horn sums and batched solves.
+
+``bf16`` (K9) and ``grid`` (K1, K4, K2; JAX has no batched grid path) still
+run pair by pair through ``icp_fixed_iters``.
 
 Semantics, as JAX's: every pair runs exactly ``n_iters`` iterations (a
 converged pair keeps re-solving a fixed point).  ``scene_ns`` /
 ``model_ns`` give each pair's true row counts for bucket-padded inputs
 (``batch_pairs``): the pad rows are replica-filled and weigh 0 in every
-sum, trim quantile and error mean, as in the single-pair engines.
+sum, trim quantile and error mean, as in the single-pair engines.  On the
+kernel paths each pair's loop control counts its iterations and its error
+buffer keeps its trace; ``err`` is each pair's last error.
 
 Unlike JAX's (ROADMAP R2, R3): ``batch_pairs([])`` raises a ``ValueError``,
 and ``solver``/``nn_method`` take ``"auto"``, resolved as ``ICPConfig``
@@ -34,6 +47,20 @@ import torch
 
 from icp_tpu_torch.config import ICPConfig
 from icp_tpu_torch.engine.icp import ICPResult, as_points, icp_fixed_iters
+from icp_tpu_torch.kernels.icp_fused import (
+    fused_icp_step,
+    fused_path_available,
+    prepare_fused_inputs,
+)
+from icp_tpu_torch.kernels.nn_dense import nn_dense_batched
+from icp_tpu_torch.kernels.qcp import (
+    identity_state,
+    new_err_buffer,
+    new_loop_control,
+    pack_stats,
+    qcp_step,
+    unpack_states,
+)
 from icp_tpu_torch.ops.alignment import (
     Similarity,
     alignment_from_stats,
@@ -45,7 +72,8 @@ from icp_tpu_torch.ops.transform import apply_similarity, compose
 from icp_tpu_torch.utils.precision import in_full_float32
 
 _BLOCK_ELEMS = 1 << 24  # distance elements of one block of the batched NN
-_BATCHED_SOLVERS = ("eigh", "qcp", "kabsch")
+_BATCHED_SOLVERS = ("eigh", "qcp", "kabsch", "qcp_fused")
+_BATCHED_NN = ("bcast", "matmul", "pallas")
 
 
 def _counts(ns, batch: int, device) -> torch.Tensor | None:
@@ -63,12 +91,23 @@ def _replica_fill(clouds: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.where(keep[..., None], clouds, last)
 
 
-def closest_point_indices_batched(scenes: torch.Tensor, models: torch.Tensor) -> torch.Tensor:
-    """(B, N) int64 nearest model rows of every scene row, pair by pair: the
-    ``bcast`` NN (diff-squares distance, lowest index on ties) with a pair
-    axis, in scene blocks of at most ``_BLOCK_ELEMS`` distances."""
+def closest_point_indices_batched(scenes: torch.Tensor, models: torch.Tensor,
+                                  method: str) -> torch.Tensor:
+    """(B, N) int64 nearest model rows of every scene row, each pair into
+    its own model: ``"pallas"`` is one launch of K1 for all the pairs
+    (``nn_dense_batched``); ``"bcast"`` (diff-squares) and ``"matmul"``
+    (``|m|^2 - 2 s.m``) are ``ops/distance.py``'s forms with a pair axis, in
+    scene blocks of at most ``_BLOCK_ELEMS`` distances (lowest index on
+    ties)."""
+    if method == "pallas":
+        return nn_dense_batched(scenes.contiguous(), models.contiguous()).to(torch.int64)
     b, n, m = scenes.shape[0], scenes.shape[1], models.shape[1]
     rows = max(1, _BLOCK_ELEMS // max(b * m, 1))
+    if method == "matmul":
+        m2 = (models * models).sum(-1)[:, None, :]
+        return torch.cat([
+            torch.argmin(m2 - 2.0 * (scenes[:, lo:lo + rows] @ models.transpose(-1, -2)), dim=2)
+            for lo in range(0, n, rows)], dim=1)
     return torch.cat([
         torch.argmin(((scenes[:, lo:lo + rows, None, :] - models[:, None, :, :]) ** 2).sum(-1),
                      dim=2)
@@ -86,16 +125,28 @@ def _trim_weights(p, y, trim_fraction: float, mask):
     return w if mask is None else w * mask
 
 
-def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, with_scale: bool,
-                       reference_compat: bool, trim_fraction: float, s_n, m_n) -> ICPResult:
-    """The default path: every tensor with the pair axis first."""
-    b, n, dt, dev = scenes.shape[0], scenes.shape[1], scenes.dtype, scenes.device
+def _bucket_prologue(models, scenes, s_n, m_n):
+    """``engine/icp.bucket_prologue`` with a pair axis: the pad rows of both
+    clouds become replicas of each pair's last real row, and the scenes get
+    a (B, N) validity mask.  Returns (models, scenes, mask or None)."""
     mask = None
     if s_n is not None:
         scenes = _replica_fill(scenes, s_n)
-        mask = (torch.arange(n, device=dev)[None, :] < s_n[:, None]).to(dt)
+        mask = (torch.arange(scenes.shape[1], device=scenes.device)[None, :]
+                < s_n[:, None]).to(scenes.dtype)
     if m_n is not None:
         models = _replica_fill(models, m_n)
+    return models, scenes, mask
+
+
+def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, nn_method: str,
+                       with_scale: bool, reference_compat: bool, trim_fraction: float,
+                       s_n, m_n) -> ICPResult:
+    """The default path: every tensor with the pair axis first; the NN of
+    ``closest_point_indices_batched`` (K1 for ``"pallas"``), the solve of
+    ``alignment_from_stats`` (K5 for ``"qcp_fused"``)."""
+    b, dt, dev = scenes.shape[0], scenes.dtype, scenes.device
+    models, scenes, mask = _bucket_prologue(models, scenes, s_n, m_n)
     p = scenes
     total = Similarity(s=torch.ones(b, dtype=dt, device=dev),
                        R=torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3),
@@ -103,7 +154,7 @@ def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, with_scale:
     err = torch.full((b,), math.inf, dtype=dt, device=dev)
     factor = 2.0 if reference_compat else 1.0
     for _ in range(n_iters):
-        idx = closest_point_indices_batched(p, models)
+        idx = closest_point_indices_batched(p, models, nn_method)
         y = torch.gather(models, 1, idx[..., None].expand(-1, -1, 3))
         w = _trim_weights(p, y, trim_fraction, mask) if trim_fraction > 0.0 else mask
         stats = compute_alignment_stats(p, y, weights=w)
@@ -115,6 +166,46 @@ def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, with_scale:
         total = compose(total, sim)
     iters = torch.full((b,), n_iters, dtype=torch.int32, device=dev)
     return ICPResult(points=p, transform=total, err=err, iters=iters)
+
+
+def _icp_batched_kernels(models, scenes, *, n_iters: int, with_scale: bool,
+                         reference_compat: bool, trim_fraction: float, s_n,
+                         m_n) -> ICPResult:
+    """``pallas`` + ``qcp_fused``: the single-pair engine's fused and
+    pipeline paths (``engine/icp._icp_dense``) with a pair axis.  Each pair
+    has its own (32,) state block, (4,) loop control and (n_iters,) error
+    buffer; every iteration is one K3 launch (unmasked, untrimmed, models
+    of at most ``MAX_FUSED_MODEL`` rows), or one K1 launch, the float64
+    Horn sums and one K2 launch, for all the pairs.  Fixed mode: only the
+    bound raises a pair's done flag, so no iteration needs a host read."""
+    b, dt, dev = scenes.shape[0], scenes.dtype, scenes.device
+    models, scenes, mask = _bucket_prologue(models, scenes, s_n, m_n)
+    state = identity_state(dev, b)
+    ctl, errs = new_loop_control(n_iters, dev, b), new_err_buffer(n_iters, dev, b)
+    step_kw = dict(with_scale=with_scale, threshold=-math.inf,
+                   err_factor=2.0 if reference_compat else 1.0, converge=False, guard=False)
+    if fused_path_available("qcp_fused", "pallas", trim_fraction, models.shape[1],
+                            masked=mask is not None):
+        prep = prepare_fused_inputs(scenes, models)
+        for _ in range(n_iters):
+            fused_icp_step(prep, state, ctl, errs, **step_kw)
+        total = Similarity(*(v.to(dt) for v in unpack_states(state)[1]))
+        p = apply_similarity(scenes, total)
+    else:
+        p = scenes
+        for _ in range(n_iters):
+            idx = closest_point_indices_batched(p, models, "pallas")
+            y = torch.gather(models, 1, idx[..., None].expand(-1, -1, 3))
+            w = _trim_weights(p, y, trim_fraction, mask) if trim_fraction > 0.0 else mask
+            stats = compute_alignment_stats(p, y, acc_dtype=torch.float64, weights=w)
+            qcp_step(pack_stats(stats), state, ctl, errs, **step_kw)
+            p = apply_similarity(p, Similarity(*(v.to(dt) for v in unpack_states(state)[0])))
+        total = Similarity(*(v.to(dt) for v in unpack_states(state)[1]))
+    iters = ctl[:, 0].clone()
+    last = (iters.to(torch.int64) - 1).clamp(min=0)
+    err = errs.gather(1, last[:, None])[:, 0] if n_iters else errs.new_full((b,), math.inf)
+    err = torch.where(iters > 0, err, math.inf)
+    return ICPResult(points=p, transform=total, err=err.to(dt), iters=iters)
 
 
 @in_full_float32
@@ -143,9 +234,11 @@ def icp_batched(models, scenes, *, n_iters: int, solver: str = "eigh",
     solver = cfg.resolved_solver(dev.type)
     kw = dict(with_scale=with_scale, reference_compat=reference_compat,
               trim_fraction=trim_fraction)
-    if nn_method == "bcast" and solver in _BATCHED_SOLVERS:
+    if nn_method == "pallas" and solver == "qcp_fused":
+        return _icp_batched_kernels(models, scenes, n_iters=n_iters, s_n=s_n, m_n=m_n, **kw)
+    if nn_method in _BATCHED_NN and solver in _BATCHED_SOLVERS:
         return _icp_batched_bcast(models, scenes, n_iters=n_iters, solver=solver,
-                                  s_n=s_n, m_n=m_n, **kw)
+                                  nn_method=nn_method, s_n=s_n, m_n=m_n, **kw)
     out = [icp_fixed_iters(models[i], scenes[i], n_iters=n_iters, solver=solver,
                            nn_method=nn_method,
                            scene_n=None if s_n is None else int(s_n[i]),

@@ -43,15 +43,16 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 # C signatures of the entry points (all return the launch's cudaError_t).
 _SIGNATURES = {
-    "nn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
-    "nn_dense_chunk_rows": [_I, _I, _I, _P],
-    "qcp_step_launch": [_P, _I, _P, _P, _P, _I, _D, _D, _I, _I, _P],
-    "icp_fused_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P],
+    "nn_dense_launch": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "nn_dense_chunk_rows": [_I, _I, _I, _I, _P],
+    "qcp_step_launch": [_P, _I, _I, _P, _P, _P, _I, _I, _D, _D, _I, _I, _P],
+    "icp_fused_launch": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _D, _D, _I, _I,
+                         _P],
     "icp_fused_scene_blocks": [_I],
-    "icp_fused_chunk_rows": [_I, _I, _P],
+    "icp_fused_chunk_rows": [_I, _I, _I, _P],
     "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "qcp_rotation_launch": [_P, _P, _P],
-    "qcp_rotation_from_launch": [_P, _P, _P, _I, _P, _P, _P],
+    "qcp_rotation_launch": [_P, _I, _P, _P],
+    "qcp_rotation_from_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],
     "knn_grid_plan": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "knn_grid_launch": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _I, _P, _P, _P,

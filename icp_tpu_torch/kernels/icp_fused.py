@@ -15,6 +15,14 @@ the launch's workspace, once a run; ``fused_icp_step`` checks the loop
 tensors the first time it sees them, so an iteration is the launch alone.
 Its plain version is ``fused_partials_plain`` followed by
 ``qcp_step_plain``, taken only for CPU tensors.
+
+The pair axis (the counterpart of JAX's ``vmap`` over the ``pallas_call``):
+``prepare_fused_inputs`` on (B, N, 3) scenes and (B, M, 3) models lays out
+B pairs, each with its own workspace, and ``fused_icp_step`` then takes
+(B, 32) states, (B, 4) controls and (B, L) error buffers: one launch an
+iteration for all the pairs, each pair's result bit-equal to its own
+single-pair launch (the single pair is B = 1).  The plain version runs
+pair by pair.
 """
 
 from __future__ import annotations
@@ -43,33 +51,48 @@ class FusedInputs:
     launch's workspace, which every launch leaves as it found it (keys all
     ones, counters zero) but for ``rows``, which keep its Horn sums."""
 
-    p0: torch.Tensor  # (N, 3) float32 raw scene
-    mt: torch.Tensor  # (M, 4) float32 rows [-2x, -2y, -2z, |m|^2]
-    keys: Optional[torch.Tensor] = None  # (N,) int64 merge keys
-    counts: Optional[torch.Tensor] = None  # (scene blocks + 1,) int32 arrival counters
-    rows: Optional[torch.Tensor] = None  # (scene blocks, 18) float64 sums of the last launch
+    p0: torch.Tensor  # ([B,] N, 3) float32 raw scene
+    mt: torch.Tensor  # ([B,] M, 4) float32 rows [-2x, -2y, -2z, |m|^2]
+    keys: Optional[torch.Tensor] = None  # ([B,] N) int64 merge keys
+    counts: Optional[torch.Tensor] = None  # ([B,] scene blocks + 1) int32 arrival counters
+    rows: Optional[torch.Tensor] = None  # ([B,] scene blocks, 18) float64 sums of the last launch
     _loop: tuple = ()  # the loop tensors last checked, and the launch's pointers
+
+    @property
+    def pairs(self) -> Optional[int]:
+        """B for inputs laid out with the pair axis, else None."""
+        return self.p0.shape[0] if self.p0.ndim == 3 else None
 
 
 def prepare_fused_inputs(scene: torch.Tensor, model: torch.Tensor) -> FusedInputs:
     """Cast and lay out the clouds for K3, and allocate the workspace of its
-    launch on the card (outside the loop)."""
+    launch on the card (outside the loop): one pair, (N, 3) and (M, 3), or
+    B pairs, (B, N, 3) and (B, M, 3), each with its own workspace."""
     p0 = scene.to(torch.float32).contiguous()
     m = model.to(torch.float32)
-    mn = (m[:, 0] * m[:, 0] + m[:, 1] * m[:, 1]) + m[:, 2] * m[:, 2]
-    mt = torch.cat([-2.0 * m, mn[:, None]], dim=1).contiguous()
-    check_points("prepare_fused_inputs", "scene", p0)
-    if mt.device != p0.device or mt.shape[0] < 1 or p0.shape[0] < 1:
+    mn = (m[..., 0] * m[..., 0] + m[..., 1] * m[..., 1]) + m[..., 2] * m[..., 2]
+    mt = torch.cat([-2.0 * m, mn[..., None]], dim=-1).contiguous()
+    if p0.ndim == 3:
+        if mt.ndim != 3 or mt.shape[0] != p0.shape[0]:
+            raise ValueError(f"prepare_fused_inputs: {p0.shape[0]} scenes against models "
+                             f"{tuple(model.shape)}")
+        for s in p0:
+            check_points("prepare_fused_inputs", "scene", s)
+    else:
+        check_points("prepare_fused_inputs", "scene", p0)
+    if mt.device != p0.device or mt.shape[-2] < 1 or p0.shape[-2] < 1:
         raise ValueError("prepare_fused_inputs: the clouds must be non-empty and on one device")
     if p0.device.type == "cpu":
         return FusedInputs(p0=p0, mt=mt)
     if mt.data_ptr() % 16:
         raise ValueError("prepare_fused_inputs: the model rows must be 16-byte aligned")
-    dev, blocks = p0.device, _build.lib().icp_fused_scene_blocks(p0.shape[0])
+    dev, blocks = p0.device, _build.lib().icp_fused_scene_blocks(p0.shape[-2])
+    lead = p0.shape[:-2]
     return FusedInputs(p0=p0, mt=mt,
-                       keys=torch.full((p0.shape[0],), -1, dtype=torch.int64, device=dev),
-                       counts=torch.zeros(blocks + 1, dtype=torch.int32, device=dev),
-                       rows=torch.zeros((blocks, N_SUMS), dtype=torch.float64, device=dev))
+                       keys=torch.full((*lead, p0.shape[-2]), -1, dtype=torch.int64, device=dev),
+                       counts=torch.zeros((*lead, blocks + 1), dtype=torch.int32, device=dev),
+                       rows=torch.zeros((*lead, blocks, N_SUMS), dtype=torch.float64,
+                                        device=dev))
 
 
 def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
@@ -82,23 +105,26 @@ def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
 
 
 def _check_loop(prep: FusedInputs, state, ctl, errs) -> tuple:
-    """Raise unless the loop tensors are K2's, beside the clouds; returns
-    the launch's pointer arguments."""
-    dev = prep.p0.device
-    for name, t, dt, shape in (("state", state, torch.float64, (1, STATE_SLOTS)),
-                               ("ctl", ctl, torch.int32, (CTL_SLOTS,)),
+    """Raise unless the loop tensors are K2's (one pair's, or one each pair
+    of ``prep``), beside the clouds; returns the launch's pointer
+    arguments."""
+    dev, b = prep.p0.device, prep.pairs
+    lead = () if b is None else (b,)
+    for name, t, dt, shape in (("state", state, torch.float64, (b or 1, STATE_SLOTS)),
+                               ("ctl", ctl, torch.int32, (*lead, CTL_SLOTS)),
                                ("errs", errs, torch.float64, None)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous() \
                 or (shape is not None and tuple(t.shape) != shape) \
-                or (shape is None and t.ndim != 1):
+                or (shape is None and (t.ndim != 1 + len(lead) or tuple(t.shape[:-1]) != lead)):
             raise ValueError(f"fused_icp_step: {name} must be a contiguous {dt} "
-                             f"{shape or '1-D'} tensor on {dev} (got {t.dtype} "
+                             f"{shape or (*lead, 'L')} tensor on {dev} (got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device})")
     if prep.keys is None:
         return ()
-    return (prep.p0.data_ptr(), prep.p0.shape[0], prep.mt.data_ptr(), prep.mt.shape[0],
-            state.data_ptr(), ctl.data_ptr(), errs.data_ptr(), prep.keys.data_ptr(),
-            prep.counts.data_ptr(), prep.rows.data_ptr())
+    return (prep.p0.data_ptr(), b or 1, prep.p0.shape[-2], prep.mt.data_ptr(),
+            prep.mt.shape[-2], state.data_ptr(), ctl.data_ptr(), errs.data_ptr(),
+            errs.shape[-1], prep.keys.data_ptr(), prep.counts.data_ptr(),
+            prep.rows.data_ptr())
 
 
 def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
@@ -106,17 +132,24 @@ def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
                    threshold: float = -math.inf, err_factor: float = 2.0,
                    converge: bool = True, guard: bool = False) -> None:
     """One ICP iteration, in place on ``state`` (1, 32) float64, ``ctl``
-    (4,) int32 and ``errs`` float64 (the keywords: K2's loop arguments).
-    On the card it is one launch of K3; the loop tensors are checked the
-    first time a run's ``prep`` sees them."""
+    (4,) int32 and ``errs`` float64 (the keywords: K2's loop arguments);
+    for B pairs' ``prep``, on ``state`` (B, 32), ``ctl`` (B, 4) and
+    ``errs`` (B, L).  On the card it is one launch of K3 for all the
+    pairs; the loop tensors are checked the first time a run's ``prep``
+    sees them."""
     loop = prep._loop
     if not loop or loop[0] is not state or loop[1] is not ctl or loop[2] is not errs:
         loop = prep._loop = (state, ctl, errs, _check_loop(prep, state, ctl, errs),
                              prep.p0.device.index)
     if prep.keys is None:
-        qcp_step_plain(fused_partials_plain(prep, state), state, ctl, errs,
-                       with_scale=with_scale, threshold=threshold, err_factor=err_factor,
-                       converge=converge, guard=guard)
+        kw = dict(with_scale=with_scale, threshold=threshold, err_factor=err_factor,
+                  converge=converge, guard=guard)
+        if prep.pairs is None:
+            qcp_step_plain(fused_partials_plain(prep, state), state, ctl, errs, **kw)
+        for b in range(prep.pairs or 0):
+            st = state[b:b + 1]
+            one = FusedInputs(p0=prep.p0[b], mt=prep.mt[b])
+            qcp_step_plain(fused_partials_plain(one, st), st, ctl[b], errs[b], **kw)
         return
     code = _build.lib().icp_fused_launch(*loop[3], int(with_scale), float(threshold),
                                          float(err_factor), int(converge), int(guard),
@@ -125,13 +158,15 @@ def fused_icp_step(prep: FusedInputs, state: torch.Tensor, ctl: torch.Tensor,
     _build.check(code, "icp_fused")
 
 
-def chunk_rows(n: int, m: int) -> int:
-    """The model rows of one of K3's chunks for an (n, m) launch on the
-    current card (the C launcher's choice: one wave of blocks)."""
+def chunk_rows(n: int, m: int, pairs: int = 1) -> int:
+    """The model rows of one of K3's chunks for a launch of ``pairs`` (n, m)
+    pairs on the current card (the C launcher's choice: one wave of blocks
+    over all the pairs' scene blocks)."""
     import ctypes
 
     out = ctypes.c_int()
-    _build.check(_build.lib().icp_fused_chunk_rows(n, m, ctypes.addressof(out)), "icp_fused")
+    _build.check(_build.lib().icp_fused_chunk_rows(pairs, n, m, ctypes.addressof(out)),
+                 "icp_fused")
     return out.value
 
 

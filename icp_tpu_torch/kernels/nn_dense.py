@@ -20,6 +20,12 @@ and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so the
 N x M matrix never exists beyond one block; the wrappers take them only for
 CPU tensors.  No engine takes K8 or K10, as no JAX engine takes the chunked
 or the ``"mxu"`` form: they are reached through ``distance_impl``.
+
+``nn_dense_batched`` is K1 (K10) with a pair axis, the counterpart of JAX's
+``vmap`` over the ``pallas_call``: B pairs of (N, 3) scenes and (M, 3)
+models in one launch, the indices pair-local, each pair's output bit-equal
+to ``nn_dense`` on that pair alone; ``nn_dense`` is its B = 1 case, and
+``nn_dense_batched_plain`` is ``nn_dense_plain`` pair by pair.
 """
 
 from __future__ import annotations
@@ -56,6 +62,47 @@ def _check_pair(fn: str, scene: torch.Tensor, model: torch.Tensor) -> None:
         raise ValueError(f"{fn}: empty model")
 
 
+def _check_batch(fn: str, scenes: torch.Tensor, models: torch.Tensor) -> None:
+    """Raise unless ``scenes`` (B, N, 3) and ``models`` (B, M, 3) are
+    contiguous float32 tensors on one device, M >= 1."""
+    for name, t in (("scenes", scenes), ("models", models)):
+        if t.ndim != 3 or t.shape[2] != 3 or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 (B, N, 3) "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    if models.device != scenes.device or scenes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: scenes on {scenes.device}, models on {models.device}")
+    if models.shape[0] != scenes.shape[0] or models.shape[1] < 1:
+        raise ValueError(f"{fn}: {scenes.shape[0]} scenes against {models.shape[0]} models "
+                         f"of {models.shape[1]} rows")
+
+
+def _check_impl(fn: str, distance_impl: str, impls) -> None:
+    if distance_impl not in impls:
+        raise ValueError(f"{fn}: distance_impl must be one of {tuple(impls)}, "
+                         f"got {distance_impl!r}")
+
+
+def _launch(scene: torch.Tensor, model: torch.Tensor, pairs: int, with_dist: bool,
+            distance_impl: str):
+    """One launch of K1 (K10) on ``pairs`` (n, 3) scenes and (m, 3) models
+    laid out one after another: (scene.shape[:-1]) int32 indices [and
+    float32 distances]."""
+    n, m = scene.shape[-2], model.shape[-2]
+    shape = scene.shape[:-1]
+    idx = torch.empty(shape, dtype=torch.int32, device=scene.device)
+    d2 = torch.empty(shape, dtype=torch.float32, device=scene.device) if with_dist else None
+    if n and pairs:
+        keys = torch.empty(pairs * n, dtype=torch.int64, device=scene.device)  # (d2, index)
+        code = _build.lib().nn_dense_launch(
+            scene.data_ptr(), pairs, n, model.data_ptr(), m, _FORMS[distance_impl],
+            keys.data_ptr(), idx.data_ptr(), None if d2 is None else d2.data_ptr(),
+            _build.stream_ptr(scene))
+        _build.LAUNCHES[_COUNTS[distance_impl]] += 1
+        _build.check(code, _COUNTS[distance_impl])
+    return (idx, d2) if with_dist else idx
+
+
 def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = False,
              distance_impl: str = "vpu"):
     """(N,) int32 nearest-model indices [, (N,) float32 squared distances].
@@ -63,9 +110,7 @@ def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = Fals
     ``distance_impl``: ``"vpu"`` (K1), ``"mxu"`` (K10: the expansion form;
     its distance is ``|m|^2 - 2 p.m + |p|^2``) or ``"chunked"`` (K8,
     indices only: ``with_dist=True`` raises, as the JAX kernel asserts)."""
-    if distance_impl not in DISTANCE_IMPLS:
-        raise ValueError(f"nn_dense: distance_impl must be one of {DISTANCE_IMPLS}, "
-                         f"got {distance_impl!r}")
+    _check_impl("nn_dense", distance_impl, DISTANCE_IMPLS)
     if distance_impl == "chunked":
         if with_dist:
             raise ValueError("nn_dense: distance_impl='chunked' returns indices only")
@@ -73,24 +118,30 @@ def nn_dense(scene: torch.Tensor, model: torch.Tensor, *, with_dist: bool = Fals
     _check_pair("nn_dense", scene, model)
     if scene.device.type == "cpu":
         return nn_dense_plain(scene, model, with_dist=with_dist, distance_impl=distance_impl)
-    n, m = scene.shape[0], model.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=scene.device)
-    d2 = torch.empty(n, dtype=torch.float32, device=scene.device) if with_dist else None
-    if n:
-        keys = torch.empty(n, dtype=torch.int64, device=scene.device)  # merged (d2, index)
-        code = _build.lib().nn_dense_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, _FORMS[distance_impl], keys.data_ptr(),
-            idx.data_ptr(), None if d2 is None else d2.data_ptr(), _build.stream_ptr(scene))
-        _build.LAUNCHES[_COUNTS[distance_impl]] += 1
-        _build.check(code, _COUNTS[distance_impl])
-    return (idx, d2) if with_dist else idx
+    return _launch(scene, model, 1, with_dist, distance_impl)
 
 
-def chunk_rows(n: int, m: int, distance_impl: str = "vpu") -> int:
-    """The model rows of one of K1's (K10's) chunks for an (n, m) launch on
-    the current card (the C launcher's choice: one wave of blocks)."""
+def nn_dense_batched(scenes: torch.Tensor, models: torch.Tensor, *, with_dist: bool = False,
+                     distance_impl: str = "vpu"):
+    """(B, N) int32 nearest-model indices of B pairs, each into its own
+    model [, (B, N) float32 squared distances]: ``scenes`` (B, N, 3) and
+    ``models`` (B, M, 3), contiguous float32.  On the card one launch of K1
+    (``"vpu"``) or K10 (``"mxu"``) for all the pairs; each pair's output is
+    ``nn_dense``'s on that pair."""
+    _check_impl("nn_dense_batched", distance_impl, _FORMS)
+    _check_batch("nn_dense_batched", scenes, models)
+    if scenes.device.type == "cpu":
+        return nn_dense_batched_plain(scenes, models, with_dist=with_dist,
+                                      distance_impl=distance_impl)
+    return _launch(scenes, models, scenes.shape[0], with_dist, distance_impl)
+
+
+def chunk_rows(n: int, m: int, distance_impl: str = "vpu", pairs: int = 1) -> int:
+    """The model rows of one of K1's (K10's) chunks for a launch of
+    ``pairs`` (n, m) pairs on the current card (the C launcher's choice: one
+    wave of blocks over all the pairs' scene blocks)."""
     out = ctypes.c_int()
-    _build.check(_build.lib().nn_dense_chunk_rows(n, m, _FORMS[distance_impl],
+    _build.check(_build.lib().nn_dense_chunk_rows(pairs, n, m, _FORMS[distance_impl],
                                                   ctypes.addressof(out)), "nn_dense")
     return out.value
 
@@ -110,9 +161,7 @@ def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
     ``d = mn - 2c`` with ``mn = (mx*mx + my*my) + mz*mz`` and
     ``c = (px*mx + py*my) + pz*mz``, and the distance returned is ``d + pn``
     (``pn = (px*px + py*py) + pz*pz``)."""
-    if distance_impl not in _FORMS:
-        raise ValueError(f"nn_dense_plain: distance_impl must be one of {tuple(_FORMS)}, "
-                         f"got {distance_impl!r}")
+    _check_impl("nn_dense_plain", distance_impl, _FORMS)
     n, m = scene.shape[0], model.shape[0]
     rows = max(1, _PLAIN_BLOCK_ELEMS // m)
     idx = torch.empty(n, dtype=torch.int32, device=scene.device)
@@ -135,6 +184,17 @@ def nn_dense_plain(scene: torch.Tensor, model: torch.Tensor, *,
         d2[lo:lo + rows] = best
     if distance_impl == "mxu":
         d2 = torch.where(d2 < float("inf"), d2 + _norm3(scene), float("inf"))
+    return (idx, d2) if with_dist else idx
+
+
+def nn_dense_batched_plain(scenes: torch.Tensor, models: torch.Tensor, *,
+                           with_dist: bool = False, distance_impl: str = "vpu"):
+    """Plain version of ``nn_dense_batched``: ``nn_dense_plain`` pair by
+    pair."""
+    idx = torch.empty(scenes.shape[:-1], dtype=torch.int32, device=scenes.device)
+    d2 = torch.empty(scenes.shape[:-1], dtype=torch.float32, device=scenes.device)
+    for b, (s, m) in enumerate(zip(scenes, models)):
+        idx[b], d2[b] = nn_dense_plain(s, m, with_dist=True, distance_impl=distance_impl)
     return (idx, d2) if with_dist else idx
 
 

@@ -42,6 +42,14 @@ returns (R in S's dtype, q, lambda), as ``horn_rotation_pallas`` does.
 ``qcp_step_plain`` and ``qcp_rotation_plain`` are the same functions in
 plain Python floats, in the same operation order; the wrappers take them
 only for CPU tensors.
+
+The pair axis (the counterpart of JAX's ``vmap`` over the ``pallas_call``):
+``qcp_step`` also takes B pairs at once, partials (B, P, 18), states
+(B, 32), controls (B, 4) and error buffers (B, L), and ``qcp_rotation`` /
+``qcp_rotation_from`` take (B, 16) blocks / (B, 3, 3) S with (B,) gp and
+gy; on the card each is one launch of one warp a pair, every pair's output
+bit-equal to its own single-pair launch (the single pair is B = 1).  Their
+plain versions run the single-pair plain version pair by pair.
 """
 
 from __future__ import annotations
@@ -67,10 +75,11 @@ _NEWTON_ITERS = 12
 _POWER_ITERS = 2
 
 
-def identity_state(device=None) -> torch.Tensor:
-    """(1, 32) float64 state block of the identity cumulative transform."""
-    out = torch.zeros((1, STATE_SLOTS), dtype=torch.float64, device=device)
-    out[0, [13, 14, 18, 22]] = 1.0  # s_tot, R_tot diagonal
+def identity_state(device=None, pairs: int = 1) -> torch.Tensor:
+    """(pairs, 32) float64 state blocks of the identity cumulative transform
+    (one block, (1, 32), by default)."""
+    out = torch.zeros((pairs, STATE_SLOTS), dtype=torch.float64, device=device)
+    out[:, [13, 14, 18, 22]] = 1.0  # s_tot, R_tot diagonal
     return out
 
 
@@ -94,47 +103,68 @@ def unpack_state(state: torch.Tensor):
     return step, total, state[0, 26]
 
 
+def unpack_states(states: torch.Tensor):
+    """(step Similarity, total Similarity) of (B, 32) state blocks, each
+    field with the pair axis first."""
+    step = Similarity(s=states[:, 0], R=states[:, 1:10].reshape(-1, 3, 3), t=states[:, 10:13])
+    total = Similarity(s=states[:, 13], R=states[:, 14:23].reshape(-1, 3, 3),
+                       t=states[:, 23:26])
+    return step, total
+
+
 def pack_stats(stats: AlignmentStats) -> torch.Tensor:
-    """AlignmentStats -> one (1, 18) float64 row of partial sums."""
+    """AlignmentStats -> one (1, 18) float64 row of partial sums; with
+    leading pair axes (B,), one such row a pair: (B, 1, 18)."""
     dt = torch.float64
+    lead = tuple(stats.n.shape)
     return torch.cat([
-        stats.sum_py.to(dt).reshape(-1), stats.sum_p.to(dt), stats.sum_y.to(dt),
-        stats.sum_pp.to(dt).reshape(1), stats.sum_yy.to(dt).reshape(1),
-        stats.n.to(dt).reshape(1),
-    ]).reshape(1, N_SUMS)
+        stats.sum_py.to(dt).reshape(*lead, 9), stats.sum_p.to(dt), stats.sum_y.to(dt),
+        stats.sum_pp.to(dt).reshape(*lead, 1), stats.sum_yy.to(dt).reshape(*lead, 1),
+        stats.n.to(dt).reshape(*lead, 1),
+    ], -1).reshape(*lead, 1, N_SUMS)
 
 
-def new_loop_control(bound: int, device=None) -> torch.Tensor:
+def new_loop_control(bound: int, device=None, pairs=None) -> torch.Tensor:
     """ctl = [0, done, bound, status 0]; done from the start when the bound
-    is 0."""
-    return torch.tensor([0, int(bound <= 0), bound, GUARD_OK], dtype=torch.int32,
-                        device=device)
+    is 0.  ``pairs``: one such row a pair, (pairs, 4)."""
+    ctl = torch.tensor([0, int(bound <= 0), bound, GUARD_OK], dtype=torch.int32,
+                       device=device)
+    return ctl if pairs is None else ctl.repeat(pairs, 1)
 
 
-def new_err_buffer(length: int, device=None) -> torch.Tensor:
-    return torch.full((length,), float("nan"), dtype=torch.float64, device=device)
+def new_err_buffer(length: int, device=None, pairs=None) -> torch.Tensor:
+    """NaN error buffer (length,), or (pairs, length)."""
+    shape = (length,) if pairs is None else (pairs, length)
+    return torch.full(shape, float("nan"), dtype=torch.float64, device=device)
 
 
 def qcp_step(partials: torch.Tensor, state: torch.Tensor, ctl: torch.Tensor,
              errs: torch.Tensor, *, with_scale: bool = True,
              threshold: float = -math.inf, err_factor: float = 2.0,
              converge: bool = True, guard: bool = False) -> None:
-    """One alignment step, in place on ``state``, ``ctl`` and ``errs``."""
-    _check(partials, state, ctl, errs)
+    """One alignment step, in place on ``state``, ``ctl`` and ``errs``: one
+    pair's (partials (P, 18), state (1, 32), ctl (4,), errs (L,)) or, with
+    the pair axis, B pairs' (partials (B, P, 18), states (B, 32), controls
+    (B, 4), error buffers (B, L)), one launch for all of them."""
+    pairs = _check(partials, state, ctl, errs)
     if partials.device.type == "cpu":
         qcp_step_plain(partials, state, ctl, errs, with_scale=with_scale,
                        threshold=threshold, err_factor=err_factor, converge=converge,
                        guard=guard)
         return
+    if not pairs:
+        return
     code = _build.lib().qcp_step_launch(
-        partials.data_ptr(), partials.shape[0], state.data_ptr(),
-        ctl.data_ptr(), errs.data_ptr(), int(with_scale), float(threshold),
+        partials.data_ptr(), pairs, partials.shape[-2], state.data_ptr(),
+        ctl.data_ptr(), errs.data_ptr(), errs.shape[-1], int(with_scale), float(threshold),
         float(err_factor), int(converge), int(guard), _build.stream_ptr(partials))
     _build.LAUNCHES["qcp_step"] += 1
     _build.check(code, "qcp_step")
 
 
-def _check(partials, state, ctl, errs) -> None:
+def _check(partials, state, ctl, errs) -> int:
+    """Raise unless the step's tensors are one pair's or B pairs'; returns
+    the number of pairs."""
     dev = partials.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"qcp_step: unsupported device {dev}")
@@ -144,11 +174,23 @@ def _check(partials, state, ctl, errs) -> None:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"qcp_step: {name} must be a contiguous {dt} "
                              f"tensor on {dev} (got {t.dtype} on {t.device})")
+    if ctl.ndim == 2:  # the pair axis
+        b = ctl.shape[0]
+        if partials.ndim != 3 or partials.shape[0] != b or partials.shape[2] != N_SUMS \
+                or partials.shape[1] < 1:
+            raise ValueError(f"qcp_step: partials must be ({b}, P, {N_SUMS}), got "
+                             f"{tuple(partials.shape)}")
+        if state.shape != (b, STATE_SLOTS) or ctl.shape != (b, CTL_SLOTS) \
+                or errs.ndim != 2 or errs.shape[0] != b:
+            raise ValueError(f"qcp_step: states must be ({b}, 32), controls ({b}, "
+                             f"{CTL_SLOTS}) and error buffers ({b}, L)")
+        return b
     if partials.ndim != 2 or partials.shape[1] != N_SUMS or partials.shape[0] < 1:
         raise ValueError(f"qcp_step: partials must be (P, {N_SUMS}), got "
                          f"{tuple(partials.shape)}")
-    if state.shape != (1, STATE_SLOTS) or ctl.shape != (CTL_SLOTS,):
-        raise ValueError(f"qcp_step: state must be (1, 32) and ctl ({CTL_SLOTS},)")
+    if state.shape != (1, STATE_SLOTS) or ctl.shape != (CTL_SLOTS,) or errs.ndim != 1:
+        raise ValueError(f"qcp_step: state must be (1, 32), ctl ({CTL_SLOTS},) and errs (L,)")
+    return 1
 
 
 def guard_status(err: float, best: float) -> int:
@@ -177,7 +219,14 @@ def record_error(ctl: torch.Tensor, errs: torch.Tensor, err: float,
 
 def qcp_step_plain(partials, state, ctl, errs, *, with_scale=True,
                    threshold=-math.inf, err_factor=2.0, converge=True, guard=False) -> None:
-    """Plain version of K2 (same operation order, Python float64)."""
+    """Plain version of K2 (same operation order, Python float64); with the
+    pair axis, pair by pair."""
+    if ctl.ndim == 2:
+        for b in range(ctl.shape[0]):
+            qcp_step_plain(partials[b], state[b:b + 1], ctl[b], errs[b],
+                           with_scale=with_scale, threshold=threshold,
+                           err_factor=err_factor, converge=converge, guard=guard)
+        return
     if int(ctl[1]):
         step = [1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
         state[0, :13] = torch.tensor(step, dtype=torch.float64)
@@ -334,21 +383,23 @@ def pack_rotation_input(S: torch.Tensor, gp: torch.Tensor,
 
 
 def qcp_rotation(packed: torch.Tensor) -> torch.Tensor:
-    """K5: the (1, 16) output block [R, q, lambda, 0, 0] of a (1, 16) input
-    block [S, gp, gy, 0...], float64."""
+    """K5: the (B, 16) output blocks [R, q, lambda, 0, 0] of (B, 16) input
+    blocks [S, gp, gy, 0...], float64 (JAX's (1, 16) is B = 1); one launch
+    for all the blocks."""
     dev = packed.device
-    if packed.shape != (1, ROT_SLOTS) or packed.dtype != torch.float64 \
+    if packed.ndim != 2 or packed.shape[1] != ROT_SLOTS or packed.dtype != torch.float64 \
             or not packed.is_contiguous() or dev.type not in ("cpu", "cuda"):
         raise ValueError(f"qcp_rotation: input must be a contiguous float64 "
-                         f"(1, {ROT_SLOTS}) tensor, got {packed.dtype} "
+                         f"(B, {ROT_SLOTS}) tensor, got {packed.dtype} "
                          f"{tuple(packed.shape)} on {dev}")
     if dev.type == "cpu":
         return qcp_rotation_plain(packed)
-    out = torch.empty((1, ROT_SLOTS), dtype=torch.float64, device=dev)
-    code = _build.lib().qcp_rotation_launch(packed.data_ptr(), out.data_ptr(),
-                                            _build.stream_ptr(packed))
-    _build.LAUNCHES["qcp_rotation"] += 1
-    _build.check(code, "qcp_rotation")
+    out = torch.empty(packed.shape, dtype=torch.float64, device=dev)
+    if packed.shape[0]:
+        code = _build.lib().qcp_rotation_launch(packed.data_ptr(), packed.shape[0],
+                                                out.data_ptr(), _build.stream_ptr(packed))
+        _build.LAUNCHES["qcp_rotation"] += 1
+        _build.check(code, "qcp_rotation")
     return out
 
 
@@ -359,30 +410,43 @@ def qcp_rotation_from(S: torch.Tensor, gp: torch.Tensor, gy: torch.Tensor):
     float64 (w, x, y, z), lambda () float64).  The kernel widens the inputs
     to float64 exactly (as ``.to(float64)``) and rounds R back to S's dtype
     as ``.to`` does; q and lambda are views of its (1, 16) block, and a
-    float32 R shares the block's allocation."""
+    float32 R shares the block's allocation.  With the pair axis, S (B, 3,
+    3) and gp, gy of B contiguous elements: R (B, 3, 3), q (B, 4) and
+    lambda (B,), one launch for all the pairs."""
     dt, dev = S.dtype, S.device
-    if (S.shape != (3, 3) or dt not in _ROT_DTYPES or not S.is_contiguous()
-            or gp.dtype != dt or gy.dtype != dt or gp.numel() != 1 or gy.numel() != 1
+    b = S.shape[0] if S.ndim == 3 else None
+    k = 1 if b is None else b
+    if (S.shape[-2:] != (3, 3) or S.ndim not in (2, 3) or dt not in _ROT_DTYPES
+            or not S.is_contiguous() or gp.dtype != dt or gy.dtype != dt
+            or gp.numel() != k or gy.numel() != k
+            or (b is not None and not (gp.is_contiguous() and gy.is_contiguous()))
             or gp.device != dev or gy.device != dev or dev.type not in ("cpu", "cuda")):
-        raise ValueError(f"qcp_rotation_from: S must be a contiguous (3, 3) float32 or "
-                         f"float64 tensor and gp, gy one element each of its dtype and "
-                         f"device; got S {dt} {tuple(S.shape)} on {dev}, gp {gp.dtype} "
-                         f"{tuple(gp.shape)} on {gp.device}, gy {gy.dtype} "
-                         f"{tuple(gy.shape)} on {gy.device}")
+        raise ValueError(f"qcp_rotation_from: S must be a contiguous (3, 3) or (B, 3, 3) "
+                         f"float32 or float64 tensor and gp, gy one element (a contiguous B) "
+                         f"each of its dtype and device; got S {dt} {tuple(S.shape)} on "
+                         f"{dev}, gp {gp.dtype} {tuple(gp.shape)} on {gp.device}, gy "
+                         f"{gy.dtype} {tuple(gy.shape)} on {gy.device}")
     if dev.type == "cpu":
         return qcp_rotation_from_plain(S, gp, gy)
     f64 = dt == torch.float64
-    # [block (16 float64), R as 9 float32] in one allocation; a float64 R
-    # is the block's first nine slots
-    buf = torch.empty(ROT_SLOTS if f64 else ROT_SLOTS + 5, dtype=torch.float64, device=dev)
-    R = (buf if f64 else buf.view(torch.float32)).as_strided(
-        (3, 3), (3, 1), 0 if f64 else 2 * ROT_SLOTS)
-    code = _build.lib().qcp_rotation_from_launch(
-        S.data_ptr(), gp.data_ptr(), gy.data_ptr(), int(f64), buf.data_ptr(),
-        None if f64 else R.data_ptr(), _build.stream_ptr(S))
-    _build.LAUNCHES["qcp_rotation"] += 1
-    _build.check(code, "qcp_rotation")
-    return R, buf.as_strided((4,), (1,), 9), buf.as_strided((), (), 13)
+    # [blocks (16 float64 each), R as 9 float32 a pair] in one allocation; a
+    # float64 R is each block's first nine slots
+    buf = torch.empty(ROT_SLOTS * k + (0 if f64 else -(-9 * k // 2)), dtype=torch.float64,
+                      device=dev)
+    shape = (3, 3) if b is None else (b, 3, 3)
+    if f64:
+        R = buf.as_strided(shape, (3, 1) if b is None else (ROT_SLOTS, 3, 1), 0)
+    else:
+        R = buf.view(torch.float32)[2 * ROT_SLOTS * k:2 * ROT_SLOTS * k + 9 * k].view(shape)
+    if k:
+        code = _build.lib().qcp_rotation_from_launch(
+            S.data_ptr(), gp.data_ptr(), gy.data_ptr(), int(f64), k, buf.data_ptr(),
+            None if f64 else R.data_ptr(), _build.stream_ptr(S))
+        _build.LAUNCHES["qcp_rotation"] += 1
+        _build.check(code, "qcp_rotation")
+    if b is None:
+        return R, buf.as_strided((4,), (1,), 9), buf.as_strided((), (), 13)
+    return R, buf.as_strided((b, 4), (ROT_SLOTS, 1), 9), buf.as_strided((b,), (ROT_SLOTS,), 13)
 
 
 def _rotation_block(S, gp: float, gy: float) -> list:
@@ -392,16 +456,24 @@ def _rotation_block(S, gp: float, gy: float) -> list:
 
 
 def qcp_rotation_plain(packed: torch.Tensor) -> torch.Tensor:
-    """Plain version of K5 (Python float64, K2's operation order)."""
-    a = packed[0].tolist()
-    S = [[a[3 * r + c] for c in range(3)] for r in range(3)]
-    return torch.tensor([_rotation_block(S, a[9], a[10])], dtype=torch.float64,
-                        device=packed.device)
+    """Plain version of K5 (Python float64, K2's operation order), block by
+    block."""
+    out = []
+    for a in packed.tolist():
+        S = [[a[3 * r + c] for c in range(3)] for r in range(3)]
+        out.append(_rotation_block(S, a[9], a[10]))
+    return torch.tensor(out, dtype=torch.float64, device=packed.device).reshape(packed.shape)
 
 
 def qcp_rotation_from_plain(S: torch.Tensor, gp: torch.Tensor, gy: torch.Tensor):
     """Plain version of ``qcp_rotation_from``: the inputs read as Python
-    floats (exact), K5's plain solve, R cast back to S's dtype."""
+    floats (exact), K5's plain solve, R cast back to S's dtype; with the
+    pair axis, pair by pair."""
+    if S.ndim == 3:
+        gps, gys = gp.reshape(-1).tolist(), gy.reshape(-1).tolist()
+        out = torch.tensor([_rotation_block(s, g, y) for s, g, y in zip(S.tolist(), gps, gys)],
+                           dtype=torch.float64, device=S.device).reshape(S.shape[0], ROT_SLOTS)
+        return out[:, :9].reshape(-1, 3, 3).to(S.dtype), out[:, 9:13], out[:, 13]
     out = torch.tensor(_rotation_block(S.tolist(), float(gp), float(gy)),
                        dtype=torch.float64, device=S.device)
     return out[:9].reshape(3, 3).to(S.dtype), out[9:13], out[13]

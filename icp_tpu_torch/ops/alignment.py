@@ -201,8 +201,8 @@ def rotation_kabsch(S: torch.Tensor) -> torch.Tensor:
 def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
                          with_scale: bool = True) -> Similarity:
     """Closed-form similarity from the sufficient statistics (a batch of
-    them with leading axes: ``solver="qcp_fused"``, one kernel launch a
-    problem, takes one)."""
+    them with leading axes; ``solver="qcp_fused"`` takes one pair axis at
+    most: one launch of K5 for all the pairs)."""
     n = stats.n
     mu_p = stats.sum_p / n[..., None]
     mu_y = stats.sum_y / n[..., None]
@@ -213,12 +213,9 @@ def alignment_from_stats(stats: AlignmentStats, *, solver: str = "eigh",
     if solver == "kabsch":
         R = rotation_kabsch(S)
     elif solver == "qcp_fused":
-        if S.dim() != 2:
-            raise ValueError("solver='qcp_fused' solves one problem a launch; batched "
-                             "statistics take 'qcp', 'eigh' or 'kabsch'")
         # the whole 4x4 solve in one launch of K5 (float64) on S, gp and gy
         # as they are, as JAX's horn_rotation_pallas
-        # (icp_tpu/ops/alignment.py:284-292)
+        # (icp_tpu/ops/alignment.py:284-292), vmapped over a pair axis
         from icp_tpu_torch.kernels.qcp import qcp_rotation_from
 
         R, _, _ = qcp_rotation_from(S, gp, gy)

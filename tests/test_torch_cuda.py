@@ -795,9 +795,13 @@ def test_trimmed_loop_launches_one_k1_and_one_k2_an_iteration(dev, bucketed):
 @pytest.mark.parametrize("bucketed", [False, True], ids=["fused", "bucketed_pipeline"])
 def test_batched_pallas_path_is_each_pairs_own_run(dev, bucketed):
     """``icp_batched(nn_method="pallas", solver="qcp_fused")`` on 4 pairs, 6
-    iterations: unmasked pairs take K3, one launch an iteration (4 x 6 and
-    no K1 or K2); bucket-padded ones K1 + K2 (4 x 6 each, no K3); each pair
-    bit-equal to its own ``icp_fixed_iters``."""
+    iterations: unmasked pairs take K3, one launch an iteration for all the
+    pairs (6 and no K1 or K2), each pair bit-equal to its own
+    ``icp_fixed_iters``; bucket-padded ones K1 + K2 (6 each, no K3), each
+    pair's points within 1e-6, transform within 1e-9 and error within rtol
+    1e-4 / atol 1e-7 of its own run: the float64 Horn sums over a pair axis
+    add in another order than one pair's, and the closed-form residual of
+    a converged pair (~1e-14) keeps none of their last digits."""
     from icp_tpu_torch.engine.batched import batch_pairs, icp_batched
     from icp_tpu_torch.engine.icp import icp_fixed_iters
 
@@ -818,15 +822,186 @@ def test_batched_pallas_path_is_each_pairs_own_run(dev, bucketed):
     res = icp_batched(models, scenes, scene_ns=s_ns, model_ns=m_ns, device=dev, **kw)
     used = dict(_build.LAUNCHES)
     if bucketed:
-        assert used["nn_dense"] == used["qcp_step"] == 24 and used["icp_fused"] == 0
+        assert used["nn_dense"] == used["qcp_step"] == 6 and used["icp_fused"] == 0
     else:
-        assert used["icp_fused"] == 24 and used["nn_dense"] == used["qcp_step"] == 0
+        assert used["icp_fused"] == 6 and used["nn_dense"] == used["qcp_step"] == 0
     for b in range(4):
         one = icp_fixed_iters(models[b], scenes[b], device=dev,
                               scene_n=None if s_ns is None else int(s_ns[b]),
                               model_n=None if m_ns is None else int(m_ns[b]), **kw)
-        assert torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
-        assert all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform))
+        if not bucketed:
+            assert torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
+            assert all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform))
+            continue
+        torch.testing.assert_close(res.points[b], one.points, rtol=0, atol=1e-6)
+        for a, c in zip(res.transform, one.transform):
+            torch.testing.assert_close(a[b], c, rtol=0, atol=1e-9)
+        torch.testing.assert_close(res.err[b], one.err, rtol=1e-4, atol=1e-7)
+
+
+# The pair axis of K1, K2, K3 and K5: each pair bit-equal to its own
+# single-pair launch on the same inputs, one launch for all the pairs.
+
+def _pairs_of_clouds(seed, b, n, m, scale=1.1):
+    rng = np.random.default_rng(seed)
+    s = torch.tensor(rng.standard_normal((b, n, 3)), dtype=torch.float32)
+    mo = torch.tensor(scale * rng.standard_normal((b, m, 3)), dtype=torch.float32)
+    return s, mo
+
+
+@pytest.mark.parametrize("impl", ["vpu", "mxu"])
+@pytest.mark.parametrize("b,n,m", [(1, 300, 2049), (4, 300, 2049), (4, 5000, 700),
+                                   (32, 1000, 1500)])
+def test_nn_dense_batched_kernel_matches_plain_and_single_launches(dev, b, n, m, impl):
+    """K1 (K10) with the pair axis: one launch; indices (pair-local) and
+    distances bit-equal to the plain version and to each pair's own
+    launch; m = 2,049 puts the pairs' models off 16-byte alignment; each
+    model repeats its first rows later, so the lowest index must win."""
+    s, mo = _pairs_of_clouds(b * n + m, b, n, m)
+    mo[:, m - m // 2:] = mo[:, :m // 2].clone()  # rows past m - m // 2 repeat earlier ones
+    s, mo = s.to(dev), mo.to(dev)
+    before = _build.LAUNCHES[nn_dense._COUNTS[impl]]
+    ik, dk = nn_dense.nn_dense_batched(s, mo, with_dist=True, distance_impl=impl)
+    assert _build.LAUNCHES[nn_dense._COUNTS[impl]] == before + 1
+    assert ik.shape == (b, n) and bool((ik < m - m // 2).all())
+    ip, dp = nn_dense.nn_dense_batched_plain(s, mo, with_dist=True, distance_impl=impl)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp)
+    for k in range(b):
+        i1, d1 = nn_dense.nn_dense(s[k], mo[k], with_dist=True, distance_impl=impl)
+        assert torch.equal(ik[k], i1) and torch.equal(dk[k], d1)
+
+
+def _batched_partials(dev, b, rows):
+    """(B, rows, 18) partial sums of B seeded correspondence sets."""
+    from icp_tpu_torch.ops.alignment import compute_alignment_stats
+
+    parts = []
+    for k in range(b):
+        p, y = _cloud(40 + k, 500).double(), (1.1 * _cloud(40 + k, 500).double() + 0.2
+                                              + 0.01 * _cloud(80 + k, 500).double())
+        parts.append(torch.cat([qcp.pack_stats(compute_alignment_stats(a, c))
+                                for a, c in zip(p.chunk(rows), y.chunk(rows))]))
+    return torch.stack(parts).to(dev)
+
+
+@pytest.mark.parametrize("b,rows", [(1, 1), (4, 1), (8, 1), (4, 23), (8, 23)])
+def test_qcp_step_batched_kernel_matches_plain_and_single_launches(dev, b, rows):
+    """K2 with the pair axis (one warp a pair, one launch): each pair's
+    state, control and errors bit-equal to its own launch and to the plain
+    version, over three steps; pair 0 starts done and only writes the
+    identity step."""
+    parts = _batched_partials(dev, b, rows)
+    state0 = torch.cat([_warm_state(dev)] * b)
+    ctl0 = qcp.new_loop_control(5, dev, b)
+    ctl0[0] = torch.tensor([2, 1, 5, 0], dtype=torch.int32)
+    outs = []
+    for fn in (qcp.qcp_step, qcp.qcp_step_plain):
+        st, ctl, errs = state0.clone(), ctl0.clone(), qcp.new_err_buffer(5, dev, b)
+        before = _build.LAUNCHES["qcp_step"]
+        for _ in range(3):
+            fn(parts, st, ctl, errs, threshold=1e-5)
+        if fn is qcp.qcp_step:
+            assert _build.LAUNCHES["qcp_step"] == before + 3
+        outs.append((st, ctl, errs))
+    (sk, ck, ek), (sp, cp, ep) = outs
+    assert torch.equal(ck, cp) and torch.equal(sk, sp) and _same_nan(ek, ep)
+    for k in range(b):
+        st, ctl, errs = state0[k:k + 1].clone(), ctl0[k].clone(), qcp.new_err_buffer(5, dev)
+        for _ in range(3):
+            qcp.qcp_step(parts[k], st, ctl, errs, threshold=1e-5)
+        assert torch.equal(st, sk[k:k + 1]) and torch.equal(ctl, ck[k]) and _same_nan(errs, ek[k])
+    assert ck[0].tolist() == [2, 1, 5, 0] and bool(torch.isnan(ek[0]).all())
+
+
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_qcp_rotation_batched_kernel_matches_plain_and_single_launches(dev, b, dtype):
+    """K5 with the pair axis: ``qcp_rotation_from`` on (B, 3, 3) S and (B,)
+    gp, gy, and the packed entry on (B, 16) blocks, one launch each; every
+    pair's (R, q, lambda) bit-equal to its own launch and to plain."""
+    rng = np.random.default_rng(30 + b)
+    S = torch.tensor(rng.standard_normal((b, 3, 3)), dtype=dtype, device=dev)
+    gp, gy = (torch.tensor(rng.uniform(0.5, 4.0, b), dtype=dtype, device=dev) for _ in range(2))
+    before = _build.LAUNCHES["qcp_rotation"]
+    R, q, lam = qcp.qcp_rotation_from(S, gp, gy)
+    assert _build.LAUNCHES["qcp_rotation"] == before + 1
+    assert R.shape == (b, 3, 3) and q.shape == (b, 4) and lam.shape == (b,) and R.dtype == dtype
+    for a, c in zip((R, q, lam), qcp.qcp_rotation_from_plain(S.cpu(), gp.cpu(), gy.cpu())):
+        assert torch.equal(a.cpu(), c)
+    packed = torch.cat([qcp.pack_rotation_input(S[k], gp[k], gy[k]) for k in range(b)])
+    out = qcp.qcp_rotation(packed)
+    assert _build.LAUNCHES["qcp_rotation"] == before + 2
+    assert torch.equal(out.cpu(), qcp.qcp_rotation_plain(packed.cpu()))
+    for k in range(b):
+        one = qcp.qcp_rotation_from(S[k], gp[k], gy[k])
+        assert all(torch.equal(a[k], c) for a, c in zip((R, q, lam), one))
+        assert torch.equal(out[k:k + 1], qcp.qcp_rotation(packed[k:k + 1]))
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1000, 1500), (4, 1000, 1500), (4, 2903, 2903),
+                                   (32, 1000, 1500)])
+def test_icp_fused_batched_kernel_matches_plain_and_single_launches(dev, b, n, m):
+    """K3 with the pair axis, one launch an iteration: after each of three
+    launches every pair's state, control, errors and rows are bit-equal
+    to its own single-pair run, the workspace is clean pair by pair, and
+    the state is within 1e-8 of the plain version (another summation
+    order); the last pair starts done and only writes the identity step."""
+    s, mo = _pairs_of_clouds(7 * b + n, b, n, m)
+    prep = icp_fused.prepare_fused_inputs(s.to(dev), mo.to(dev))
+    blocks = -(-n // 512)
+    assert prep.rows.shape == (b, blocks, qcp.N_SUMS) and prep.counts.shape == (b, blocks + 1)
+    state = torch.cat([_warm_state(dev)] * b)
+    ctl, errs = qcp.new_loop_control(4, dev, b), qcp.new_err_buffer(4, dev, b)
+    ctl[-1] = torch.tensor([1, 1, 4, 0], dtype=torch.int32)
+    singles = [(icp_fused.prepare_fused_inputs(s[k].to(dev), mo[k].to(dev)), state[k:k + 1].clone(),
+                ctl[k].clone(), errs[k].clone()) for k in range(b)]
+    pst, pctl, perrs = state.cpu(), ctl.cpu(), errs.cpu()  # the plain version's run
+    pprep = icp_fused.prepare_fused_inputs(s, mo)
+    for _ in range(3):
+        before = _build.LAUNCHES["icp_fused"]
+        icp_fused.fused_icp_step(prep, state, ctl, errs, threshold=1e-5, err_factor=2.0)
+        assert _build.LAUNCHES["icp_fused"] == before + 1
+        assert _workspace_clean(prep)
+        icp_fused.fused_icp_step(pprep, pst, pctl, perrs, threshold=1e-5, err_factor=2.0)
+        for k, (one, st, c, e) in enumerate(singles):
+            icp_fused.fused_icp_step(one, st, c, e, threshold=1e-5, err_factor=2.0)
+            assert torch.equal(state[k:k + 1], st) and torch.equal(ctl[k], c)
+            assert _same_nan(errs[k], e)
+            if k < b - 1:
+                assert torch.equal(prep.rows[k], one.rows)
+        assert torch.equal(ctl.cpu(), pctl)
+        torch.testing.assert_close(state.cpu(), pst, rtol=0, atol=1e-8)
+    assert ctl[-1].tolist() == [1, 1, 4, 0] and bool(torch.isnan(errs[-1]).all())
+
+
+@pytest.mark.parametrize("path", ["pallas_eigh", "bcast_qcp_fused", "matmul_qcp"])
+def test_batched_paths_launch_their_kernels_once_an_iteration(dev, path):
+    """``icp_batched`` on 4 pairs, 6 iterations, on the paths with the pair
+    axis in the tensor ops: pallas/eigh launches K1 once an iteration,
+    bcast/qcp_fused K5 once an iteration, matmul/qcp none; each pair's
+    points within 1e-5 and error within rtol 1e-4 / atol 1e-7 of its own
+    ``icp_fixed_iters`` (float32 sums over a pair axis)."""
+    from icp_tpu_torch.engine.batched import icp_batched
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+
+    nn, solver = path.split("_", 1)
+    rng = np.random.default_rng(22)
+    models = rng.standard_normal((4, 800, 3)).astype(np.float32)
+    scenes = np.stack([models[k] @ np.array([[np.cos(0.05 * k), -np.sin(0.05 * k), 0],
+                                             [np.sin(0.05 * k), np.cos(0.05 * k), 0],
+                                             [0, 0, 1]], np.float32).T + 0.02 * k
+                       for k in range(4)]).astype(np.float32)
+    kw = dict(n_iters=6, solver=solver, nn_method=nn)
+    _build.reset_counts()
+    res = icp_batched(models, scenes, device=dev, **kw)
+    used = dict(_build.LAUNCHES)
+    want = {"pallas_eigh": {"nn_dense": 6}, "bcast_qcp_fused": {"qcp_rotation": 6},
+            "matmul_qcp": {}}[path]
+    assert {k: v for k, v in used.items() if v} == want
+    for k in range(4):
+        one = icp_fixed_iters(models[k], scenes[k], device=dev, **kw)
+        torch.testing.assert_close(res.points[k], one.points, rtol=0, atol=1e-5)
+        torch.testing.assert_close(res.err[k], one.err, rtol=1e-4, atol=1e-7)
 
 
 @pytest.fixture
