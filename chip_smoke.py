@@ -36,9 +36,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      on the bunny chain's batch (4 pairs of 40,960 bucketed rows, every
      row against plain and four single launches), K3 at B = 8 and 32 on
      cow-size pairs (three launches, each pair bit-equal to its own launch,
-     the workspace clean), K2 at B = 4 and 8 and K5 at B = 8 (float32 and
-     float64), each bit-equal per pair to its single launch, with a single
-     pair's time beside the batch's;
+     the workspace clean), K2 at B = 4 and 8, K5 at B = 8 (float32 and
+     float64) and K9 at B = 1, 4 and 8 on the cow pairs and on the bunny
+     batch (its four outputs; each pair held to plain by ``hold_k9``),
+     each bit-equal per pair to its single launch, with a single pair's
+     time beside the batch's;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
      path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (grid
@@ -81,17 +83,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --metrics-ops`` on cow and horse;
   6. slam (``[slam]`` lines): ``icp_batched`` on cow and cow moved by
      seeded similarities, 10 iterations: bcast/eigh (B = 8), bcast/qcp_fused
-     (K5) and pallas/eigh (K1) held to each pair's ``icp_fixed_iters``, and
+     (K5), pallas/eigh (K1) and bf16/eigh and bf16/qcp_fused (K9, K5) at
+     B = 8 and 32 held to each pair's ``icp_fixed_iters``, and
      pallas/qcp_fused (K3) at B = 1, 8 and 32 bit-equal to it, each kernel
      launched once an iteration for all the pairs, with ms a pair and a
      pair-iteration; ``register_chain_batched`` on the five bunny scans at
-     full resolution (bcast/eigh held to the padded pairs, pallas/qcp_fused
-     as one K1 and one K2 launch an iteration held to them within 1e-6 /
-     1e-9, and "auto": the grid path pair by pair); ``global_register`` on two
-     partly overlapping bunny crops held to the known pose; the
-     ``icp-slam-torch`` CLI at the JAX fixture's flags
-     (``tests/fixtures/torch_slam/``) held to its pairs, closures and
-     poses, and at full resolution with ``--init fpfh --detect-closures
+     full resolution (bcast/eigh and bf16/eigh, one K9 launch an iteration,
+     held to the padded pairs, pallas/qcp_fused as one K1 and one K2 launch
+     an iteration held to them within 1e-6 / 1e-9, and "auto": the grid
+     path pair by pair); ``global_register`` on two partly overlapping
+     bunny crops held to the known pose; the ``icp-slam-torch`` CLI at the
+     flags of the JAX fixtures ``tests/fixtures/torch_slam/`` (dense path)
+     and ``torch_slam_grid/`` (``--subsample 4 --nn grid``: K4 must run)
+     held to their pairs, closures and poses (``_SLAM_FIXTURES``), and at
+     full resolution with ``--init fpfh --detect-closures
      --refine`` (closure 0<-4, trimmed errors under 5e-4, the closure's
      inconsistency shrunk by the pose graph), with its wall seconds and
      launches;
@@ -1003,12 +1008,13 @@ def _bunny_batch():
 
 
 def phase_pair_axis(seed: int) -> None:
-    """The pair axis of K1, K3, K2 and K5 (one launch for B pairs, the
+    """The pair axis of K1, K3, K2, K5 and K9 (one launch for B pairs, the
     counterpart of JAX's vmap over a pallas_call), each at the batched
     paths' shapes: every pair bit-equal to its own single-pair launch on the
-    same inputs and to (or, K3's float64 sums, within 1e-8 of) the plain
-    version, with the batched launch's and a single pair's CUDA-event
-    medians, device microseconds and the batch's bound."""
+    same inputs and to (or, K3's float64 sums, within 1e-8 of; K9, as
+    ``hold_k9`` holds it) the plain version, with the batched launch's and
+    a single pair's CUDA-event medians, device microseconds and the batch's
+    bound."""
     import numpy as np
     import torch
 
@@ -1174,6 +1180,74 @@ def phase_pair_axis(seed: int) -> None:
             single_pair_ms=f"{cuda_ms(lambda: qcp.qcp_rotation_from(S[0], gp[0], gy[0]), 50):.4f}",
             plain_ms=f"{cuda_ms(lambda: qcp.qcp_rotation_from_plain(S, gp, gy), 5):.4f}",
             bound_ms=f"{bd[0]:.3g}", bound_by=bd[1])
+
+    # K9 at B = 1, 4 and 8 on the cow pairs and on the bunny chain's batch
+    # (4 x 40,960^2), on the clouds centred as the engine centres them: one
+    # launch a call; each pair's four outputs bit-equal to its own
+    # single-pair launch, and held to its plain version by hold_k9; the
+    # entry point (per-pair centring, then one launch) equal to each pair's
+    # nearest_indices_bf16.
+    k9_pair_axis(seed)
+
+
+K9_NAMES = ("nn_bf16_prep_kernel", "nn_bf16_fold_kernel")  # K9's kernels in a trace
+
+
+def k9_pair_axis(seed: int) -> None:
+    """K9's pair axis (``nn_bf16_batched``) at the batched paths' shapes:
+    see ``phase_pair_axis``."""
+    import torch
+
+    from icp_tpu_torch.kernels import nn_bf16
+
+    dev = torch.device("cuda")
+    cases = []
+    for b in (1, 4, 8):
+        ms_, sc_ = _cow_pairs(seed, b)
+        cases.append((f"cow_B{b}", torch.tensor(sc_, device=dev), torch.tensor(ms_, device=dev)))
+    models, scenes, _, _ = _bunny_batch()
+    cases.append(("bunny_batch", scenes, models))
+    for label, scenes, models in cases:
+        b, n, m = scenes.shape[0], scenes.shape[1], models.shape[1]
+        centres = nn_bf16.bf16_centres(models)
+        mean1_equal = torch.equal(models.mean(1), centres)  # the reduction not taken
+        sc = (scenes - centres[:, None]).contiguous()
+        mc = (models - centres[:, None]).contiguous()
+        before = _build_launches("nn_bf16")
+        outs = nn_bf16.nn_bf16_batched(sc, mc)
+        require(_build_launches("nn_bf16") == before + 1, f"K9 pair axis {label}: not one launch")
+        worst = 0.0
+        for k in range(b):
+            one = nn_bf16.nn_bf16(sc[k], mc[k])
+            require(all(torch.equal(a[k], c) for a, c in zip(outs, one)),
+                    f"K9 pair axis {label}: pair {k} differs from its own launch")
+            worst = max(worst, hold_k9(f"{label} pair {k}", sc[k], mc[k],
+                                       tuple(a[k] for a in outs))["max_abs_err"])
+        idx = nn_bf16.nearest_indices_bf16_batched(scenes, models)
+        require(all(torch.equal(idx[k], nn_bf16.nearest_indices_bf16(scenes[k].clone(),
+                                                                     models[k].clone()))
+                    for k in range(b)), f"K9 pair axis {label}: the entry point differs per pair")
+        heavy = n > 10_000
+        ms = cuda_ms(lambda: nn_bf16.nn_bf16_batched(sc, mc), 5 if heavy else 20)
+        one_ms = cuda_ms(lambda: nn_bf16.nn_bf16(sc[0], mc[0]), 5 if heavy else 20)
+        plain_ms = cuda_ms(lambda: nn_bf16.nn_bf16_batched_plain(sc, mc), 1 if heavy else 3,
+                           warmup=1)
+        # the bound of K9's row (phase_kernels), for B N M pairs
+        pairs, io_bytes = b * n * m, b * (12 * n + 12 * m + 16 * n)
+        bd = slower(max(32 * pairs / PEAK_BF16 * 1e3, 3 * pairs / PEAK_FLOPS * 1e3),
+                    io_bytes / PEAK_BYTES * 1e3)
+        chunks, _, scratch = nn_bf16.plan(n, m, dev.index, b)
+        say("kernels", kernel="nn_bf16", pair_axis=b, case=label, shape=f"{b}x{n}x{m}",
+            pairs_a_launch=pairs, chunks=chunks, partial_triples_bytes=b * chunks * n * 12,
+            scratch_bytes=scratch, launches_a_call=1, bit_equal_single_launches=True,
+            hold_k9_per_pair=True, max_abs_err=f"{worst:.3e}", entry_equal_single=True,
+            batched_mean_bit_equal=mean1_equal,
+            ms=f"{ms:.4f}",
+            device_us=f"{device_us(lambda: nn_bf16.nn_bf16_batched(sc, mc), K9_NAMES, 5):.2f}",
+            single_pair_ms=f"{one_ms:.4f}",
+            single_pair_device_us=f"{device_us(lambda: nn_bf16.nn_bf16(sc[0], mc[0]), K9_NAMES, 5):.2f}",
+            single_pairs_ms=f"{b * one_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bd[0]:.6f}", bound_by=bd[1])
 
 
 def _build_launches(name: str) -> int:
@@ -2197,9 +2271,51 @@ def _similarity_np(rng, max_deg: float):
 
 # icp_batched's cases on cow: (path, pairs) -> the launches each takes,
 # every one n_iters times (the pair axis: once an iteration for all pairs)
-SLAM_BATCHED = {("bcast_eigh", 8): (), ("pallas_qcp_fused", 1): ("icp_fused",),
-                ("pallas_qcp_fused", 8): ("icp_fused",), ("pallas_qcp_fused", 32): ("icp_fused",),
-                ("bcast_qcp_fused", 8): ("qcp_rotation",), ("pallas_eigh", 8): ("nn_dense",)}
+SLAM_BATCHED = {("bcast_eigh", 8): (), ("bcast_eigh", 32): (),
+                ("pallas_qcp_fused", 1): ("icp_fused",), ("pallas_qcp_fused", 8): ("icp_fused",),
+                ("pallas_qcp_fused", 32): ("icp_fused",),
+                ("bcast_qcp_fused", 8): ("qcp_rotation",), ("pallas_eigh", 8): ("nn_dense",),
+                ("bf16_eigh", 8): ("nn_bf16",), ("bf16_eigh", 32): ("nn_bf16",),
+                ("bf16_qcp_fused", 8): ("nn_bf16", "qcp_rotation"),
+                ("bf16_qcp_fused", 32): ("nn_bf16", "qcp_rotation")}
+
+
+def _lockstep(models, scenes, n_iters: int, kw: dict, s_ns=None, m_ns=None):
+    """Each iteration of ``icp_batched`` against each pair's own
+    ``icp_fixed_iters`` from the same state: from the batched points after k
+    iterations, one batched iteration (the k + 1-st of the batched run, bit
+    for bit) and, per pair, one iteration of its own (its true rows); with
+    bf16, each pair's K9 indices from that state equal to its single-pair
+    entry point's.  Returns (the stepped points (B, N, 3), the worst points
+    difference, the worst error excess over rtol 1e-4) over every pair and
+    iteration."""
+    import torch
+
+    from icp_tpu_torch.engine.batched import _bucket_prologue, icp_batched
+    from icp_tpu_torch.engine.icp import icp_fixed_iters
+    from icp_tpu_torch.kernels import nn_bf16
+
+    dev = torch.device("cuda")
+    counts = [(None if s_ns is None else int(s_ns[b]), None if m_ns is None else int(m_ns[b]))
+              for b in range(len(models))]
+    p, worst_p, worst_e = torch.tensor(scenes, device=dev), 0.0, 0.0
+    padded = _bucket_prologue(torch.tensor(models, device=dev), p,
+                              None if s_ns is None else torch.tensor(s_ns, device=dev).long(),
+                              None if m_ns is None else torch.tensor(m_ns, device=dev).long())[0]
+    for _ in range(n_iters):
+        if kw["nn_method"] == "bf16":
+            idx = nn_bf16.nearest_indices_bf16_batched(p, padded)
+            require(all(torch.equal(idx[b], nn_bf16.nearest_indices_bf16(p[b].clone(),
+                                                                          padded[b].clone()))
+                        for b in range(p.shape[0])), "lockstep: K9's indices differ per pair")
+        step = icp_batched(models, p, n_iters=1, scene_ns=s_ns, model_ns=m_ns, **kw)
+        for b, (sn, mn) in enumerate(counts):
+            one = icp_fixed_iters(models[b], p[b], n_iters=1, scene_n=sn, model_n=mn, **kw)
+            worst_p = max(worst_p, max_abs(step.points[b, :sn], one.points[:sn]))
+            worst_e = max(worst_e, abs(float(step.err[b]) - float(one.err))
+                          - 1e-4 * abs(float(one.err)))
+        p = step.points
+    return p, worst_p, worst_e
 
 
 def _slam_batched(seed: int) -> dict:
@@ -2208,8 +2324,18 @@ def _slam_batched(seed: int) -> dict:
     kernel path (``pallas``/``qcp_fused``: K3, one launch an iteration for
     all the pairs) bit-equal to each pair's own ``icp_fixed_iters``; the
     paths with the pair axis in tensor ops (bcast/eigh, bcast/qcp_fused
-    with K5 and pallas/eigh with K1, each kernel once an iteration) held to
-    it within 1e-5 (points) and rtol 1e-4 / atol 1e-7 (errors)."""
+    with K5, pallas/eigh with K1, bf16 with K9 and eigh or qcp_fused, each
+    kernel once an iteration) held to it within 1e-5 (points) and rtol
+    1e-4 / atol 1e-7 (errors) at B = 8.  At B = 32 two runs of 10
+    iterations drift apart: the batch's float32 sums, solves and apply
+    round otherwise than one pair's, and a pair that has not converged
+    (with the exact NN too: bcast/eigh) or K9's index, which may be any
+    candidate inside its bf16 band, turns an ulp into a step of its own;
+    so there, and on every bf16 case, each iteration is held, from the
+    same state, to each pair's own iteration within the same bounds
+    (``_lockstep``), and the runs' distance is printed
+    (``pairs_beyond_1e5``).  The bf16 runs stall inside the bf16 band
+    (errors ~5.6e-3), so only the exact paths must converge."""
     import torch
 
     from icp_tpu_torch.engine.batched import icp_batched
@@ -2225,6 +2351,7 @@ def _slam_batched(seed: int) -> dict:
         seconds = statistics.median(
             _wall(lambda: icp_batched(models, scenes, n_iters=n_iters, **kw)) for _ in range(3))
         worst_p = worst_e = 0.0
+        beyond = 0
         exact = path == "pallas_qcp_fused"
         for b in range(n_pairs):
             one = icp_fixed_iters(models[b], scenes[b], n_iters=n_iters, **kw)
@@ -2232,28 +2359,42 @@ def _slam_batched(seed: int) -> dict:
                 require(torch.equal(res.points[b], one.points) and torch.equal(res.err[b], one.err)
                         and all(torch.equal(a[b], c) for a, c in zip(res.transform, one.transform)),
                         f"slam batched {path} B={n_pairs}: pair {b} differs from its own run")
-            worst_p = max(worst_p, max_abs(res.points[b], one.points))
             # float32 sums over a pair axis against one pair's: errors
             # within rtol 1e-4 / atol 1e-7 and points within 1e-5 (JAX's
             # batched test)
-            worst_e = max(worst_e, abs(float(res.err[b]) - float(one.err))
-                          - 1e-4 * abs(float(one.err)))
-        require(worst_p <= 1e-5 and worst_e <= 1e-7,
-                f"slam batched {path}: {worst_p:.3g} / {worst_e:.3g} from the per-pair runs")
+            dp = max_abs(res.points[b], one.points)
+            de = abs(float(res.err[b]) - float(one.err)) - 1e-4 * abs(float(one.err))
+            beyond += dp > 1e-5 or de > 1e-7
+            worst_p, worst_e = max(worst_p, dp), max(worst_e, de)
+        step = {}
+        if exact or n_pairs <= 8:
+            require(worst_p <= 1e-5 and worst_e <= 1e-7,
+                    f"slam batched {path}: {worst_p:.3g} / {worst_e:.3g} from the per-pair runs")
+        if not exact and (n_pairs > 8 or nn == "bf16"):
+            stepped, sp, se = _lockstep(models, scenes, n_iters, kw)
+            require(torch.equal(stepped, res.points), f"slam batched {path} B={n_pairs}: the "
+                                                      f"stepped run is not the batched run")
+            require(sp <= 1e-5 and se <= 1e-7,
+                    f"slam batched {path} B={n_pairs}: an iteration {sp:.3g} / {se:.3g} from "
+                    f"the pair's own")
+            step = dict(lockstep_points_max_abs_err=f"{sp:.3e}",
+                        lockstep_err_excess_over_rtol=f"{se:.3e}")
         want = {k: n_iters for k in kernels}
         require({k: v for k, v in used.items() if v} == want,
                 f"slam batched {path} B={n_pairs}: launches {used}, want {want}")
         _add(launches, used)
         # the first 8 moves (up to 8 degrees) all converge in 10
-        # iterations; of the 32, some need more (their runs, not the batch)
+        # iterations on the exact paths; of the 32, some need more (their
+        # runs, not the batch)
         err = res.err.double()
-        require(bool(torch.isfinite(err).all()) and float(err[:8].max()) < 1e-4,
+        require(bool(torch.isfinite(err).all())
+                and (nn == "bf16" or float(err[:8].max()) < 1e-4),
                 f"slam batched {path}: errors {err.tolist()}")
         say("slam", case="icp_batched", path=path, pairs=n_pairs, rows=models.shape[1],
             iters=n_iters, points_max_abs_err_vs_pair=f"{worst_p:.3e}",
-            err_excess_over_rtol_vs_pair=f"{worst_e:.3e}", bit_equal=exact,
-            err_max=f"{float(err.max()):.3e}", pairs_err_below_1e4=int((err < 1e-4).sum()),
-            ms=f"{seconds * 1e3:.3f}",
+            err_excess_over_rtol_vs_pair=f"{worst_e:.3e}", pairs_beyond_1e5=beyond, **step,
+            bit_equal=exact, err_max=f"{float(err.max()):.3e}",
+            pairs_err_below_1e4=int((err < 1e-4).sum()), ms=f"{seconds * 1e3:.3f}",
             ms_per_pair=f"{seconds * 1e3 / n_pairs:.4f}",
             ms_per_pair_iter=f"{seconds * 1e3 / n_pairs / n_iters:.5f}", launches=used)
     return launches
@@ -2262,8 +2403,10 @@ def _slam_batched(seed: int) -> dict:
 def _slam_chain_batched() -> dict:
     """``register_chain_batched`` on the five bunny scans at full resolution
     (unequal counts bucketed to 40,960 rows), 10 fixed iterations: the
-    default path (bcast/eigh, one batch) held to each padded pair's
-    ``icp_fixed_iters`` within 1e-4; ``pallas``/``qcp_fused`` (masked: one
+    default path (bcast/eigh, one batch) and ``bf16``/eigh (one K9 launch
+    an iteration for all the pairs; also each iteration within 1e-5 of the
+    pair's own from the same state, ``_lockstep``) held to each padded
+    pair's ``icp_fixed_iters`` within 1e-4; ``pallas``/``qcp_fused`` (masked: one
     K1 and one K2 launch an iteration for all the pairs) held to it within
     1e-6 (points) and 1e-9 (transform), the float64 Horn sums over a pair
     axis adding in another order; and ``"auto"`` (the grid path pair by
@@ -2271,7 +2414,7 @@ def _slam_chain_batched() -> dict:
     import numpy as np
     import torch
 
-    from icp_tpu_torch.engine.batched import register_chain_batched
+    from icp_tpu_torch.engine.batched import batch_pairs, register_chain_batched
     from icp_tpu_torch.engine.icp import icp_fixed_iters
     from icp_tpu_torch.ops.padding import auto_quantum, bucket_size, pad_to_bucket
 
@@ -2282,6 +2425,7 @@ def _slam_chain_batched() -> dict:
     launches = {}
     for path, kw in (("bcast_eigh", {}), ("pallas_qcp_fused",
                                           dict(solver="qcp_fused", nn_method="pallas")),
+                     ("bf16_eigh", dict(nn_method="bf16")),
                      ("auto", dict(solver="auto", nn_method="auto"))):
         out, used = _counted(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
         seconds = _wall(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
@@ -2297,13 +2441,27 @@ def _slam_chain_batched() -> dict:
                 worst = max(worst, *(max_abs(a, c) for a, c in zip(out[b].transform,
                                                                    one.transform)))
                 worst_p = max(worst_p, max_abs(out[b].points, one.points[:sn]))
-            held = (1e-4, 1e-4) if path == "bcast_eigh" else (1e-9, 1e-6)
+            held = (1e-9, 1e-6) if path == "pallas_qcp_fused" else (1e-4, 1e-4)
             require(worst <= held[0] and worst_p <= held[1],
                     f"slam chain {path}: {worst:.3g} / {worst_p:.3g} from the per-pair runs")
         if path == "pallas_qcp_fused":
             require({k: v for k, v in used.items() if v} == {"nn_dense": n_iters,
                                                               "qcp_step": n_iters},
                     f"slam chain {path}: launches {used}")
+        step = {}
+        if path == "bf16_eigh":
+            require({k: v for k, v in used.items() if v} == {"nn_bf16": n_iters},
+                    f"slam chain {path}: launches {used}")
+            models, scenes, m_ns, s_ns = batch_pairs([(clouds[i], clouds[i + 1])
+                                                      for i in range(n_pairs)])
+            stepped, sp, se = _lockstep(models, scenes, n_iters, kw, s_ns, m_ns)
+            require(all(torch.equal(stepped[b, :len(c)], r.points)
+                        for b, (r, c) in enumerate(zip(out, clouds[1:]))),
+                    f"slam chain {path}: the stepped run is not the batched run")
+            require(sp <= 1e-5 and se <= 1e-7,
+                    f"slam chain {path}: an iteration {sp:.3g} / {se:.3g} from the pair's own")
+            step = dict(lockstep_points_max_abs_err=f"{sp:.3e}",
+                        lockstep_err_excess_over_rtol=f"{se:.3e}")
         if path == "auto":
             require(used["nn_grid"] >= n_pairs * n_iters and used["qcp_step"] >= n_pairs * n_iters
                     and used["nn_dense"] >= n_pairs, f"slam chain {path}: grid path ({used})")
@@ -2312,7 +2470,7 @@ def _slam_chain_batched() -> dict:
         say("slam", case="register_chain_batched", path=path, pairs=n_pairs,
             rows=",".join(str(len(c)) for c in clouds), iters=n_iters,
             transform_max_abs_err_vs_pair=f"{worst:.3e}" if path != "auto" else "n/a",
-            points_max_abs_err_vs_pair=f"{worst_p:.3e}" if path != "auto" else "n/a",
+            points_max_abs_err_vs_pair=f"{worst_p:.3e}" if path != "auto" else "n/a", **step,
             errs=",".join(f"{float(r.err):.3e}" for r in out), ms=f"{seconds * 1e3:.1f}",
             ms_per_pair=f"{seconds * 1e3 / n_pairs:.2f}",
             ms_per_pair_iter=f"{seconds * 1e3 / n_pairs / n_iters:.3f}", launches=used)
@@ -2377,42 +2535,68 @@ def _run_slam_cli(args: list[str], device: str = "cuda"):
     return rc, err.getvalue(), time.perf_counter() - t0, dict(_build.LAUNCHES)
 
 
-def _slam_cli_fixture(tmp: str, device: str = "cuda") -> dict:
+# The JAX icp-slam runs the CLI is held to (tests/fixtures/<folder>/): the
+# relative tolerance of a pair's error when it converged and when it ran to
+# the iteration cap (max-iter x levels).  A capped pair has not converged:
+# on the grid fixture (--subsample 4) the trimmed error of pair 1->2
+# oscillates from 1.36e-5 to 1.39e-5 between fine-level iterations (a CPU
+# run of both packages), and float32 roundings of either package move where
+# iteration 60 lands in that band (the port on the CPU: 1.5% from JAX's at
+# 8 threads, 1.7% at 2), so it is held within 3e-2, the band's width with
+# room.  Every step of that loop taken from JAX's state agrees with JAX's
+# within 1.2e-7 (R).  Poses within 5e-3 (R) and 5e-4 (t) in both.
+_SLAM_FIXTURES = {"torch_slam": dict(err_rtol=1e-2, capped_err_rtol=1e-2),
+                  "torch_slam_grid": dict(err_rtol=1e-2, capped_err_rtol=3e-2)}
+
+
+def _slam_cli_fixture(tmp: str, device: str = "cuda", folder: str = "torch_slam") -> dict:
     """``icp-slam-torch`` on the five scans with the JAX fixture's flags
-    (``tests/fixtures/torch_slam/README.md``): the same closure pairs, each
-    pair's iterations, its error within rtol 1e-2, and the poses within
-    5e-3 (R) and 5e-4 (t): RANSAC draws differ, the dense path is K1 and
-    K6 on the card against JAX's bcast on the CPU."""
+    (``tests/fixtures/<folder>/README.md``): the same closure pairs, each
+    pair's iterations, its error within ``_SLAM_FIXTURES``' relative
+    tolerance, and the poses within 5e-3 (R) and 5e-4 (t): RANSAC draws
+    differ, and the card's kernels (K1 and K6 on ``torch_slam``'s dense
+    path; K4, K7 and K1's seeds on ``torch_slam_grid``'s grid path, which
+    must launch K4) against JAX's on the CPU."""
     import numpy as np
 
-    fix = os.path.join(FIXTURES, "torch_slam")
+    fix = os.path.join(FIXTURES, folder)
     with open(os.path.join(fix, "README.md")) as f:
         line = next(ln for ln in f if "icp_tpu.slam.cli" in ln)
     args = [os.path.join(ROOT, a) if a.startswith("data/") else a
             for a in line.split("icp_tpu.slam.cli", 1)[1].split()]
-    poses = os.path.join(tmp, "fixture_poses.npz")
+    levels = args[args.index("--multiscale") + 1:]
+    levels = levels[:next((i for i, a in enumerate(levels) if a.startswith("--")), len(levels))]
+    cap = int(args[args.index("--max-iter") + 1]) * len(levels)
+    tol = _SLAM_FIXTURES[folder]
+    poses = os.path.join(tmp, f"{folder}_poses.npz")
     rc, err, seconds, used = _run_slam_cli(
-        args + ["--output-prefix", os.path.join(tmp, "fixture_"), "--poses", poses], device)
-    require(rc == 0, f"slam cli fixture: exit {rc}\n{err[-3000:]}")
+        args + ["--output-prefix", os.path.join(tmp, f"{folder}_"), "--poses", poses], device)
+    require(rc == 0, f"slam cli {folder}: exit {rc}\n{err[-3000:]}")
     with open(os.path.join(fix, "stderr.txt")) as f:
         want = f.read()
     got_pairs, want_pairs = _SLAM_PAIR_RE.findall(err), _SLAM_PAIR_RE.findall(want)
     require([g[:3] for g in got_pairs] == [w[:3] for w in want_pairs],
-            f"slam cli fixture: pairs/iterations {got_pairs} against {want_pairs}")
-    err_rel = max(abs(float(g[3]) - float(w[3])) / float(w[3])
-                  for g, w in zip(got_pairs, want_pairs))
-    require(err_rel <= 1e-2, f"slam cli fixture: errors {err_rel:.3g} relative from JAX's")
+            f"slam cli {folder}: pairs/iterations {got_pairs} against {want_pairs}")
+    rels = [abs(float(g[3]) - float(w[3])) / float(w[3]) for g, w in zip(got_pairs, want_pairs)]
+    for g, rel in zip(got_pairs, rels):
+        held = tol["capped_err_rtol"] if int(g[2]) >= cap else tol["err_rtol"]
+        require(rel <= held, f"slam cli {folder}: pair {g[0]}->{g[1]} error {rel:.3g} relative "
+                             f"from JAX's, above {held}")
     got_c = [c[:2] for c in _SLAM_CLOSURE_RE.findall(err)]
     require(got_c == [c[:2] for c in _SLAM_CLOSURE_RE.findall(want)],
-            f"slam cli fixture: closures {got_c}")
+            f"slam cli {folder}: closures {got_c}")
     got, ref = np.load(poses), np.load(os.path.join(fix, "poses.npz"))
     dR, dt = float(np.abs(got["R"] - ref["R"]).max()), float(np.abs(got["t"] - ref["t"]).max())
-    require(dR <= 5e-3 and dt <= 5e-4, f"slam cli fixture: poses {dR:.3g} / {dt:.3g} off")
-    say("slam", case="cli_fixture", flags=" ".join(a for a in args if not a.startswith(ROOT)),
+    require(dR <= 5e-3 and dt <= 5e-4, f"slam cli {folder}: poses {dR:.3g} / {dt:.3g} off")
+    grid = "grid" in args
+    require(not grid or used["nn_grid"] > 0, f"slam cli {folder}: the grid path was not taken")
+    say("slam", case="cli_fixture", fixture=folder,
+        flags=" ".join(a for a in args if not a.startswith(ROOT)),
         pairs=";".join(f"{g[0]}->{g[1]}:{g[2]}:{g[3]}" for g in got_pairs),
-        closures=",".join(f"{c[0]}<-{c[1]}" for c in got_c), err_max_rel_err=f"{err_rel:.3e}",
+        closures=",".join(f"{c[0]}<-{c[1]}" for c in got_c), err_max_rel_err=f"{max(rels):.3e}",
+        err_rel_errs=",".join(f"{r:.3e}" for r in rels),
         poses_R_max_abs_err=f"{dR:.3e}", poses_t_max_abs_err=f"{dt:.3e}",
-        seconds=f"{seconds:.2f}", launches=used)
+        seconds=f"{seconds:.2f}", launches_nn_grid=used["nn_grid"], launches=used)
     return used
 
 
@@ -2462,7 +2646,8 @@ def phase_slam(seed: int, tmp: str) -> dict:
     card; returns the launches of the main-path runs."""
     launches = {}
     for used in (_slam_batched(seed), _slam_chain_batched(), _slam_global_register(),
-                 _slam_cli_fixture(tmp), _slam_cli_full(tmp)):
+                 _slam_cli_fixture(tmp), _slam_cli_fixture(tmp, folder="torch_slam_grid"),
+                 _slam_cli_full(tmp)):
         _add(launches, used)
     return launches
 

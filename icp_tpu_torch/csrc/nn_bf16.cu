@@ -56,6 +56,19 @@
 //     the same rule and recomputes d_exact = sqdist_rn(p, model[idx]), so
 //     no third launch waits on the host (cow is host-bound: two launches).
 //
+// The pair axis (the counterpart of JAX's vmap over the pallas_call, as in
+// K1 and K3): one launch takes B pairs of (n, 3) scenes and (m, 3) models
+// laid out one after another.  The prep kernel stages pair b's records and
+// norms at b * m_pad (a whole number of 128-row stages, so every pair's
+// ring stays 16-byte aligned) and zeroes its counters; the fold's grid is
+// (scene blocks, chunks, B) with the pair in blockIdx.z, and each pair has
+// its own counters, chunk triples (B x chunks x n x 12 bytes) and outputs,
+// so the last of a scene block's gridDim.y chunk blocks counts its own
+// pair's arrivals only.  Indices are pair-local.  The chunk plan sizes one
+// wave over B x scene blocks; the result does not depend on it (the merge
+// is exact and order-free), so every pair is bit-equal to its own
+// single-pair launch, which is the B = 1 case of the same kernels.
+//
 // Rounding: the tensor cores add the three exact bf16 products (and the
 // zero padding) in float32 in their own way, which need not round as the
 // plain version's (x + y) + z with two round-to-nearest adds does, so a d~
@@ -75,6 +88,7 @@ constexpr int kStageRows = 128;                    // model rows a ring stage
 constexpr int kNTiles = kStageRows / 8;            // n8 tiles a stage
 constexpr int kStages = 4;                         // ring depth: 10 KB of shared memory
 constexpr int kNone = 0x7fffffff;                  // index of a triple that saw no d~ < best
+constexpr int kMaxPairs = 65535;                   // gridDim.z (fold), gridDim.y (prep)
 
 struct Triple {
   float best, second;
@@ -115,9 +129,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a_lo, unsigned 
         "f"(0.f));
 }
 
+// Pair blockIdx.y: its model staged at pair * m_pad, its counters zeroed.
 __global__ void nn_bf16_prep_kernel(const float* __restrict__ model, int m, int m_pad,
                                     uint4* __restrict__ rec, float* __restrict__ norm,
                                     unsigned* __restrict__ arrived, int scene_blocks) {
+  const long long pair = blockIdx.y;
+  model += pair * 3 * m;
+  rec += pair * m_pad;
+  norm += pair * m_pad;
+  arrived += pair * scene_blocks;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < scene_blocks) arrived[i] = 0u;
   if (i >= m_pad) return;
@@ -131,16 +151,23 @@ __global__ void nn_bf16_prep_kernel(const float* __restrict__ model, int m, int 
   }
 }
 
+// Grid (scene blocks, chunks, pairs): each pointer is offset to pair
+// blockIdx.z's slice where it is first used (not all at the top, which
+// would keep a dozen 64-bit registers live across the fold); the rest is
+// the single-pair fold.
 __global__ void __launch_bounds__(kThreads)
 nn_bf16_fold_kernel(const float* __restrict__ scene, int n, const float* __restrict__ model,
-                    const uint4* __restrict__ rec, const float* __restrict__ norm, int m_pad,
-                    int chunk_rows, float* part_best, float* part_second, int* part_idx,
-                    unsigned* __restrict__ arrived, int* __restrict__ idx_out,
+                    int m, const uint4* __restrict__ rec, const float* __restrict__ norm,
+                    int m_pad, int chunk_rows, float* part_best, float* part_second,
+                    int* part_idx, unsigned* __restrict__ arrived, int* __restrict__ idx_out,
                     float* __restrict__ best_out, float* __restrict__ second_out,
                     float* __restrict__ dex_out) {
   __shared__ __align__(16) uint4 ring_rec[kStages][kStageRows];
   __shared__ __align__(16) float ring_norm[kStages][kStageRows];
   __shared__ bool last;
+  scene += 3LL * n * blockIdx.z;
+  rec += static_cast<long long>(m_pad) * blockIdx.z;
+  norm += static_cast<long long>(m_pad) * blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int base = blockIdx.y * chunk_rows;  // the chunk's first model row
@@ -230,7 +257,8 @@ nn_bf16_fold_kernel(const float* __restrict__ scene, int n, const float* __restr
       u = merge(u, shfl_xor(u, 2));
       const int r = row0 + mt * 16 + g + 8 * h;
       if (t4 == 0 && r < n) {
-        const long long slot = static_cast<long long>(blockIdx.y) * n + r;
+        const long long chunk = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
+        const long long slot = chunk * n + r;  // the pair's chunks, one after another
         part_best[slot] = u.best;
         part_second[slot] = u.second;
         part_idx[slot] = u.idx;
@@ -239,13 +267,27 @@ nn_bf16_fold_kernel(const float* __restrict__ scene, int n, const float* __restr
   }
   // The last of the scene block's chunks to arrive merges their triples (the
   // threadFenceReduction pattern: stores, fence, count; the last block
-  // fences and reads the others' stores from L2), in chunk order.
+  // fences and reads the others' stores from L2), in chunk order.  The
+  // counter is this pair's: it counts gridDim.y arrivals, its own chunks.
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(arrived + blockIdx.x, 1u) == gridDim.y - 1;
+  if (threadIdx.x == 0)
+    last = atomicAdd(arrived + static_cast<long long>(blockIdx.z) * gridDim.x + blockIdx.x, 1u)
+           == gridDim.y - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
+  {
+    const long long pair = blockIdx.z, parts = pair * gridDim.y * n;  // its chunk triples
+    part_best += parts;
+    part_second += parts;
+    part_idx += parts;
+    model += pair * 3 * m;
+    idx_out += pair * n;
+    best_out += pair * n;
+    second_out += pair * n;
+    dex_out += pair * n;
+  }
   for (int t = threadIdx.x; t < kBlockRows; t += kThreads) {
     const int i = blockIdx.x * kBlockRows + t;
     if (i >= n) break;
@@ -269,9 +311,10 @@ struct Plan {
   int chunks, chunk_rows, m_pad;
 };
 
-// (scene block x model chunk): chunks of whole stages, as many as one wave
-// of resident fold blocks needs, at least one.
-int plan_for(int n, int m, Plan* out) {
+// (scene block x model chunk) for `pairs` (n, m) pairs: chunks of whole
+// stages, as many as one wave of resident fold blocks over all the pairs'
+// scene blocks needs, at least one.
+int plan_for(int pairs, int n, int m, Plan* out) {
   static int waves[64];  // the wave of each device, asked once
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -286,9 +329,9 @@ int plan_for(int n, int m, Plan* out) {
     wave = sms * (per_sm > 0 ? per_sm : 1);
     if (dev < 64) waves[dev] = wave;
   }
-  const long long scene_blocks = (n + kBlockRows - 1) / kBlockRows;
+  const long long blocks = static_cast<long long>(pairs) * ((n + kBlockRows - 1) / kBlockRows);
   const long long stages = (m + kStageRows - 1) / kStageRows;
-  long long chunks = (wave + scene_blocks - 1) / scene_blocks;
+  long long chunks = (wave + blocks - 1) / blocks;
   chunks = chunks < 1 ? 1 : (chunks > stages ? stages : chunks);
   const long long per = (stages + chunks - 1) / chunks;  // stages a chunk
   out->chunk_rows = static_cast<int>(per * kStageRows);
@@ -297,46 +340,61 @@ int plan_for(int n, int m, Plan* out) {
   return 0;
 }
 
+bool valid(int pairs, int n, int m) {
+  return pairs >= 1 && pairs <= kMaxPairs && n >= 1 && m >= 1;
+}
+
+long long scratch_bytes_for(int pairs, int n, const Plan& p) {
+  return static_cast<long long>(pairs)
+         * (20LL * p.m_pad + 4LL * ((n + kBlockRows - 1) / kBlockRows) + 12LL * p.chunks * n);
+}
+
 }  // namespace
 
-// The launch's model chunks, rows a chunk and scratch bytes: the staged
-// model (m_pad 16-byte records, then m_pad norms), a counter a scene block
-// and the chunks' partial triples (chunks * n bests, seconds, indices).
-ICP_EXPORT int nn_bf16_plan(int n, int m, int* chunks, int* chunk_rows, long long* scratch_bytes) {
-  if (n < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+// A launch of `pairs` (n, m) pairs: its model chunks, rows a chunk and
+// scratch bytes: the staged models (pairs * m_pad 16-byte records, then
+// pairs * m_pad norms), a counter a scene block of each pair and the
+// chunks' partial triples (pairs * chunks * n bests, seconds, indices).
+ICP_EXPORT int nn_bf16_batched_plan(int pairs, int n, int m, int* chunks, int* chunk_rows,
+                                    long long* scratch_bytes) {
+  if (!valid(pairs, n, m)) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const int code = plan_for(n, m, &p);
+  const int code = plan_for(pairs, n, m, &p);
   if (code != 0) return code;
   *chunks = p.chunks;
   *chunk_rows = p.chunk_rows;
-  *scratch_bytes = 20LL * p.m_pad + 4LL * ((n + kBlockRows - 1) / kBlockRows)
-                   + 12LL * p.chunks * n;
+  *scratch_bytes = scratch_bytes_for(pairs, n, p);
   return 0;
 }
 
-// scratch: nn_bf16_plan's bytes, 16-byte aligned.
-ICP_EXPORT int nn_bf16_launch(const float* scene, int n, const float* model, int m, void* scratch,
-                              int* idx_out, float* best_out, float* second_out, float* dex_out,
-                              cudaStream_t stream) {
-  if (n < 1 || m < 1 || reinterpret_cast<unsigned long long>(scratch) % 16)
+// `pairs` (n, 3) scenes and (m, 3) models, each laid out after the other;
+// scratch: nn_bf16_batched_plan's bytes, 16-byte aligned; the four outputs
+// pairs * n each, the indices pair-local.  A single pair is pairs = 1.
+ICP_EXPORT int nn_bf16_batched_launch(const float* scene, int pairs, int n, const float* model,
+                                      int m, void* scratch, int* idx_out, float* best_out,
+                                      float* second_out, float* dex_out, cudaStream_t stream) {
+  if (!valid(pairs, n, m) || reinterpret_cast<unsigned long long>(scratch) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  const int code = plan_for(n, m, &p);
+  const int code = plan_for(pairs, n, m, &p);
   if (code != 0) return code;
   const int scene_blocks = (n + kBlockRows - 1) / kBlockRows;
+  const long long staged = static_cast<long long>(pairs) * p.m_pad;
+  const long long parts = static_cast<long long>(pairs) * p.chunks * n;
   uint4* rec = static_cast<uint4*>(scratch);
-  float* norm = reinterpret_cast<float*>(rec + p.m_pad);
-  unsigned* arrived = reinterpret_cast<unsigned*>(norm + p.m_pad);
-  float* part_best = reinterpret_cast<float*>(arrived + scene_blocks);
-  float* part_second = part_best + static_cast<long long>(p.chunks) * n;
-  int* part_idx = reinterpret_cast<int*>(part_second + static_cast<long long>(p.chunks) * n);
+  float* norm = reinterpret_cast<float*>(rec + staged);
+  unsigned* arrived = reinterpret_cast<unsigned*>(norm + staged);
+  float* part_best =
+      reinterpret_cast<float*>(arrived + static_cast<long long>(pairs) * scene_blocks);
+  float* part_second = part_best + parts;
+  int* part_idx = reinterpret_cast<int*>(part_second + parts);
   const int prep_threads = p.m_pad > scene_blocks ? p.m_pad : scene_blocks;
-  nn_bf16_prep_kernel<<<(prep_threads + 255) / 256, 256, 0, stream>>>(model, m, p.m_pad, rec, norm,
-                                                                       arrived, scene_blocks);
+  nn_bf16_prep_kernel<<<dim3((prep_threads + 255) / 256, pairs), 256, 0, stream>>>(
+      model, m, p.m_pad, rec, norm, arrived, scene_blocks);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  nn_bf16_fold_kernel<<<dim3(scene_blocks, p.chunks), kThreads, 0, stream>>>(
-      scene, n, model, rec, norm, p.m_pad, p.chunk_rows, part_best, part_second, part_idx, arrived,
-      idx_out, best_out, second_out, dex_out);
+  nn_bf16_fold_kernel<<<dim3(scene_blocks, p.chunks, pairs), kThreads, 0, stream>>>(
+      scene, n, model, m, rec, norm, p.m_pad, p.chunk_rows, part_best, part_second, part_idx,
+      arrived, idx_out, best_out, second_out, dex_out);
   return static_cast<int>(cudaGetLastError());
 }

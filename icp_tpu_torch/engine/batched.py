@@ -16,13 +16,16 @@ pairs and no host read inside the loop:
     one launch of K1 (``nn_dense_batched``), the gather, the weighted
     float64 Horn sums with the pair axis and one launch of K2 (``qcp_step``
     on (B, 1, 18) partials), then the apply;
-  * ``bcast``, ``matmul`` or ``pallas`` (K1, one launch) NN with the
-    ``eigh``, ``qcp``, ``kabsch`` or ``qcp_fused`` solver (K5, one launch of
-    ``qcp_rotation_from`` on (B, 3, 3) statistics): one blocked NN pass,
-    one gather, batched Horn sums and batched solves.
+  * ``bcast``, ``matmul``, ``pallas`` (K1, one launch) or ``bf16`` (K9,
+    one launch; each pair centred on its own model mean, computed once a
+    call) NN with the ``eigh``, ``qcp``, ``kabsch`` or ``qcp_fused`` solver
+    (K5, one launch of ``qcp_rotation_from`` on (B, 3, 3) statistics): one
+    NN pass, one gather, batched Horn sums and batched solves.
 
-``bf16`` (K9) and ``grid`` (K1, K4, K2; JAX has no batched grid path) still
-run pair by pair through ``icp_fixed_iters``.
+Only ``grid`` (K1, K4, K2) runs pair by pair through ``icp_fixed_iters``:
+JAX has no batched grid path (its ``icp_batched(nn_method="grid")``
+raises "unknown nn method: grid"), so the loop is a known difference of
+the port, not a missing kernel form.
 
 Semantics, as JAX's: every pair runs exactly ``n_iters`` iterations (a
 converged pair keeps re-solving a fixed point).  ``scene_ns`` /
@@ -52,6 +55,7 @@ from icp_tpu_torch.kernels.icp_fused import (
     fused_path_available,
     prepare_fused_inputs,
 )
+from icp_tpu_torch.kernels.nn_bf16 import bf16_centres, nearest_indices_bf16_batched
 from icp_tpu_torch.kernels.nn_dense import nn_dense_batched
 from icp_tpu_torch.kernels.qcp import (
     identity_state,
@@ -73,7 +77,7 @@ from icp_tpu_torch.utils.precision import in_full_float32
 
 _BLOCK_ELEMS = 1 << 24  # distance elements of one block of the batched NN
 _BATCHED_SOLVERS = ("eigh", "qcp", "kabsch", "qcp_fused")
-_BATCHED_NN = ("bcast", "matmul", "pallas")
+_BATCHED_NN = ("bcast", "matmul", "pallas", "bf16")
 
 
 def _counts(ns, batch: int, device) -> torch.Tensor | None:
@@ -92,15 +96,20 @@ def _replica_fill(clouds: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 
 def closest_point_indices_batched(scenes: torch.Tensor, models: torch.Tensor,
-                                  method: str) -> torch.Tensor:
+                                  method: str, centres: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
     """(B, N) int64 nearest model rows of every scene row, each pair into
     its own model: ``"pallas"`` is one launch of K1 for all the pairs
-    (``nn_dense_batched``); ``"bcast"`` (diff-squares) and ``"matmul"``
-    (``|m|^2 - 2 s.m``) are ``ops/distance.py``'s forms with a pair axis, in
-    scene blocks of at most ``_BLOCK_ELEMS`` distances (lowest index on
-    ties)."""
+    (``nn_dense_batched``); ``"bf16"`` one launch of K9 on the clouds
+    centred on each pair's model mean (``centres``, else computed here:
+    ``nearest_indices_bf16_batched``), APPROXIMATE as the single-pair
+    ``"bf16"``; ``"bcast"`` (diff-squares) and ``"matmul"`` (``|m|^2 - 2
+    s.m``) are ``ops/distance.py``'s forms with a pair axis, in scene
+    blocks of at most ``_BLOCK_ELEMS`` distances (lowest index on ties)."""
     if method == "pallas":
         return nn_dense_batched(scenes.contiguous(), models.contiguous()).to(torch.int64)
+    if method == "bf16":
+        return nearest_indices_bf16_batched(scenes, models, centres).to(torch.int64)
     b, n, m = scenes.shape[0], scenes.shape[1], models.shape[1]
     rows = max(1, _BLOCK_ELEMS // max(b * m, 1))
     if method == "matmul":
@@ -143,10 +152,12 @@ def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, nn_method: 
                        with_scale: bool, reference_compat: bool, trim_fraction: float,
                        s_n, m_n) -> ICPResult:
     """The default path: every tensor with the pair axis first; the NN of
-    ``closest_point_indices_batched`` (K1 for ``"pallas"``), the solve of
-    ``alignment_from_stats`` (K5 for ``"qcp_fused"``)."""
+    ``closest_point_indices_batched`` (K1 for ``"pallas"``, K9 for
+    ``"bf16"``), the solve of ``alignment_from_stats`` (K5 for
+    ``"qcp_fused"``)."""
     b, dt, dev = scenes.shape[0], scenes.dtype, scenes.device
     models, scenes, mask = _bucket_prologue(models, scenes, s_n, m_n)
+    centres = bf16_centres(models) if nn_method == "bf16" else None  # fixed models: once
     p = scenes
     total = Similarity(s=torch.ones(b, dtype=dt, device=dev),
                        R=torch.eye(3, dtype=dt, device=dev).expand(b, 3, 3),
@@ -154,7 +165,7 @@ def _icp_batched_bcast(models, scenes, *, n_iters: int, solver: str, nn_method: 
     err = torch.full((b,), math.inf, dtype=dt, device=dev)
     factor = 2.0 if reference_compat else 1.0
     for _ in range(n_iters):
-        idx = closest_point_indices_batched(p, models, nn_method)
+        idx = closest_point_indices_batched(p, models, nn_method, centres)
         y = torch.gather(models, 1, idx[..., None].expand(-1, -1, 3))
         w = _trim_weights(p, y, trim_fraction, mask) if trim_fraction > 0.0 else mask
         stats = compute_alignment_stats(p, y, weights=w)

@@ -60,8 +60,8 @@ _SIGNATURES = {
     "nn_chunked_launch": [_P, _I, _P, _I, _P, _P, _I, _P, _P],
     "nn_chunked_workspace": [_P, _P],
     "nn_chunked_chunk_rows": [_I, _I, _P],
-    "nn_bf16_plan": [_I, _I, _P, _P, _P],
-    "nn_bf16_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P],
+    "nn_bf16_batched_plan": [_I, _I, _I, _P, _P, _P],
+    "nn_bf16_batched_launch": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

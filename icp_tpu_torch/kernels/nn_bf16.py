@@ -26,6 +26,15 @@ ulp of the cross term (``cross_term_slack``), and its index where two
 candidates are that close.  The promises above hold either way.  The JAX
 kernel's tile sizes do not change the function, and the entry point
 accepts and ignores them.
+
+``nn_bf16_batched`` is K9 with a pair axis, the counterpart of JAX's
+``vmap`` over the ``pallas_call`` (``icp_batched(nn_method="bf16")``): B
+pairs of (N, 3) scenes and (M, 3) models in one launch, the indices
+pair-local, each pair's quadruple bit-equal to ``nn_bf16`` on that pair
+alone (the kernels' result does not depend on their chunking); ``nn_bf16``
+is its B = 1 case, and ``nn_bf16_batched_plain`` is ``nn_bf16_plain`` pair
+by pair.  ``nearest_indices_bf16_batched`` centres each pair on its own
+model mean, computed by the single-pair reduction (``bf16_centres``).
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import functools
 import torch
 
 from icp_tpu_torch.kernels import _build
-from icp_tpu_torch.kernels.nn_dense import check_points
+from icp_tpu_torch.kernels.nn_dense import _check_batch, check_points
 
 _PLAIN_BLOCK_ELEMS = 1 << 24  # distance elements per block of the plain version
 _BF16_U = 2.0 ** -8
@@ -64,14 +73,33 @@ def cross_term_slack(scene: torch.Tensor, model: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def plan(n: int, m: int, device_index: int = 0):
-    """(model chunks, rows a chunk, scratch bytes) of an (n, m) launch on
-    card ``device_index`` (the C launcher's choice: about one wave); kept
-    per shape, so a loop asks the library once."""
+def plan(n: int, m: int, device_index: int = 0, pairs: int = 1):
+    """(model chunks, rows a chunk, scratch bytes) of a launch of ``pairs``
+    (n, m) pairs on card ``device_index`` (the C launcher's choice: about
+    one wave over all the pairs' scene blocks); kept per shape, so a loop
+    asks the library once."""
     out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()]
-    _build.check(_build.lib().nn_bf16_plan(n, m, *(ctypes.addressof(v) for v in out)),
+    _build.check(_build.lib().nn_bf16_batched_plan(pairs, n, m,
+                                                   *(ctypes.addressof(v) for v in out)),
                  "nn_bf16")
     return tuple(v.value for v in out)
+
+
+def _launch(scene: torch.Tensor, model: torch.Tensor, pairs: int):
+    """One launch of K9 on ``pairs`` (n, 3) scenes and (m, 3) models laid
+    out one after another: four (scene.shape[:-1]) outputs."""
+    n, m = scene.shape[-2], model.shape[-2]
+    dev, shape = scene.device, scene.shape[:-1]
+    idx = torch.empty(shape, dtype=torch.int32, device=dev)
+    best, second, dex = (torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3))
+    if n and pairs:
+        scratch = torch.empty(plan(n, m, dev.index, pairs)[2] // 4, dtype=torch.int32, device=dev)
+        code = _build.lib().nn_bf16_batched_launch(
+            scene.data_ptr(), pairs, n, model.data_ptr(), m, scratch.data_ptr(), idx.data_ptr(),
+            best.data_ptr(), second.data_ptr(), dex.data_ptr(), _build.stream_ptr(scene))
+        _build.LAUNCHES["nn_bf16"] += 1
+        _build.check(code, "nn_bf16")
+    return idx, best, second, dex
 
 
 def nn_bf16(scene: torch.Tensor, model: torch.Tensor):
@@ -83,18 +111,30 @@ def nn_bf16(scene: torch.Tensor, model: torch.Tensor):
         raise ValueError("nn_bf16: empty model")
     if scene.device.type == "cpu":
         return nn_bf16_plain(scene, model)
-    n, m = scene.shape[0], model.shape[0]
-    dev = scene.device
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    best, second, dex = (torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3))
-    if n:
-        scratch = torch.empty(plan(n, m, dev.index)[2] // 4, dtype=torch.int32, device=dev)
-        code = _build.lib().nn_bf16_launch(
-            scene.data_ptr(), n, model.data_ptr(), m, scratch.data_ptr(), idx.data_ptr(),
-            best.data_ptr(), second.data_ptr(), dex.data_ptr(), _build.stream_ptr(scene))
-        _build.LAUNCHES["nn_bf16"] += 1
-        _build.check(code, "nn_bf16")
-    return idx, best, second, dex
+    return _launch(scene, model, 1)
+
+
+def nn_bf16_batched(scenes: torch.Tensor, models: torch.Tensor):
+    """K9 with a pair axis: (idx, best, second, d_exact), each (B, N), for
+    contiguous float32 ``scenes`` (B, N, 3) and ``models`` (B, M, 3), every
+    pair into its own model (pair-local indices).  On the card one launch
+    for all the pairs, each pair's output ``nn_bf16``'s on that pair."""
+    _check_batch("nn_bf16_batched", scenes, models)
+    if scenes.device.type == "cpu":
+        return nn_bf16_batched_plain(scenes, models)
+    return _launch(scenes, models, scenes.shape[0])
+
+
+def nn_bf16_batched_plain(scenes: torch.Tensor, models: torch.Tensor):
+    """Plain version of ``nn_bf16_batched``: ``nn_bf16_plain`` pair by
+    pair."""
+    shape, dev = scenes.shape[:-1], scenes.device
+    outs = (torch.empty(shape, dtype=torch.int32, device=dev),
+            *(torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)))
+    for b, (s, m) in enumerate(zip(scenes, models)):
+        for out, one in zip(outs, nn_bf16_plain(s, m)):
+            out[b] = one
+    return outs
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -148,6 +188,29 @@ def nearest_indices_bf16(scene: torch.Tensor, model: torch.Tensor) -> torch.Tens
     """The indices of ``closest_point_indices_bf16`` (centred) alone: no
     bound, no certificate, for the engines' per-iteration search."""
     return nn_bf16(*_float32_clouds(scene, model, True))[0]
+
+
+def bf16_centres(models: torch.Tensor) -> torch.Tensor:
+    """(B, 3) float32: each pair's model mean, by the reduction the
+    single-pair path takes on its (M, 3) model (``_float32_clouds``), so
+    a pair is centred bit for bit as it is alone (``models.mean(1)`` is
+    another reduction over (B, M, 3) and may differ in the last bit, which
+    moves K9's argmin inside its band)."""
+    models = models.to(torch.float32)
+    centres = models.new_empty((models.shape[0], 3))
+    for b, m in enumerate(models):
+        centres[b] = m.clone().mean(0)
+    return centres
+
+
+def nearest_indices_bf16_batched(scenes: torch.Tensor, models: torch.Tensor,
+                                 centres: torch.Tensor | None = None) -> torch.Tensor:
+    """``nearest_indices_bf16`` with a pair axis: (B, N) int32, one launch
+    of K9.  ``centres``: ``bf16_centres(models)``, which a loop over fixed
+    models computes once."""
+    c = (bf16_centres(models) if centres is None else centres)[:, None, :]
+    scenes, models = scenes.to(torch.float32), models.to(torch.float32)
+    return nn_bf16_batched((scenes - c).contiguous(), (models - c).contiguous())[0]
 
 
 def _float32_clouds(scene: torch.Tensor, model: torch.Tensor, center: bool):

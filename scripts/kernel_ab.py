@@ -15,7 +15,8 @@ checkout's ``chip_smoke.py`` and ``data/``:
     1M pair's seed (1,015,808 x 62,500), and K10 beside it at cow and the
     grid seed where the checkout has it;
   * K9 at cow (2,903^2), horse (48,485^2) and the jittered 4^3 lattice
-    (8,192 x 64) of ``chip_smoke.py``, centred as its entry point centres;
+    (8,192 x 64) of ``chip_smoke.py``, centred as its entry point centres,
+    each also by its device microseconds a call (prep and fold);
   * K4 on horse's first-iteration candidate table (capacity 16 and 1, and
     with the 3-wide normals payload), and on the 1,000,000-point pair's
     first- and third-iteration tables;
@@ -52,8 +53,9 @@ kernels summed, each launch from its start state).  ``--sections`` picks
 ``dense`` (K1, K10, K9), ``grid`` (K4, K6, K7, the loops and the 1M pair;
 the longest part), ``knn`` (K6 and K7 at horse's and cow's k 17 and 32
 and the lattice, grid's kNN lines alone), ``fused`` (K3, K2, the cow
-loop) and ``chunked_rotation`` (K8, K5, the cow bcast loop); default
-dense and grid.  Prints one JSON line, with the card's name and power limit, and
+loop), ``chunked_rotation`` (K8, K5, the cow bcast loop) and ``batched``
+(``icp_batched`` with bf16 at B = 8 and 32: ms a pair, K9's launches);
+default dense and grid.  Prints one JSON line, with the card's name and power limit, and
 exits 1 without a card.
 """
 
@@ -233,6 +235,27 @@ def chunked_rotation_section(cs, cow_ref, cow_tr1, horse_ref, p0) -> dict:
     return out
 
 
+def batched_section(cs) -> dict:
+    """``icp_batched`` with ``nn_method="bf16"`` on the cow pairs of
+    ``chip_smoke.py`` (B = 8 and 32, 10 iterations, ``eigh`` and
+    ``qcp_fused``): ms a pair (the median of three host-clock runs) and K9's
+    launches a run (a checkout from before K9's pair axis launches it once
+    a pair an iteration)."""
+    from icp_tpu_torch.engine.batched import icp_batched
+
+    out = {}
+    for b in (8, 32):
+        models, scenes = cs._cow_pairs(0, b)
+        for solver in ("eigh", "qcp_fused"):
+            def run(models=models, scenes=scenes, solver=solver):
+                return icp_batched(models, scenes, n_iters=10, solver=solver, nn_method="bf16")
+            _, used = cs._counted(run)
+            out[f"bf16_{solver}_B{b}_ms_per_pair"] = statistics.median(
+                cs._wall(run) for _ in range(3)) * 1e3 / b
+            out[f"bf16_{solver}_B{b}_k9_launches"] = used["nn_bf16"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -317,8 +340,13 @@ def main(argv=None) -> int:
             c = m.mean(0)
             sc, mc = (s - c).contiguous(), (m - c).contiguous()
             out[f"k9_{label}_ms"] = cs.cuda_ms(lambda: nn_bf16.nn_bf16(sc, mc), reps)
+            out[f"k9_{label}_device_us"] = cs.device_us(
+                lambda: nn_bf16.nn_bf16(sc, mc), ("nn_bf16_prep_kernel", "nn_bf16_fold_kernel"),
+                reps=10)
     if "fused" in sections:
         out.update(fused_section(cs, cow_ref, cow_tr1, horse_ref, horse_tr1))
+    if "batched" in sections:
+        out.update(batched_section(cs))
     if "chunked_rotation" in sections:
         out.update(chunked_rotation_section(cs, cow_ref, cow_tr1, horse_ref, p0))
     lat_q, lat_p = cs.tied_lattice(6)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Regenerate the JAX fixtures that the PyTorch port's runs are held
 against (``tests/fixtures/torch_p2pl/``, ``torch_sym/``, ``torch_gicp/``,
-``torch_trim/`` and ``torch_slam/``).
+``torch_trim/``, ``torch_slam/`` and ``torch_slam_grid/``).
 
     JAX_PLATFORMS=cpu python3 scripts/make_torch_fixtures.py [FOLDER ...]
 
@@ -14,7 +14,10 @@ and every engine with ``--trim 0.1`` into ``torch_trim/`` (files
 the JAX ``icp-slam`` CLI (``python -m icp_tpu.slam.cli``) on the five bunny
 scans with ``SLAM_FLAGS`` (about a minute on the CPU), its ``poses.npz``,
 its ``[slam]`` stderr lines (each pair's iterations and error, the
-closure candidates, the pose graph's cost) and a README with the command.
+closure candidates, the pose graph's cost) and a README with the command
+and the run's wall seconds.  ``torch_slam_grid/``: the same CLI on the
+grid path (``SLAM_GRID_FLAGS``: ``--subsample 4 --nn grid``, a few minutes
+on the CPU, where the grid kernels run in Pallas interpret mode).
 With folder names, only those are rewritten.  The
 JAX package is imported only by the subprocess; the port and
 ``chip_smoke.py`` read the files.
@@ -27,6 +30,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -44,12 +48,17 @@ NB_ITER = "30"
 SLAM_SCANS = [os.path.join("data", f"bun{v}.txt") for v in ("000", "045", "180", "270", "315")]
 SLAM_FLAGS = ["--subsample", "16", "--max-iter", "30", "--engine", "point_to_plane", "--init",
               "pca", "--trim", "0.3", "--multiscale", "4", "1", "--detect-closures"]
-SLAM_README = """# torch_slam: the JAX icp-slam CLI on the five bunny scans
+# --subsample 4 --nn grid: the grid path (K4 NN, K7 normals) at a size the
+# JAX CPU run takes in minutes
+SLAM_GRID_FLAGS = ["--subsample", "4", "--nn", "grid"] + SLAM_FLAGS[2:]
+SLAM_README = """# {folder}: the JAX icp-slam CLI on the five bunny scans{what}
 
-Made on the CPU by `scripts/make_torch_fixtures.py torch_slam`, which runs,
+Made on the CPU by `scripts/make_torch_fixtures.py {folder}`, which runs,
 from the repository root:
 
     JAX_PLATFORMS=cpu python -m icp_tpu.slam.cli {scans} {flags}
+
+It took {seconds:.1f} s of wall time.
 
 - `poses.npz`: the world poses (keys s, R, t) it saved;
 - `stderr.txt`: its `[slam]` lines: each chain pair's iterations and
@@ -57,20 +66,40 @@ from the repository root:
   and the pose graph's cost.
 
 The port's `icp-slam-torch` is held to the same closure pairs, iterations
-and poses within a tolerance (`tests/test_torch_slam_cli.py`,
-`chip_smoke.py`'s slam phase): RANSAC draws its triplets from each
+and poses within a tolerance ({held}): RANSAC draws its triplets from each
 package's own generator.
+{note}"""
+SLAM_GRID_NOTE = """
+`--subsample 4` (about 10,000 rows a scan): JAX's CPU run of it, its grid
+kernels in Pallas interpret mode, takes minutes (above), so no coarser
+subsample was needed.  Pairs 1->2,
+2->3 and 3->4 end at the iteration cap (60 = 2 levels x 30) without
+converging: their trimmed error oscillates from iteration to iteration
+(1.36e-5 to 1.39e-5 at the fine level of 1->2), and a float32 rounding
+difference is amplified along such a loop.  So the port's run agrees
+with this one to the pose tolerance and each capped pair's error within
+its band (`chip_smoke.py`, `_SLAM_FIXTURES`), not to the last digit.
 """
+# folder -> (flags, title suffix, where the port is held to it, note)
+SLAM_RUNS = {
+    "torch_slam": (SLAM_FLAGS, "", "`tests/test_torch_slam_cli.py`,\n`chip_smoke.py`'s slam phase",
+                   ""),
+    "torch_slam_grid": (SLAM_GRID_FLAGS, " on the grid path",
+                        "`chip_smoke.py`'s slam phase,\non the card", SLAM_GRID_NOTE),
+}
 
 
-def make_slam(env) -> int:
-    out_dir = os.path.join(FIXTURES, "torch_slam")
+def make_slam(env, folder: str) -> int:
+    flags, what, held, note = SLAM_RUNS[folder]
+    out_dir = os.path.join(FIXTURES, folder)
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
-        cmd = [sys.executable, "-m", "icp_tpu.slam.cli", *SLAM_SCANS, *SLAM_FLAGS,
+        cmd = [sys.executable, "-m", "icp_tpu.slam.cli", *SLAM_SCANS, *flags,
                "--output-prefix", os.path.join(tmp, "registered_"),
                "--poses", os.path.join(tmp, "poses.npz")]
+        t0 = time.perf_counter()
         r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
         if r.returncode != 0:
             print(r.stderr, file=sys.stderr)
             return r.returncode
@@ -80,8 +109,10 @@ def make_slam(env) -> int:
             f.write("\n".join(lines) + "\n")
         shutil.copyfile(os.path.join(tmp, "poses.npz"), os.path.join(out_dir, "poses.npz"))
     with open(os.path.join(out_dir, "README.md"), "w") as f:
-        f.write(SLAM_README.format(scans=" ".join(SLAM_SCANS), flags=" ".join(SLAM_FLAGS)))
-    print(f"torch_slam: {len(lines)} [slam] lines")
+        f.write(SLAM_README.format(folder=folder, what=what, scans=" ".join(SLAM_SCANS),
+                                   flags=" ".join(flags), seconds=seconds, held=held,
+                                   note=note))
+    print(f"{folder}: {len(lines)} [slam] lines, {seconds:.1f} s")
     return 0
 
 
@@ -89,10 +120,11 @@ def main(argv=None) -> int:
     only = set(sys.argv[1:] if argv is None else argv)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    if not only or "torch_slam" in only:
-        code = make_slam(env)
-        if code:
-            return code
+    for folder in SLAM_RUNS:
+        if not only or folder in only:
+            code = make_slam(env, folder)
+            if code:
+                return code
     for engine, folder, extra, prefix in RUNS:
         if only and folder not in only:
             continue

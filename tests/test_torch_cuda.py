@@ -974,11 +974,38 @@ def test_icp_fused_batched_kernel_matches_plain_and_single_launches(dev, b, n, m
     assert ctl[-1].tolist() == [1, 1, 4, 0] and bool(torch.isnan(errs[-1]).all())
 
 
-@pytest.mark.parametrize("path", ["pallas_eigh", "bcast_qcp_fused", "matmul_qcp"])
+@pytest.mark.parametrize("b,n,m", [(1, 300, 2049), (4, 300, 2049), (8, 2903, 2903),
+                                   (4, 5000, 700)])
+def test_nn_bf16_batched_kernel_matches_single_launches(dev, b, n, m):
+    """K9 with the pair axis: one launch; each pair's (idx, best, second,
+    d_exact) bit-equal to its own single-pair launch (the kernels' result
+    does not depend on their chunking) and held to the plain version by
+    ``hold_k9``; each model repeats its first rows later, so ties on best
+    and second fall in other chunks; m = 2,049 is no whole number of
+    stages, so the pairs' staged models start on padded rows."""
+    s, mo = _pairs_of_clouds(3 * b + n, b, n, m, scale=2.0)
+    mo[:, m - m // 2:] = mo[:, :m // 2].clone()
+    s, mo = s.to(dev), mo.to(dev)
+    before = _build.LAUNCHES["nn_bf16"]
+    got = nn_bf16.nn_bf16_batched(s, mo)
+    assert _build.LAUNCHES["nn_bf16"] == before + 1
+    assert all(t.shape == (b, n) for t in got) and got[0].dtype == torch.int32
+    for k in range(b):
+        one = nn_bf16.nn_bf16(s[k], mo[k])
+        assert all(torch.equal(a[k], c) for a, c in zip(got, one))
+        hold_k9(s[k], mo[k], tuple(a[k] for a in got))
+    idx = nn_bf16.nearest_indices_bf16_batched(s, mo)
+    for k in range(b):
+        assert torch.equal(idx[k], nn_bf16.nearest_indices_bf16(s[k].clone(), mo[k].clone()))
+
+
+@pytest.mark.parametrize("path", ["pallas_eigh", "bcast_qcp_fused", "matmul_qcp", "bf16_eigh",
+                                  "bf16_qcp_fused"])
 def test_batched_paths_launch_their_kernels_once_an_iteration(dev, path):
     """``icp_batched`` on 4 pairs, 6 iterations, on the paths with the pair
     axis in the tensor ops: pallas/eigh launches K1 once an iteration,
-    bcast/qcp_fused K5 once an iteration, matmul/qcp none; each pair's
+    bcast/qcp_fused K5 once an iteration, matmul/qcp none, bf16 K9 once an
+    iteration (and K5 with qcp_fused); each pair's
     points within 1e-5 and error within rtol 1e-4 / atol 1e-7 of its own
     ``icp_fixed_iters`` (float32 sums over a pair axis)."""
     from icp_tpu_torch.engine.batched import icp_batched
@@ -996,7 +1023,8 @@ def test_batched_paths_launch_their_kernels_once_an_iteration(dev, path):
     res = icp_batched(models, scenes, device=dev, **kw)
     used = dict(_build.LAUNCHES)
     want = {"pallas_eigh": {"nn_dense": 6}, "bcast_qcp_fused": {"qcp_rotation": 6},
-            "matmul_qcp": {}}[path]
+            "matmul_qcp": {}, "bf16_eigh": {"nn_bf16": 6},
+            "bf16_qcp_fused": {"nn_bf16": 6, "qcp_rotation": 6}}[path]
     assert {k: v for k, v in used.items() if v} == want
     for k in range(4):
         one = icp_fixed_iters(models[k], scenes[k], device=dev, **kw)
