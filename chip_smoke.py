@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``icp_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,sharded,scale]
+    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,sharded,scale,bench]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -132,7 +132,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      neighbours checked against K6 on 16,384 seeded rows; 10 fixed grid
      iterations of the point-to-plane, symmetric and GICP engines, each
      with a falling error; the 10 point-to-point grid iterations again with
-     ``trim_fraction=0.1`` (a ``[features] case=scale_trim`` line).
+     ``trim_fraction=0.1`` (a ``[features] case=scale_trim`` line);
+  9. bench (``[bench]`` lines): the port's harness
+     (``icp_tpu_torch/bench/``) on the card, one row a call with the counts
+     set to 0 just before it: every row at cow and every row but the host
+     NumPy engine at horse, each a positive time or ``unresolved``, every
+     utilization share at most 100%, the loop rows' launches once an
+     iteration (the fused row K3 alone, the pipeline row K1 and K2 and no
+     K3, the grid row K4 and K2, the batched row one K1 and one K2 for its
+     four pairs; cow's three loop paths in a short run, their times being
+     ``bench_torch.py``'s), the op rows their kernel and the torch rows
+     none; one scaling cell (65,536 points, 5 iterations) at world 1
+     (NCCL); the first launch of K1/K10, K2, K5, K4 and K6 at each shape
+     the rows gave them held against the plain version on its inputs (K1
+     and K6 on 16,384 seeded rows above 2^28 pairs; the pair axis also
+     against each pair's single launch), a ``[bench] held`` line each; and
+     ``python3 bench_torch.py`` as a child: rc 0, its gate at 7 iterations,
+     and the headline record ``icp_iter_per_s_cow`` at 20 and 520
+     iterations on its last line.
 
 The last three lines of standard output are the kernels' JSON record, the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -155,6 +172,21 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# The bounds' one formula and its operation counts (fails outside a checkout).
+from icp_tpu_torch.bench.roofline import (  # noqa: E402
+    BF16_F32_PAIR_OPS,
+    BF16_PAIR_OPS,
+    PAIR_OPS,
+    PEAK_BF16,
+    PEAK_FLOPS,
+    ROTATION_OPS,
+    bf16_bound,
+    bound,
+    fused_ops,
+    step_ops,
+)
+
 FIXDIR = os.path.join(ROOT, "tests", "fixtures", "reference")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 _TRACE_RE = re.compile(r"\[ICP\] iteration number (\d+) \| error value = (\S+)")
@@ -196,12 +228,6 @@ BUNNY = ["bun000", "bun045", "bun180", "bun270", "bun315"]
 # (JAX, seed 0) on the CPU, below the CLI's default 0.15 in both, and the
 # best wrong pair at 0.034-0.044; 0.06 lies between.
 FULL_CLOSURE_MIN = 0.06
-# The card's peaks for the bounds (H100 SXM data sheet, the on-chip
-# measurement table): float32 outside the tensor cores, and HBM3.
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-PAIR_OPS = 8  # float32 operations per distance: 3 sub, 3 mul, 2 add
-PEAK_BF16 = 989e12  # dense bf16 tensor cores: K9's cross term
 K1_NAMES = ("nn_dense_fold_kernel", "nn_dense_epilogue_kernel")  # K1's kernels in a trace
 
 
@@ -247,17 +273,6 @@ def same_nan(a, b) -> bool:
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
-
-
-def bound(ops: float, nbytes: float):
-    """(least ms, what bounds it): the larger of operations over the float32
-    peak and bytes (each input read once, each output written once) over
-    the memory rate."""
-    return slower(ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3)
-
-
-def slower(ops_ms: float, bytes_ms: float):
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def nbytes(*tensors) -> int:
@@ -671,7 +686,7 @@ def phase_kernels(seed: int, record: dict):
         # state, writes the state, the control and one error
         k2[rows] = entry(err, cuda_ms(k2_bench(qcp.qcp_step), 50),
                          cuda_ms(k2_bench(qcp.qcp_step_plain), 10),
-                         bound(600 + 18 * rows, nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
+                         bound(step_ops(rows), nbytes(parts) + 2 * 32 * 8 + 2 * 3 * 4 + 8))
         say("kernels", kernel="qcp_step", rows=rows, warp=True, state_max_abs_err=err,
             bit_equal=err == 0.0, ms=f"{k2[rows]['ms']:.4f}",
             device_us=f"{device_us(k2_bench(qcp.qcp_step), ('qcp_step_kernel',)):.2f}",
@@ -702,7 +717,7 @@ def phase_kernels(seed: int, record: dict):
     # blocks' 18 sums out
     record["icp_fused"] = entry(
         k3_err, cuda_ms(k3_launch, 50), cuda_ms(k3_plain, 10),
-        bound(6 * n * m + 600, 12 * n + 16 * m + blocks * 18 * 8 + 2 * (32 * 8 + 12) + 8))
+        bound(fused_ops(n, m), 12 * n + 16 * m + blocks * 18 * 8 + 2 * (32 * 8 + 12) + 8))
     say("kernels", kernel="icp_fused", shape=f"{n}x{m}",
         grid=f"{blocks}x{-(-m // icp_fused.chunk_rows(n, m))}",
         ms=f"{record['icp_fused']['ms']:.4f}",
@@ -788,7 +803,7 @@ def phase_kernels(seed: int, record: dict):
     # ~500 dependent float64 operations; S, gp and gy in float32, the (1,
     # 16) float64 block and R in float32 out
     record["qcp_rotation"] = entry(k5_err, k5_from[torch.float32][0], k5_from[torch.float32][2],
-                                   bound(500, 11 * 4 + 16 * 8 + 9 * 4))
+                                   bound(ROTATION_OPS, 11 * 4 + 16 * 8 + 9 * 4))
     say("kernels", kernel="qcp_rotation", warp=True, max_abs_err=k5_err,
         packed_ms=f"{cuda_ms(lambda: qcp.qcp_rotation(packed), 50):.4f}",
         packed_device_us=f"{device_us(lambda: qcp.qcp_rotation(packed), ('qcp_rotation_kernel',)):.2f}",
@@ -955,9 +970,10 @@ def phase_kernels(seed: int, record: dict):
         # The all-float32 form (8 operations a pair) is printed beside it.
         n, m_rows = s.shape[0], m.shape[0]
         pairs, io_bytes = n * m_rows, 12 * n + 12 * m_rows + 16 * n
-        tc_ms, f32_ms = 32 * pairs / PEAK_BF16 * 1e3, 3 * pairs / PEAK_FLOPS * 1e3
+        tc_ms = BF16_PAIR_OPS * pairs / PEAK_BF16 * 1e3
+        f32_ms = BF16_F32_PAIR_OPS * pairs / PEAK_FLOPS * 1e3
         k9[label] = entry(held["max_abs_err"], ms, plain_ms,
-                          slower(max(tc_ms, f32_ms), io_bytes / PEAK_BYTES * 1e3))
+                          bf16_bound(pairs, io_bytes))
         chunks, _, scratch = nn_bf16.plan(n, m_rows)
         say("kernels", kernel="nn_bf16", shape=f"{n}x{m_rows}", chunks=chunks,
             partial_triples_bytes=chunks * n * 12, scratch_bytes=scratch,
@@ -1097,7 +1113,7 @@ def phase_pair_axis(seed: int) -> None:
 
         n = m = mods.shape[1]
         blocks = prep.rows.shape[1]
-        bd = bound(b * (6 * n * m + 600),
+        bd = bound(b * fused_ops(n, m),
                    b * (12 * n + 16 * m + blocks * 18 * 8 + 2 * (32 * 8 + 12) + 8))
         ms = cuda_ms(launch, 30)
         say("kernels", kernel="icp_fused", pair_axis=b, shape=f"{b}x{n}x{m}",
@@ -1145,7 +1161,7 @@ def phase_pair_axis(seed: int) -> None:
             p = parts[0] if single else parts
             return lambda: fn(p, st, ctl, errs, threshold=-math.inf)
 
-        bd = bound(b * 618, nbytes(parts) + b * (2 * 32 * 8 + 2 * 4 * 4 + 8))
+        bd = bound(b * step_ops(1), nbytes(parts) + b * (2 * 32 * 8 + 2 * 4 * 4 + 8))
         say("kernels", kernel="qcp_step", pair_axis=b, rows=1, bit_equal_plain=True,
             bit_equal_single_launches=True, ms=f"{cuda_ms(k2(qcp.qcp_step), 50):.4f}",
             device_us=f"{device_us(k2(qcp.qcp_step), ('qcp_step_kernel',)):.2f}",
@@ -1172,7 +1188,7 @@ def phase_pair_axis(seed: int) -> None:
             require(all(torch.equal(a[k], c) for a, c in zip(got, one)),
                     f"K5 pair axis {dt}: pair {k} differs from its own launch")
         size = 4 if dt == torch.float32 else 8
-        bd = bound(b * 500, b * (11 * size + 16 * 8 + 9 * size))
+        bd = bound(b * ROTATION_OPS, b * (11 * size + 16 * 8 + 9 * size))
         say("kernels", kernel="qcp_rotation", pair_axis=b, dtype=str(dt)[6:], bit_equal_plain=True,
             bit_equal_single_launches=True,
             ms=f"{cuda_ms(lambda: qcp.qcp_rotation_from(S, gp, gy), 50):.4f}",
@@ -1234,8 +1250,7 @@ def k9_pair_axis(seed: int) -> None:
                            warmup=1)
         # the bound of K9's row (phase_kernels), for B N M pairs
         pairs, io_bytes = b * n * m, b * (12 * n + 12 * m + 16 * n)
-        bd = slower(max(32 * pairs / PEAK_BF16 * 1e3, 3 * pairs / PEAK_FLOPS * 1e3),
-                    io_bytes / PEAK_BYTES * 1e3)
+        bd = bf16_bound(pairs, io_bytes)
         chunks, _, scratch = nn_bf16.plan(n, m, dev.index, b)
         say("kernels", kernel="nn_bf16", pair_axis=b, case=label, shape=f"{b}x{n}x{m}",
             pairs_a_launch=pairs, chunks=chunks, partial_triples_bytes=b * chunks * n * 12,
@@ -2922,6 +2937,385 @@ def phase_sharded(seed: int, tmp: str, smi: str) -> dict:
     return launches
 
 
+# The harness's rows (``icp_tpu_torch/bench/harness.py``), each driven alone
+# with the counts set to 0 just before it; horse leaves out the host NumPy
+# engine (2.35 G brute-force pairs an iteration on the host).
+BENCH_ROWS = ("closest_bcast", "closest_matmul", "find_alignment", "compute_centroid",
+              "err_compute", "err_compute_alignment", "closest_pallas", "closest_grid",
+              "closest_bf16", "full_loop", "full_loop_pipeline", "full_loop_grid",
+              "full_loop_numpy", "global_register", "batched_bucketed", "full_loop_sharded")
+BENCH_ITERS = 20  # benchmark_matrix's n_iters
+# Iterations a loop row runs: one warm-up and 5 timed runs at n and at
+# n + 500 (the batched row: n + 180).
+BENCH_LOOP_ITERS = 6 * (2 * BENCH_ITERS + 500)
+BENCH_BATCH_ITERS = 6 * (2 * BENCH_ITERS + 180)
+# The cow loop rows: ``bench_torch.py`` times these three paths (its
+# ``per_iter_us_*``); here a short run of each holds its launches.
+BENCH_COW_LOOPS = {"full_loop": "fused", "full_loop_pipeline": "pipeline",
+                   "full_loop_grid": "grid"}
+BENCH_SHORT = (2, 4, 1)  # loop_per_iter's small, big, reps: 12 iterations
+# rows of torch ops or host NumPy alone: no kernel of the port
+BENCH_TORCH_ROWS = ("closest_bcast", "closest_matmul", "compute_centroid", "err_compute",
+                    "err_compute_alignment", "full_loop_numpy")
+# the kernel each other op row must launch
+BENCH_KERNEL_OF = {"find_alignment": "qcp_rotation", "closest_pallas": "nn_dense",
+                   "closest_grid": "nn_grid", "closest_bf16": "nn_bf16",
+                   "global_register": "knn_dense", "full_loop_sharded": "nn_dense"}
+# The wrappers whose launches in the bench phase are held against their
+# plain versions at the shapes and on the inputs the rows gave them: K1
+# (K10) alone and with the pair axis (horse 48,485^2, the grid seeds, the
+# bucketed batches, the sharded ring, the scaling cell), K2 alone and with
+# the pair axis, K5, K4 on the rows' tables and K6 at global_register's k.
+# K3 and K9 run here on the kernels phase's inputs (cow's loop; cow and
+# horse, tr1 onto ref), where they are held.
+BENCH_HELD = (("icp_tpu_torch.kernels.nn_dense", "_launch"),
+              ("icp_tpu_torch.kernels.qcp", "qcp_step"),
+              ("icp_tpu_torch.kernels.qcp", "qcp_rotation_from"),
+              ("icp_tpu_torch.kernels.nn_grid", "nn_grid"),
+              ("icp_tpu_torch.kernels.knn_dense", "knn_dense"))
+BENCH_HELD_PAIRS = 1 << 28  # above it a plain NN or kNN is held on a sample of rows
+BENCH_HELD_ROWS = 16384
+
+
+def _signature(args, kwargs) -> tuple:
+    import torch
+
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return ("tensor", tuple(v.shape), str(v.dtype))
+        return v if v is None or isinstance(v, (bool, int, float, str)) else type(v).__name__
+    return tuple(map(one, args)) + tuple((k, one(v)) for k, v in sorted(kwargs.items()))
+
+
+def _clone(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def _recording_launches(records: dict):
+    """Within the body each wrapper of ``BENCH_HELD`` is replaced, wherever a
+    loaded module of the port holds it, by one that keeps its first call at
+    each signature (argument shapes, dtypes and values) in ``records``: the
+    bound arguments as they came in, the result, and the tensors as they
+    were left (K2 works in place).  The launches and their counts are the
+    wrapper's own; every name is put back on exit."""
+    import importlib
+    import inspect
+
+    patched = []
+    try:
+        for modname, fname in BENCH_HELD:
+            orig = getattr(importlib.import_module(modname), fname)
+            sig = inspect.signature(orig)
+
+            def wrapper(*args, _orig=orig, _name=fname, _sig=sig, **kwargs):
+                key = (_name, _signature(args, kwargs))
+                if key in records:
+                    return _orig(*args, **kwargs)
+                before = _sig.bind(*_clone(list(args)), **_clone(kwargs))
+                before.apply_defaults()
+                out = _orig(*args, **kwargs)
+                left = _sig.bind(*_clone(list(args)), **_clone(kwargs)).arguments
+                records[key] = (before.arguments, _clone(out), left)
+                return out
+
+            for mod in list(sys.modules.values()):
+                if not getattr(mod, "__name__", "").startswith("icp_tpu_torch"):
+                    continue
+                for attr, val in list(vars(mod).items()):
+                    if val is orig:
+                        patched.append((mod, attr, orig))
+                        setattr(mod, attr, wrapper)
+        yield
+    finally:
+        for mod, attr, orig in reversed(patched):
+            setattr(mod, attr, orig)
+
+
+def _sample_rows(rng, n: int, m: int):
+    """All rows, or ``BENCH_HELD_ROWS`` seeded ones where n x m exceeds
+    ``BENCH_HELD_PAIRS``."""
+    import numpy as np
+    import torch
+
+    if n * m <= BENCH_HELD_PAIRS or n <= BENCH_HELD_ROWS:
+        return slice(None), n
+    rows = torch.as_tensor(np.sort(rng.choice(n, BENCH_HELD_ROWS, replace=False)))
+    return rows, BENCH_HELD_ROWS
+
+
+def _nan_equal_within(a, b, tol: float) -> float:
+    """The largest difference of a and b where neither is NaN, NaN where
+    the other is; raises past ``tol``."""
+    import torch
+
+    require(torch.equal(torch.isnan(a), torch.isnan(b)), "NaN where plain has none")
+    err = max_abs(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+    require(err <= tol, f"{err:.3e} from plain, above {tol:.1e}")
+    return err
+
+
+def _hold_nn_dense(a: dict, out, rng) -> dict:
+    """K1 (K10) on one pair or B: each pair's indices and distances bit-equal
+    to ``nn_dense_plain`` on its (sampled) rows; with the pair axis, each
+    pair also bit-equal to its own single launch."""
+    import torch
+
+    from icp_tpu_torch.kernels import nn_dense
+
+    scene, model, pairs, impl = a["scene"], a["model"], a["pairs"], a["distance_impl"]
+    idx, d2 = out if a["with_dist"] else (out, None)
+    batched = scene.ndim == 3
+    checked = 0
+    for b in range(pairs):
+        s, m = (scene[b], model[b]) if batched else (scene, model)
+        ib = idx[b] if batched else idx
+        db = None if d2 is None else (d2[b] if batched else d2)
+        rows, k = _sample_rows(rng, s.shape[0], m.shape[0])
+        ip, dp = nn_dense.nn_dense_plain(s[rows].contiguous(), m, with_dist=True,
+                                         distance_impl=impl)
+        require(torch.equal(ib[rows], ip), f"indices of pair {b} differ from plain")
+        require(db is None or same_nan(db[rows], dp), f"d2 of pair {b} differs from plain")
+        if batched:
+            one = nn_dense.nn_dense(s.contiguous(), m.contiguous(), with_dist=True,
+                                    distance_impl=impl)
+            require(torch.equal(one[0], ib) and (db is None or same_nan(one[1], db)),
+                    f"pair {b} differs from its single launch")
+        checked += k
+    return {"form": impl, "pairs": pairs, "rows_held": checked, "bit_equal_plain": True,
+            "equal_single_launches": batched or None}
+
+
+def _hold_qcp_step(a: dict, left: dict) -> dict:
+    """K2 on one pair or B: the state, control and error buffer it left
+    against ``qcp_step_plain`` from the same inputs (control equal, the rest
+    within 1e-9 as in the kernels phase); with the pair axis, each pair
+    bit-equal to its own single launch."""
+    import torch
+
+    from icp_tpu_torch.kernels import qcp
+
+    kw = {k: a[k] for k in ("with_scale", "threshold", "err_factor", "converge", "guard")}
+    parts = a["partials"]
+    st, ctl, errs = a["state"].clone(), a["ctl"].clone(), a["errs"].clone()
+    qcp.qcp_step_plain(parts, st, ctl, errs, **kw)
+    k_st, k_ctl, k_errs = left["state"], left["ctl"], left["errs"]
+    require(torch.equal(k_ctl, ctl), "loop control differs from plain")
+    err = max(_nan_equal_within(k_st, st, 1e-9), _nan_equal_within(k_errs, errs, 1e-9))
+    batched = parts.ndim == 3
+    if batched:
+        for b in range(parts.shape[0]):
+            one = (a["state"][b:b + 1].clone(), a["ctl"][b].clone(), a["errs"][b].clone())
+            qcp.qcp_step(parts[b].contiguous(), *one, **kw)
+            require(torch.equal(one[0], k_st[b:b + 1]) and torch.equal(one[1], k_ctl[b])
+                    and same_nan(one[2], k_errs[b]), f"pair {b} differs from its single launch")
+    return {"pairs": parts.shape[0] if batched else 1, "rows": parts.shape[-2],
+            "max_abs_err": err, "bit_equal_plain": err == 0.0,
+            "equal_single_launches": batched or None}
+
+
+def _hold_recorded(records: dict, seed: int) -> list:
+    """Each recorded launch against its plain version (``BENCH_HELD``), one
+    ``[bench] held`` line each; returns the lines' records."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch.kernels import knn_dense, nn_grid, qcp
+
+    rng = np.random.default_rng(seed + 14)
+    held = []
+    for (name, sig), (a, out, left) in records.items():
+        shapes = [tuple(v.shape) for v in a.values() if isinstance(v, torch.Tensor)]
+        label = f"{name} {shapes}"
+        try:
+            if name == "_launch":
+                info = _hold_nn_dense(a, out, rng)
+                name = "nn_dense" if a["distance_impl"] == "vpu" else "nn_dense_mxu"
+            elif name == "qcp_step":
+                info = _hold_qcp_step(a, left)
+            elif name == "qcp_rotation_from":
+                want = qcp.qcp_rotation_from_plain(a["S"], a["gp"], a["gy"])
+                require(all(torch.equal(g, w) for g, w in zip(out, want)), "differs from plain")
+                name, info = "qcp_rotation", {"dtype": str(a["S"].dtype), "bit_equal_plain": True}
+            elif name == "nn_grid":
+                want = nn_grid.nn_grid_plain(a["cand"], a["counts"], a["scene"], a["tiles"],
+                                             a["scene_tile"], a["payload"], kd_row=a["kd_row"])
+                require(all((g is None and w is None) or same_nan(g, w) for g, w in zip(out, want)),
+                        "d2, idx, y or payload differ from plain")
+                info = {**k4_table(a["cand"], a["counts"], a["tiles"].shape[0],
+                                   a["tiles"].shape[1], a["scene_tile"]), "bit_equal_plain": True}
+            else:  # knn_dense
+                q, pts, k = a["query"], a["points"], a["k"]
+                rows, n_rows = _sample_rows(rng, q.shape[0], pts.shape[0])
+                dp, ip = knn_dense.knn_dense_plain(q[rows].contiguous(), pts, k)
+                require(torch.equal(out[1][rows], ip) and same_nan(out[0][rows], dp),
+                        "differs from plain")
+                info = {"k": k, "rows_held": n_rows, "bit_equal_plain": True}
+        except SmokeError as e:
+            raise SmokeError(f"bench held {label}: {e}") from None
+        rec = {"kernel": name, "shapes": shapes, **info}
+        held.append(rec)
+        print("[bench] held " + json.dumps(rec))
+    return held
+
+
+def _bench_launches(label: str, key: str, used: dict, fused: bool, it: int) -> None:
+    """The kernels a harness row must have launched: the loop rows once an
+    iteration (``it`` of them; the pipeline row no K3: the proof that the
+    fused gate was off), the op rows their kernel, the torch rows none."""
+    def exact(**want):
+        got = {k: used.get(k, 0) for k in want}
+        require(got == want, f"bench {label}: launches {got}, want {want}")
+
+    if key in BENCH_TORCH_ROWS:
+        require(not any(used.values()), f"bench {label}: a torch row launched {used}")
+    elif key in BENCH_KERNEL_OF:
+        require(used.get(BENCH_KERNEL_OF[key], 0) > 0, f"bench {label}: no "
+                f"{BENCH_KERNEL_OF[key]} launch ({used})")
+    elif key == "full_loop" and fused:
+        exact(icp_fused=it, nn_dense=0, qcp_step=0)
+    elif key in ("full_loop", "full_loop_pipeline"):
+        exact(icp_fused=0, nn_dense=it, qcp_step=it)
+    elif key == "full_loop_grid":
+        exact(icp_fused=0, nn_grid=it, qcp_step=it)
+    elif key == "batched_bucketed":
+        exact(icp_fused=0, nn_dense=it, qcp_step=it)
+    else:
+        raise SmokeError(f"bench {label}: no launch rule for row {key!r}")
+
+
+def _bench_cow_loop(key: str, fused: bool) -> dict:
+    """A cow loop row's path, run short (``BENCH_SHORT``) for its launches;
+    its time is ``bench_torch.py``'s."""
+    import torch
+
+    from icp_tpu_torch.bench.harness import load_pair, loop_per_iter
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        ref, tr1 = (torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                    for a in load_pair("cow"))
+    small, big, reps = BENCH_SHORT
+    _, used = _counted(lambda: loop_per_iter(ref, tr1, BENCH_COW_LOOPS[key], small, big, reps))
+    _bench_launches(f"cow {key}", key, used, fused, (1 + reps) * (small + big))
+    print("[bench] " + json.dumps({"workload": "cow", "row": key, "path": BENCH_COW_LOOPS[key],
+                                   "iterations": (1 + reps) * (small + big),
+                                   "time": "bench_torch.py per_iter_us_" + BENCH_COW_LOOPS[key],
+                                   "launches": {k: v for k, v in used.items() if v}}))
+    return used
+
+
+def _bench_matrix(workload: str) -> dict:
+    """Every row of ``benchmark_matrix`` at ``workload`` on the card, one row
+    a call (the cow loop rows by ``_bench_cow_loop``): a time or
+    ``unresolved``, shares at most 100%, and the launches of
+    ``_bench_launches``.  Returns the rows' launches."""
+    import torch
+
+    from icp_tpu_torch.bench.harness import benchmark_matrix, load_pair
+    from icp_tpu_torch.kernels.icp_fused import MAX_FUSED_MODEL
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        fused = load_pair(workload)[0].shape[0] <= MAX_FUSED_MODEL
+    total = {}
+    for key in BENCH_ROWS:
+        if workload == "horse" and key == "full_loop_numpy":
+            continue
+        if workload == "cow" and key in BENCH_COW_LOOPS:
+            _add(total, _bench_cow_loop(key, fused))
+            continue
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()) as log:
+            rows, used = _counted(lambda: benchmark_matrix(
+                n_iters=BENCH_ITERS, include=[key], workload=workload))
+        seconds = time.perf_counter() - t0
+        if not rows:  # the torch NN rows above 4e8 pairs, as in JAX
+            require(key in ("closest_bcast", "closest_matmul") and "skipped" in log.getvalue(),
+                    f"bench {workload}: row {key} gave nothing")
+            print("[bench] " + json.dumps({"workload": workload, "row": key, "skipped": True}))
+            continue
+        require(len(rows) == 1, f"bench {workload} {key}: {len(rows)} rows")
+        row = rows[0]
+        label = f"{workload} {row['benchmark']}"
+        require(row.get("unresolved") is True or row.get("time_us", 0) > 0,
+                f"bench {label}: neither a positive time nor unresolved: {row}")
+        for share in ("mfu_pct", "mfu_iter_pct", "hbm_util_pct"):
+            if share in row:
+                require(0 <= row[share] <= 100, f"bench {label}: {share} {row[share]} above 100%")
+        it = BENCH_BATCH_ITERS if key == "batched_bucketed" else BENCH_LOOP_ITERS
+        _bench_launches(label, key, used, fused, it)
+        _add(total, used)
+        print("[bench] " + json.dumps({"workload": workload, **row, "seconds": round(seconds, 2),
+                                       "launches": {k: v for k, v in used.items() if v}}))
+    torch.cuda.synchronize()
+    return total
+
+
+def _bench_headline() -> None:
+    """``python3 bench_torch.py`` as a child: rc 0, the gate at 7
+    iterations, and its last line the headline record."""
+    env = dict(os.environ, ICP_BENCH_TOTAL_TIMEOUT="600")  # the supervisor kills its child
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=700)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    require(proc.returncode == 0 and lines, f"bench_torch.py exited {proc.returncode}: "
+            f"{proc.stdout[-1000:]}\n{proc.stderr[-3000:]}")
+    gate = re.search(r"\[bench\] convergence gate: err=(\S+) iters=(\d+) "
+                     r"alignment_rmse_vs_ref=(\S+)", proc.stderr)
+    require(gate is not None and int(gate.group(2)) == 7,
+            f"bench_torch.py: no convergence gate at 7 iterations in {proc.stderr[-2000:]}")
+    rec = json.loads(lines[-1])
+    require(rec.get("metric") == "icp_iter_per_s_cow" and rec.get("value", 0) > 0
+            and rec.get("path") in ("fused", "pipeline", "grid")
+            and (rec.get("iters_small"), rec.get("iters_big")) == (20, 520),
+            f"bench_torch.py: a headline record at 20 and 520 iterations expected, "
+            f"got {lines[-1]}")
+    print(f"[bench] gate err={gate.group(1)} iters={gate.group(2)} rmse={gate.group(3)} "
+          f"bench_torch_seconds={time.perf_counter() - t0:.1f}")
+    print("[bench] headline " + json.dumps(rec))
+
+
+def phase_bench(seed: int) -> dict:
+    """The port's harness on the card (``[bench]`` lines): every row at cow,
+    every row but the NumPy engine at horse; one scaling cell at world 1
+    (NCCL); every launch of ``BENCH_HELD`` at a new shape held against its
+    plain version; ``bench_torch.py``.  Returns the rows' launches."""
+    import torch.distributed as dist
+
+    from icp_tpu_torch.bench.scaling import run_cell
+
+    t0 = time.perf_counter()
+    launches, records = {}, {}
+    try:
+        with _recording_launches(records):
+            for workload in ("cow", "horse"):
+                _add(launches, _bench_matrix(workload))
+            cell = run_cell(1, 65536, 5, True)
+        require(cell["wall_s"] > 0 and math.isfinite(cell["err"]),
+                f"bench: scaling cell {cell}")
+        print("[bench] scaling " + json.dumps(cell))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    t1 = time.perf_counter()
+    held = _hold_recorded(records, seed)
+    kinds = {r["kernel"] for r in held}
+    require({"nn_dense", "qcp_step", "qcp_rotation", "nn_grid", "knn_dense"} <= kinds,
+            f"bench: the held launches miss a kernel: {sorted(kinds)}")
+    say("bench", held_launches=len(held), held_seconds=f"{time.perf_counter() - t1:.1f}")
+    _bench_headline()
+    say("bench", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches
+
+
 @contextlib.contextmanager
 def _torchrun_rank():
     """Under ``torchrun`` (``--nproc-per-node 4 chip_smoke.py --phases
@@ -2946,9 +3340,9 @@ def _torchrun_rank():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,cli,features,slam,sharded,scale",
-                    help="comma list of kernels, cli, features, slam, sharded, scale (device "
-                         "and build always run)")
+    ap.add_argument("--phases", default="kernels,cli,features,slam,sharded,scale,bench",
+                    help="comma list of kernels, cli, features, slam, sharded, scale, bench "
+                         "(device and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2957,9 +3351,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    import icp_tpu_torch  # noqa: F401  (fails outside a checkout)
-
     with _torchrun_rank():
         return run_phases(args.seed, phases)
 
@@ -2991,6 +3382,8 @@ def run_phases(seed: int, phases: set) -> int:
             _add(launches, phase_sharded(seed, tmp, smi))
     if "scale" in phases:
         phase_scale(seed)
+    if "bench" in phases:
+        _add(launches, phase_bench(seed))
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = record.get(name, entry(None, None, None, (None, None)))

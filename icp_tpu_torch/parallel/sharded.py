@@ -378,7 +378,9 @@ def icp_sharded(model, scene, config: Optional[ICPConfig] = None, *,
         return (*similarity_step(p, y, w_eff, axis.group, **kw), {})
 
     bound = cfg.max_iter if n_iters is None else int(n_iters)
-    loop = LoopState(bound, cfg.max_iter, cfg.threshold, cfg.reference_compat, dev)
+    # n_iters may exceed max_iter without a trace, as in JAX: the buffer
+    # then holds every iteration's error
+    loop = LoopState(bound, max(bound, cfg.max_iter), cfg.threshold, cfg.reference_compat, dev)
     state = dict(p=p, side=None, total=identity_similarity(dt, dev))
     return gathered(run_loop(step, state, loop, dt, trace), axis, n, trace)
 

@@ -172,7 +172,9 @@ def icp_sharded_grid(model, scene, config: Optional[ICPConfig] = None, *,
         return sim, p_new, err, dict(u=next_bound(y, p_new))
 
     bound = cfg.max_iter if n_iters is None else int(n_iters)
-    loop = LoopState(bound, cfg.max_iter, cfg.threshold, cfg.reference_compat, dev)
+    # n_iters may exceed max_iter without a trace, as in JAX: the buffer
+    # then holds every iteration's error
+    loop = LoopState(bound, max(bound, cfg.max_iter), cfg.threshold, cfg.reference_compat, dev)
     state = dict(p=sh.p0, side=None, u=sh.u0, total=identity_similarity(dt, dev))
     return gathered(run_loop(step, state, loop, dt, trace), sh.axis, n, trace, sh.inv_slots)
 

@@ -18,7 +18,8 @@ def test_import_leaves_jax_out():
             "icp_tpu_torch.kernels.knn_grid, "
             "icp_tpu_torch.utils.convert, icp_tpu_torch.engine.batched, "
             "icp_tpu_torch.engine.global_reg, icp_tpu_torch.slam.cli, "
-            "icp_tpu_torch.slam.closure; "
+            "icp_tpu_torch.slam.closure, icp_tpu_torch.bench.harness, "
+            "icp_tpu_torch.bench.roofline, icp_tpu_torch.bench.scaling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icp_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -27,22 +28,23 @@ def test_import_leaves_jax_out():
 
 
 def test_no_module_of_the_port_imports_jax_or_icp_tpu():
-    offenders = []
+    """Every module of the package, and the port's scripts at the root:
+    ``chip_smoke.py`` and ``bench_torch.py``."""
+    paths = [os.path.join(REPO, name) for name in ("chip_smoke.py", "bench_torch.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                mods = []
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    mods = [node.module]
-                offenders += [(path, m) for m in mods
-                              if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu")]
+        paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            mods = []
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            offenders += [(path, m) for m in mods
+                          if m.split(".")[0] in ("jax", "jaxlib", "icp_tpu")]
     assert not offenders, offenders
 
 

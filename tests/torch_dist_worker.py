@@ -316,7 +316,28 @@ def suite_distributed() -> dict:
     return out
 
 
-SUITES = {"sharded": suite_sharded, "grid": suite_grid, "distributed": suite_distributed}
+def suite_bench() -> dict:
+    """The harness's sharded parts at this group's size: the scaling cell
+    (float32, eigh on the CPU), ``run_cell`` refusing a size the group does
+    not have, and ``icp_sharded`` run past ``config.max_iter`` by
+    ``n_iters`` (the harness's sharded row)."""
+    import torch.distributed as dist
+
+    from icp_tpu_torch import icp_sharded, make_mesh
+    from icp_tpu_torch.bench.scaling import run_cell
+
+    world = dist.get_world_size()
+    cell = run_cell(world, 64, 2, True, model_points=128, reps=1, device="cpu")
+    ref, tr1 = cow_pair(20)
+    over = icp_sharded(ref, tr1, _cfg(max_iter=1), mesh=make_mesh("cpu"), n_iters=5)
+    return {"cell": {k: np.asarray(cell[k]) for k in ("devices", "points", "iters", "err")},
+            "over_max_iter": _fields(over),
+            "refusals": dict(size=_refused(lambda: run_cell(world + 1, 64, 2, True,
+                                                            model_points=128, device="cpu")))}
+
+
+SUITES = {"sharded": suite_sharded, "grid": suite_grid, "distributed": suite_distributed,
+          "bench": suite_bench}
 
 
 # ---------------------------------------------------------------------------
