@@ -10,7 +10,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      process per source, all at once, and ptxas's registers, stack frames
      and spills are printed (K1/K10's, K2/K5's, K3's, K7's, K8's and K9's
      kernels must have neither);
-  3. kernels: K1-K10 at the shapes of the main paths, each against its plain
+  3. kernels: K1-K11 at the shapes of the main paths, each against its plain
      PyTorch version on the same inputs on the card (indices and float32
      outputs exactly equal, float64 sums and state blocks within the stated
      tolerances; K9, whose cross term the tensor cores accumulate, as
@@ -20,7 +20,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the capacity, work items and folded pairs (K7: horse's seed, exact and
      capacity-1 tables, the exact pass also without its seed bound), K6 is
      also held at k = 32 and on a lattice of exactly equal distances, and
-     K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes; K2 (one
+     K10 (the ``"mxu"`` form) is timed beside K1 at K1's shapes, K11 (the
+     ``with_points`` form: K1's index and the model point) at cow, horse
+     and the grid seed, its indices K1's and its points bit-equal to
+     plain and to ``model[idx]``, timed beside K1; K2 (one
      warp) at 1 and 23 rows, and K3 (one launch an iteration, its last block
      running K2's step) at cow from two states, three launches bit-equal,
      each with its device microseconds from ``torch.profiler``; K5 (one
@@ -50,7 +53,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      cow_tr1 30 and cow_tr2 30 against the JAX CLI's fixtures, and on
      horse_tr1 30 (grid path, K7 normals) against the port's own dense
      path; the lane-chunked NN (K8) and the ``"mxu"`` form (K10) through
-     their entry point at K1's shapes, against K1 and the plain version; the
+     their entry point at K1's shapes, against K1 and the plain version,
+     and K11 through ``closest_points_and_targets_dense`` at cow, horse
+     and the grid seed, against K1 and ``model[idx]``; the
      ``qcp_fused`` step with the bcast NN on cow (one K5 launch an
      iteration, its device launches an iteration and ms/iter); the
      bf16 prefilter (K9) through ``icp_symmetric`` with ``nn_method="bf16"``
@@ -202,6 +207,7 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nn_chunked": ("icp_tpu_torch/csrc/nn_chunked.cu", "icp_tpu/kernels/nn_pallas.py:49"),
     "nn_bf16": ("icp_tpu_torch/csrc/nn_bf16.cu", "icp_tpu/kernels/nn_bf16.py:60"),
     "nn_dense_mxu": ("icp_tpu_torch/csrc/nn_dense.cu", "icp_tpu/kernels/nn_pallas.py:105"),
+    "nn_dense_points": ("icp_tpu_torch/csrc/nn_dense.cu", "icp_tpu/kernels/nn_pallas.py:141"),
 }
 # (fixture, model file, scene file, nb_iter, iterations, output atol, extra flags)
 CLI_CASES = [
@@ -648,6 +654,42 @@ def phase_kernels(seed: int, record: dict):
             ms=f"{k10[label]['ms']:.4f}", plain_ms=f"{k10[label]['plain_ms']:.4f}",
             k1_ms=f"{cuda_ms(lambda: nn_dense.nn_dense(s, m), 20):.4f}", bound_ms=f"{b[0]:.4f}")
     record["nn_dense_mxu"] = k10["horse_seed"]
+
+    # K11, the with_points form: cow 2,903^2, horse 48,485^2 and the grid
+    # seed; indices equal to K1's launch on the same clouds, the points
+    # bit-equal to the plain version's and to model[idx], timed beside K1
+    # (events, and both kernels' device microseconds: K11 is K1's two
+    # kernels with the copy in the epilogue).
+    k11 = {}
+    for label, s, m in (("cow", cow_tr1, cow_ref), ("horse", horse_tr1, horse_ref),
+                        ("horse_seed", p0, sub)):
+        before = _build.LAUNCHES["nn_dense_points"]
+        ik, yk = nn_dense.closest_points_and_targets_dense(s, m)
+        require(_build.LAUNCHES["nn_dense_points"] == before + 1,
+                f"K11 {label}: not one launch a call")
+        ip, yp = nn_dense.nn_dense_points_plain(s, m)
+        require(torch.equal(ik, nn_dense.nn_dense(s, m)), f"K11 {label}: indices differ from K1")
+        require(torch.equal(ik, ip), f"K11 {label}: indices differ from plain")
+        require(torch.equal(yk.view(torch.int32), yp.view(torch.int32))
+                and torch.equal(yk.view(torch.int32), m[ik.long()].view(torch.int32)),
+                f"K11 {label}: points differ from plain or from model[idx]")
+        heavy = s.shape[0] > 10_000
+        n, m_rows = s.shape[0], m.shape[0]
+        b = bound(PAIR_OPS * n * m_rows, 12 * n + 12 * m_rows + 4 * n + 12 * n)
+        k11[label] = entry(0.0, cuda_ms(lambda: nn_dense.closest_points_and_targets_dense(s, m),
+                                        10 if heavy else 20),
+                           cuda_ms(lambda: nn_dense.nn_dense_points_plain(s, m), 3 if heavy else 5,
+                                   warmup=1), b)
+        say("kernels", kernel="nn_dense_points", shape=f"{n}x{m_rows}",
+            chunk_rows=nn_dense.chunk_rows(n, m_rows), idx_equal_k1=True, idx_equal_plain=True,
+            points_bit_equal_plain=True, points_bit_equal_gather=True,
+            ms=f"{k11[label]['ms']:.4f}",
+            device_us=f"{device_us(lambda: nn_dense.closest_points_and_targets_dense(s, m), K1_NAMES, 10):.2f}",
+            plain_ms=f"{k11[label]['plain_ms']:.4f}",
+            k1_ms=f"{cuda_ms(lambda: nn_dense.nn_dense(s, m), 10 if heavy else 20):.4f}",
+            k1_device_us=f"{device_us(lambda: nn_dense.nn_dense(s, m), K1_NAMES, 10):.2f}",
+            bound_ms=f"{b[0]:.6f}", bound_by=b[1])
+    record["nn_dense_points"] = k11["horse"]
 
     # K2: statistics of a seeded random correspondence set, as one row
     # (grid engine) and as 23 rows (fused path), from a non-identity state.
@@ -1363,6 +1405,7 @@ def phase_cli(tmp: str) -> dict:
     _add(total, _chunked_entry())
     _k5_bcast_loop()
     _add(total, _mxu_entry())
+    _add(total, _points_entry())
     _add(total, _bf16_path())
     _full_float32_under_tf32(tmp)
     _fixed_mode_nan()
@@ -1523,6 +1566,41 @@ def _mxu_entry() -> dict:
     say("path", case="nn_dense_mxu_entry", shapes="2903x2903,49152x3031", idx_equal_plain=True,
         idx_equal_k1_share=",".join(f"{float((got[k] == k1[k]).double().mean()):.6f}"
                                     for k in cases), launches=used)
+    return used
+
+
+def _points_entry() -> dict:
+    """K11 through its entry point, ``closest_points_and_targets_dense``,
+    at cow 2,903^2, horse 48,485^2 and the grid seed 49,152 x 3,031: the
+    indices K1's, the points bit-equal to ``model[idx]``.  No engine takes
+    it, as no JAX engine takes the ``with_points`` form."""
+    import torch
+
+    from icp_tpu_torch.engine.grid import _prepare_scene
+    from icp_tpu_torch.kernels.nn_dense import (
+        closest_point_indices_dense,
+        closest_points_and_targets_dense,
+    )
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    horse_ref = torch.tensor(_load("horse_ref.txt"), **f32)
+    horse_tr1 = torch.tensor(_load("horse_tr1.txt"), **f32)
+    cases = {"cow": (torch.tensor(_load("cow_tr1.txt"), **f32),
+                     torch.tensor(_load("cow_ref.txt"), **f32)),
+             "horse": (horse_tr1, horse_ref),
+             "horse_seed": (_prepare_scene(horse_tr1, 256)[0], horse_ref[::16])}
+    k1 = {k: closest_point_indices_dense(s, m) for k, (s, m) in cases.items()}
+    got, used = _counted(lambda: {k: closest_points_and_targets_dense(s, m)
+                                  for k, (s, m) in cases.items()})
+    for k, (s, m) in cases.items():
+        idx, y = got[k]
+        require(torch.equal(idx, k1[k]), f"nn_dense_points entry {k}: indices differ from K1")
+        require(torch.equal(y.view(torch.int32), m.contiguous()[idx.long()].view(torch.int32)),
+                f"nn_dense_points entry {k}: points differ from model[idx]")
+    require(used["nn_dense_points"] == len(cases) and used["nn_dense"] == 0,
+            f"nn_dense_points entry: K11 not taken ({used})")
+    say("path", case="nn_dense_points_entry", shapes="2903x2903,48485x48485,49152x3031",
+        idx_equal_k1=True, points_bit_equal_gather=True, launches=used)
     return used
 
 

@@ -1,4 +1,4 @@
-// K1 and K10: dense exact nearest neighbour — for every scene point the
+// K1, K10 and K11: dense exact nearest neighbour — for every scene point the
 // model index of the least distance, ties to the lowest index.
 //
 // K1 replaces icp_tpu/kernels/nn_pallas.py:99 _nn_kernel in its
@@ -51,6 +51,16 @@
 //  2. epilogue (a thread a point): writes the index and, when asked, the
 //     distance from the key (K10: plus |p|^2); the empty key gives index 0
 //     and +inf, as the plain version and the JAX kernel give for such rows.
+//
+// K11 replaces the same kernel's with_points form (nn_pallas.py:99-101,
+// :141-170, its third output at :239-243): the winning model point beside
+// the index.  On the TPU that gather is an exact one-hot matmul inside the
+// fold, so that no row-gather follows in HBM; here the fold stays K1's, and
+// the epilogue's thread that writes idx_out[i] also copies the winner's 12
+// bytes, model[3 idx .. 3 idx + 2], to y_out[3i .. 3i + 2]: a plain copy,
+// so y is model[idx] bit for bit (the empty key's index 0 gives model[0]).
+// What bounds it is K1's fold; the copy adds 12 bytes read and written a
+// scene point.  One pair a launch (nn_dense_points_launch), as JAX calls it.
 //
 // The pair axis (the counterpart of JAX's vmap over the pallas_call): a
 // launch takes B pairs of (n, 3) scenes and (m, 3) models laid out one
@@ -175,15 +185,25 @@ nn_dense_fold_kernel(const float* __restrict__ scene, int n, const float* __rest
 
 // add_pn: the expansion form's distance is |m|^2 - 2 p.m; |p|^2 goes back on.
 // A thread a point of all the pairs: keys, scene and outputs are (B, n)
-// in one run, and a key's index is already pair-local.
+// in one run, and a key's index is already pair-local.  y_out (K11, one
+// pair, or null): the winner's row of `model`, copied.
 __global__ void nn_dense_epilogue_kernel(const unsigned long long* __restrict__ keys,
                                          long long total, const float* __restrict__ scene,
                                          bool add_pn, int* __restrict__ idx_out,
-                                         float* __restrict__ d2_out) {
+                                         float* __restrict__ d2_out,
+                                         const float* __restrict__ model,
+                                         float* __restrict__ y_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const unsigned long long key = keys[i];
-  idx_out[i] = key == kEmpty ? 0 : static_cast<int>(static_cast<unsigned>(key));
+  const int idx = key == kEmpty ? 0 : static_cast<int>(static_cast<unsigned>(key));
+  idx_out[i] = idx;
+  if (y_out) {
+    const float* row = model + 3LL * idx;
+    y_out[3 * i] = row[0];
+    y_out[3 * i + 1] = row[1];
+    y_out[3 * i + 2] = row[2];
+  }
   if (!d2_out) return;
   if (key == kEmpty) {
     d2_out[i] = __int_as_float(0x7f800000);
@@ -218,23 +238,11 @@ bool valid(int pairs, int n, int m, int form) {
          (form == kDiff || form == kExpansion);
 }
 
-}  // namespace
-
-// The model rows of one chunk of the fold for a launch of `pairs` (n, m)
-// pairs of `form`.
-ICP_EXPORT int nn_dense_chunk_rows(int pairs, int n, int m, int form, int* chunk_rows) {
-  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
-  return chunk_rows_for(pairs, n, m, form, chunk_rows);
-}
-
-// `pairs` (n, 3) scenes and (m, 3) models, each laid out after the other;
-// form: 0 diff-squares (K1), 1 expansion (K10); keys: pairs * n 64-bit
-// words of scratch; idx_out (and d2_out, which may be null): pairs * n,
-// the indices pair-local.
-ICP_EXPORT int nn_dense_launch(const float* scene, int pairs, int n, const float* model, int m,
-                               int form, unsigned long long* keys, int* idx_out, float* d2_out,
-                               cudaStream_t stream) {
-  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+// The memset of the keys, the fold and the epilogue (y_out: K11's points,
+// one pair, or null).
+int launch(const float* scene, int pairs, int n, const float* model, int m, int form,
+           unsigned long long* keys, int* idx_out, float* d2_out, float* y_out,
+           cudaStream_t stream) {
   int chunk_rows = 0;
   int code = chunk_rows_for(pairs, n, m, form, &chunk_rows);
   if (code != 0) return code;
@@ -252,6 +260,36 @@ ICP_EXPORT int nn_dense_launch(const float* scene, int pairs, int n, const float
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   nn_dense_epilogue_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-      keys, total, scene, form == kExpansion, idx_out, d2_out);
+      keys, total, scene, form == kExpansion, idx_out, d2_out, model, y_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The model rows of one chunk of the fold for a launch of `pairs` (n, m)
+// pairs of `form`.
+ICP_EXPORT int nn_dense_chunk_rows(int pairs, int n, int m, int form, int* chunk_rows) {
+  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+  return chunk_rows_for(pairs, n, m, form, chunk_rows);
+}
+
+// `pairs` (n, 3) scenes and (m, 3) models, each laid out after the other;
+// form: 0 diff-squares (K1), 1 expansion (K10); keys: pairs * n 64-bit
+// words of scratch; idx_out (and d2_out, which may be null): pairs * n,
+// the indices pair-local.
+ICP_EXPORT int nn_dense_launch(const float* scene, int pairs, int n, const float* model, int m,
+                               int form, unsigned long long* keys, int* idx_out, float* d2_out,
+                               cudaStream_t stream) {
+  if (!valid(pairs, n, m, form)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(scene, pairs, n, model, m, form, keys, idx_out, d2_out, nullptr, stream);
+}
+
+// K11: an (n, 3) scene against an (m, 3) model in K1's diff-squares form;
+// keys: n 64-bit words of scratch; idx_out: n indices; y_out: (n, 3), the
+// winners' rows of the model.
+ICP_EXPORT int nn_dense_points_launch(const float* scene, int n, const float* model, int m,
+                                      unsigned long long* keys, int* idx_out, float* y_out,
+                                      cudaStream_t stream) {
+  if (!valid(1, n, m, kDiff) || !y_out) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(scene, 1, n, model, m, kDiff, keys, idx_out, nullptr, y_out, stream);
 }

@@ -1,4 +1,4 @@
-"""K1, K10 and K8: dense exact nearest neighbour (``csrc/nn_dense.cu``,
+"""K1, K10, K11 and K8: dense exact nearest neighbour (``csrc/nn_dense.cu``,
 ``csrc/nn_chunked.cu``).
 
 Port of ``icp_tpu/kernels/nn_pallas.py``: ``_nn_kernel`` in its two
@@ -20,6 +20,13 @@ and ``nn_chunked_plain`` are their plain torch versions, in scene blocks so the
 N x M matrix never exists beyond one block; the wrappers take them only for
 CPU tensors.  No engine takes K8 or K10, as no JAX engine takes the chunked
 or the ``"mxu"`` form: they are reached through ``distance_impl``.
+
+``closest_points_and_targets_dense`` is K11, ``_nn_kernel``'s
+``with_points`` form (JAX's ``closest_points_and_targets_pallas``): K1's
+index and the winning model point, copied by K1's epilogue (the TPU's
+one-hot gather matmul has no reason to exist on the card); its plain
+version is ``nn_dense_points_plain``.  No engine takes it, as no JAX engine
+takes that form.
 
 ``nn_dense_batched`` is K1 (K10) with a pair axis, the counterpart of JAX's
 ``vmap`` over the ``pallas_call``: B pairs of (N, 3) scenes and (M, 3)
@@ -281,3 +288,32 @@ def closest_point_indices_dense(scene: torch.Tensor, model: torch.Tensor, *,
     ``distance_impl`` as ``nn_dense``."""
     return nn_dense(scene.to(torch.float32).contiguous(),
                     model.to(torch.float32).contiguous(), distance_impl=distance_impl)
+
+
+def closest_points_and_targets_dense(scene: torch.Tensor, model: torch.Tensor):
+    """K11: ((N,) int32 nearest-model indices, (N, 3) float32 ``model[idx]``)
+    (clouds cast to contiguous float32), the indices K1's; on the card one
+    launch, whose epilogue copies each winner's row."""
+    scene = scene.to(torch.float32).contiguous()
+    model = model.to(torch.float32).contiguous()
+    _check_pair("closest_points_and_targets_dense", scene, model)
+    if scene.device.type == "cpu":
+        return nn_dense_points_plain(scene, model)
+    n = scene.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=scene.device)
+    y = torch.empty((n, 3), dtype=torch.float32, device=scene.device)
+    if n:
+        keys = torch.empty(n, dtype=torch.int64, device=scene.device)  # (d2, index)
+        code = _build.lib().nn_dense_points_launch(
+            scene.data_ptr(), n, model.data_ptr(), model.shape[0], keys.data_ptr(),
+            idx.data_ptr(), y.data_ptr(), _build.stream_ptr(scene))
+        _build.LAUNCHES["nn_dense_points"] += 1
+        _build.check(code, "nn_dense_points")
+    return idx, y
+
+
+def nn_dense_points_plain(scene: torch.Tensor, model: torch.Tensor):
+    """Plain version of K11: ``nn_dense_plain``'s index and ``model[idx]``
+    (a row with no finite distance: index 0, so ``model[0]``)."""
+    idx = nn_dense_plain(scene, model)
+    return idx, model[idx.long()]

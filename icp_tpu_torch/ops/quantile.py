@@ -3,11 +3,12 @@
 
 Trimmed ICP needs a per-iteration distance threshold tau with
 ``count(d2 <= tau) >= q * N``.  Two rounds of 32-bin histogram refinement
-bracket the quantile to ~1/1024 of the value range; tau is the upper edge
-of the first bin whose cumulative count covers the target, so the kept set
-is never smaller than asked.  The edges are written in JAX's operation
-order, so for the same ``d2`` and mask tau is bit-equal to JAX's in
-float32 and in float64.
+(JAX's defaults; ``rounds`` and ``bins`` set others, and so how finely tau
+is bracketed) bracket the quantile to ~1/1024 of the value range; tau is
+the upper edge of the first bin whose cumulative count covers the target,
+so the kept set is never smaller than asked.  The edges are written in
+JAX's operation order, so for the same ``d2`` and mask tau is bit-equal to
+JAX's in float32 and in float64.
 
 Where JAX compares every value with every edge (an (N, bins) array that
 XLA fuses away), this counts with ``torch.bucketize`` (each value's first
@@ -43,18 +44,18 @@ import functools
 import torch
 import torch.distributed as dist
 
-_ROUNDS = 2  # refinement rounds
-_BINS = 32  # bins a round
+_ROUNDS = 2  # refinement rounds (the default)
+_BINS = 32  # bins a round (the default)
 _SPREAD = 256  # copies of the bins the scatter-add spreads over
 
 
 @functools.lru_cache(maxsize=4)
-def _constants(n: int, dtype: torch.dtype, device: torch.device) -> tuple:
-    """What every quantile over n rows shares, built once for a loop: the
-    edge steps 1..bins, each row's offset into its copy of the bins, unit
-    row weights and the row count."""
-    steps = torch.arange(1, _BINS + 1, dtype=dtype, device=device)
-    spread = (torch.arange(n, device=device) % _SPREAD) * (_BINS + 1)
+def _constants(n: int, dtype: torch.dtype, device: torch.device, bins: int) -> tuple:
+    """What every quantile over n rows and ``bins`` bins shares, built once
+    for a loop: the edge steps 1..bins, each row's offset into its copy of
+    the bins, unit row weights and the row count."""
+    steps = torch.arange(1, bins + 1, dtype=dtype, device=device)
+    spread = (torch.arange(n, device=device) % _SPREAD) * (bins + 1)
     ones = torch.ones(n, dtype=dtype, device=device)
     return steps, spread, ones, torch.full((), n, dtype=dtype, device=device)
 
@@ -66,14 +67,15 @@ def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 
 
 def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None, *,
-                       group=None) -> torch.Tensor:
+                       group=None, rounds: int = _ROUNDS, bins: int = _BINS) -> torch.Tensor:
     """Approximate q-quantile (0-d tensor) of the (N,) values ``d2`` over
     the rows where ``w > 0`` (all rows when ``w`` is None); ``w`` weighs
     each row's count (0/1 masks in the engines).  ``group``: the process
     group whose ranks hold the other shards of the values (None: these
-    are all of them)."""
+    are all of them).  ``rounds`` refinements of ``bins`` bins each, as
+    JAX's."""
     dt, dev = d2.dtype, d2.device
-    steps, spread, ones, n_total = _constants(d2.shape[0], dt, dev)
+    steps, spread, ones, n_total = _constants(d2.shape[0], dt, dev, bins)
     wv = None if w is None else w.to(dt)
     masked = d2 if wv is None else torch.where(wv > 0, d2, 0.0)
     hi = masked.max() + 1e-12  # the scalar rounds to dt first, as JAX's asarray
@@ -84,14 +86,14 @@ def histogram_quantile(d2: torch.Tensor, q: float, w: torch.Tensor | None = None
         hi = _all_reduce(hi.reshape(1), group, dist.ReduceOp.MAX)[0]
         n_total = _all_reduce(n_total.reshape(1).clone(), group)[0]
     target = n_total * q
-    for _ in range(_ROUNDS):
-        edges = lo + (hi - lo) * steps / _BINS
+    for _ in range(rounds):
+        edges = lo + (hi - lo) * steps / bins
         # bin b holds the values whose first edge at or above them is b; a
         # value above every edge (or NaN) goes to the spare bin
-        slot = torch.where(torch.isnan(d2), _BINS, torch.bucketize(d2, edges))
-        cnt = torch.zeros(_SPREAD * (_BINS + 1), dtype=dt, device=dev).index_add_(
-            0, slot + spread, ones).view(_SPREAD, _BINS + 1).sum(0)
-        cnt = _all_reduce(cnt[:_BINS], group).cumsum(0)  # cnt[j]: weight of the values <= edges[j]
+        slot = torch.where(torch.isnan(d2), bins, torch.bucketize(d2, edges))
+        cnt = torch.zeros(_SPREAD * (bins + 1), dtype=dt, device=dev).index_add_(
+            0, slot + spread, ones).view(_SPREAD, bins + 1).sum(0)
+        cnt = _all_reduce(cnt[:bins], group).cumsum(0)  # cnt[j]: weight of the values <= edges[j]
         idx = (cnt >= target).to(torch.uint8).argmax().reshape(1)  # first covering bin
         lo = torch.where(idx > 0, edges.index_select(0, (idx - 1).clamp(min=0)), lo)[0]
         hi = edges.index_select(0, idx)[0]

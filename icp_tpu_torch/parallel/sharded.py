@@ -460,25 +460,14 @@ def reducer(group):
     return lambda *tensors: psum(tensors, group)
 
 
-@in_full_float32
-def gn_sharded(engine_name: str, model, scene, config: Optional[ICPConfig] = None, *,
-               model_normals=None, scene_normals=None, normal_k: int = 16,
-               eps: float = 1e-3, mesh: Optional[DeviceMesh] = None, trace: bool = False,
-               validate: bool = False):
-    """The sharded plane engines (``icp_point_to_plane_sharded``,
-    ``icp_symmetric_sharded``, ``icp_generalized_sharded``): normals
-    estimated on the whole clouds before sharding (K6 or K7 on the card),
-    then the ring fold with the model side rows (normals, or GICP's
-    covariances) riding the ring as payload and the scene's side rows
-    (normals or covariances) sharded with its points; the 6x6 normal
-    equations all-reduced, the solve replicated.  An NN method resolving
-    to ``"grid"`` runs ``sharded_grid.gn_sharded_grid``; ``validate``: the
-    dense path checks the inputs as the single-device engines do (JAX's
-    symmetric engine alone)."""
-    from icp_tpu_torch.engine.icp import _validate
+def plane_inputs(engine_name: str, model, scene, cfg: ICPConfig, mesh, model_normals,
+                 scene_normals, normal_k: int, eps: float):
+    """(mesh, device, model, scene, engine, side_of, model normals, scene
+    normals or None) of a sharded plane run: the clouds as ``prepared``
+    gives them and the normals each engine needs, those not given
+    estimated on the whole clouds before sharding (K6 or K7 on the card)."""
     from icp_tpu_torch.ops.normals import estimate_normals
 
-    cfg = config or ICPConfig()
     mesh, dev, model, scene = prepared(model, scene, cfg, mesh)
     engine, side_of = plane_engine(engine_name, eps)
     if model_normals is None:
@@ -487,11 +476,34 @@ def gn_sharded(engine_name: str, model, scene, config: Optional[ICPConfig] = Non
     if side_of is not None:
         scene_normals = (estimate_normals(scene, k=normal_k) if scene_normals is None
                          else as_points(scene_normals, cfg.dtype, dev))
-    if cfg.resolved_nn_method(dev.type, max(model.shape[0], scene.shape[0])) == "grid":
-        from icp_tpu_torch.parallel.sharded_grid import gn_sharded_grid
+    return mesh, dev, model, scene, engine, side_of, model_normals, scene_normals
 
-        return gn_sharded_grid(engine, side_of, model, model_normals, scene, scene_normals,
-                               cfg, mesh=mesh, trace=trace)
+
+@in_full_float32
+def gn_sharded(engine_name: str, model, scene, config: Optional[ICPConfig] = None, *,
+               model_normals=None, scene_normals=None, normal_k: int = 16,
+               eps: float = 1e-3, mesh: Optional[DeviceMesh] = None, trace: bool = False,
+               validate: bool = False):
+    """The sharded plane engines (``icp_point_to_plane_sharded``,
+    ``icp_symmetric_sharded``, ``icp_generalized_sharded``): normals
+    estimated on the whole clouds before sharding (``plane_inputs``),
+    then the ring fold with the model side rows (normals, or GICP's
+    covariances) riding the ring as payload and the scene's side rows
+    (normals or covariances) sharded with its points; the 6x6 normal
+    equations all-reduced, the solve replicated.  An NN method resolving
+    to ``"grid"`` runs the grid loop of ``parallel/sharded_grid.py``;
+    ``validate``: the dense path checks the inputs as the single-device
+    engines do (JAX's symmetric engine alone)."""
+    from icp_tpu_torch.engine.icp import _validate
+
+    cfg = config or ICPConfig()
+    mesh, dev, model, scene, engine, side_of, model_normals, scene_normals = plane_inputs(
+        engine_name, model, scene, cfg, mesh, model_normals, scene_normals, normal_k, eps)
+    if cfg.resolved_nn_method(dev.type, max(model.shape[0], scene.shape[0])) == "grid":
+        from icp_tpu_torch.parallel.sharded_grid import _gn_grid_loop
+
+        return _gn_grid_loop(engine, side_of, model, model_normals, scene, scene_normals,
+                             cfg, mesh=mesh, trace=trace)
     if validate:
         _validate(model, scene, cfg)
     axis = Axis(mesh, mesh.mesh_dim_names[0])

@@ -20,8 +20,11 @@ place of the dense search:
     point of the rank's own model shard, which bounds the global nearest
     distance too).
 
-``gn_sharded_grid`` is the plane engines' loop: the model normals ride K4's
+``_gn_grid_loop`` is the plane engines' loop: the model normals ride K4's
 payload slot, the scene's side rows are kd-permuted with its points.
+``gn_sharded_grid`` is its public entry, JAX's signature: the normals
+estimated as ``sharded.gn_sharded`` estimates them, then the grid loop
+whatever ``config.nn_method`` says.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from icp_tpu_torch.parallel.sharded import (
     _fold,
     check_trace_bound,
     gathered,
+    plane_inputs,
     ppermute,
     prepared,
     reducer,
@@ -179,10 +183,10 @@ def icp_sharded_grid(model, scene, config: Optional[ICPConfig] = None, *,
     return gathered(run_loop(step, state, loop, dt, trace), sh.axis, n, trace, sh.inv_slots)
 
 
-def gn_sharded_grid(engine, side_of, model, model_normals, scene, scene_normals,
-                    cfg: ICPConfig, *, mesh: DeviceMesh, trace: bool = False):
-    """The sharded grid loop of a plane engine (``sharded.gn_sharded``
-    dispatches here): the model normals ride K4's payload slot and the ring,
+def _gn_grid_loop(engine, side_of, model, model_normals, scene, scene_normals,
+                  cfg: ICPConfig, *, mesh: DeviceMesh, trace: bool = False):
+    """The sharded grid loop of a plane engine (``sharded.gn_sharded`` and
+    ``gn_sharded_grid`` run it): the model normals ride K4's payload slot and the ring,
     the winning (point, normal) comes out of the fold; ``side_of`` makes
     the scene's side rows (normals, covariances) of its normals, kd-permuted
     with the points (zero normals, so GICP's identity covariance, on the kd
@@ -208,3 +212,24 @@ def gn_sharded_grid(engine, side_of, model, model_normals, scene, scene_normals,
     state = dict(p=sh.p0, side=side, u=sh.u0, total=identity_similarity(dt, dev))
     return gathered(run_loop(step, state, loop, dt, trace, engine), sh.axis, n, trace,
                     sh.inv_slots)
+
+
+@in_full_float32
+def gn_sharded_grid(model, scene, config: Optional[ICPConfig] = None, *, engine: str,
+                    model_normals=None, scene_normals=None, normal_k: int = 16,
+                    eps: float = 1e-3, mesh: Optional[DeviceMesh] = None,
+                    trace: bool = False):
+    """Sharded grid-pruned point-to-plane / GICP / symmetric ICP
+    (``engine``: ``"point_to_plane"``, ``"gicp"`` or ``"symmetric"``), the
+    loop ``icp_point_to_plane_sharded``, ``icp_generalized_sharded`` and
+    ``icp_symmetric_sharded`` run when the NN method resolves to
+    ``"grid"``; called directly it runs whatever ``config.nn_method`` says.
+    Missing normals are estimated on the whole clouds (the scene's only
+    for ``"symmetric"`` and ``"gicp"``), GICP's disk covariances of the
+    normals with ``eps``.  ``trace=True`` returns an ``ICPTrace`` with the
+    per-iteration errors."""
+    cfg = config or ICPConfig()
+    mesh, _, model, scene, eng, side_of, model_normals, scene_normals = plane_inputs(
+        engine, model, scene, cfg, mesh, model_normals, scene_normals, normal_k, eps)
+    return _gn_grid_loop(eng, side_of, model, model_normals, scene, scene_normals, cfg,
+                         mesh=mesh, trace=trace)

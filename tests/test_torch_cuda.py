@@ -1,4 +1,4 @@
-"""K1-K10 on the card against their plain versions, K2's fixed mode, K2's
+"""K1-K11 on the card against their plain versions, K2's fixed mode, K2's
 and K3's guard status word, the trimmed loop's launches, and the symmetric
 and GICP grid loops against their dense loops (``cuda`` marker).
 
@@ -101,6 +101,34 @@ def test_nn_dense_mxu_kernel_matches_plain(dev, case):
         assert chunk < m and not bool(((ik >= chunk) & (ik < chunk + r)).any())
     if case == "no_finite":
         assert int(ik[7]) == 0 and float(dk[7]) == float("inf")
+
+
+@pytest.mark.parametrize("case", ["n1_m1", "ragged", "duplicates", "nan_row", "2903x2903"])
+def test_nn_dense_points_kernel_matches_plain(dev, case):
+    """K11 bit-equal to its plain version: indices K1's, ``y`` the model's
+    rows bit for bit; ``duplicates``: the first rows repeated one chunk
+    later (the lower copy wins across the merge); ``nan_row``: a NaN scene
+    row gets index 0 and model[0]; one launch a call."""
+    n, m = {"n1_m1": (1, 1), "ragged": (4099, 1000), "duplicates": (700, 3001),
+            "nan_row": (300, 2049), "2903x2903": (2903, 2903)}[case]
+    s, mo = _cloud(n + 11, n).to(dev), _cloud(m + 12, m, 2.0).to(dev)
+    if case == "duplicates":
+        chunk = nn_dense.chunk_rows(n, m)
+        r = max(0, min(chunk, m - chunk))
+        mo[chunk:chunk + r] = mo[:r].clone()
+    if case == "nan_row":
+        s[5, 1] = float("nan")
+    before = dict(_build.LAUNCHES)
+    ik, yk = nn_dense.closest_points_and_targets_dense(s, mo)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nn_dense_points"] == before["nn_dense_points"] + 1
+    assert _build.LAUNCHES["nn_dense"] == before["nn_dense"]
+    ip, yp = nn_dense.nn_dense_points_plain(s, mo)
+    assert torch.equal(ik, ip) and torch.equal(ik, nn_dense.nn_dense(s, mo))
+    assert torch.equal(yk.view(torch.int32), yp.view(torch.int32))
+    assert torch.equal(yk.view(torch.int32), mo[ik.long()].view(torch.int32))
+    if case == "nan_row":
+        assert int(ik[5]) == 0 and torch.equal(yk[5], mo[0])
 
 
 def test_qcp_step_kernel_fixed_mode_runs_to_the_bound(dev):

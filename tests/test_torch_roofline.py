@@ -42,6 +42,8 @@ def test_h100_spec_by_device_name_and_none_elsewhere():
     ("K1 on the 1M seed", lambda: bound(PAIR_OPS * 1_015_808 * 62_500, 0), 7.5807, 4),
     ("K3 at cow", lambda: bound(fused_ops(COW, COW), 12 * COW + 16 * COW), 0.00075, 5),
     ("K9 at horse", lambda: bf16_bound(HORSE * HORSE, 40 * HORSE), 0.1053, 4),
+    ("K11 at horse", lambda: bound(PAIR_OPS * HORSE * HORSE, 12 * HORSE + 12 * HORSE
+                                   + 4 * HORSE + 12 * HORSE), 0.2807, 4),
 ])
 def test_bounds_pinned_to_the_kernel_table(label, got, want, digits):
     ms, by = got()

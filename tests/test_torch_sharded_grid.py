@@ -8,7 +8,10 @@ with its kernels in interpret mode.  Held as ``tests/test_sharded_grid.py``
 holds them: the same iterations and float64 points within atol 1e-9 (the
 grid emits float32 matches in both packages), the grid within 1e-7 of the
 dense ring (float64 matches there: ~1e-9 an iteration of drift), and the
-plane engines' traces within rtol 1e-6.
+plane engines' traces within rtol 1e-6.  The public ``gn_sharded_grid``
+(JAX's signature, suite ``gn_grid``) is held to JAX's at one and two ranks
+alike, its config's NN method ``"bcast"``: both run the grid loop whatever
+it says.
 """
 
 import jax
@@ -22,7 +25,15 @@ from icp_tpu.engine.point_to_plane import icp_point_to_plane_sharded as j_p2pl_s
 from icp_tpu.engine.symmetric import icp_symmetric_sharded as j_sym_sharded
 from icp_tpu.parallel.mesh import make_mesh as j_make_mesh
 from icp_tpu.parallel.sharded import icp_sharded as j_icp_sharded
-from tests.torch_dist_worker import cow_pair, odd_case, outlier_case, run_ranks, surface_case
+from icp_tpu.parallel.sharded_grid import gn_sharded_grid as j_gn_sharded_grid
+from tests.torch_dist_worker import (
+    GN_GRID_ENGINES,
+    cow_pair,
+    odd_case,
+    outlier_case,
+    run_ranks,
+    surface_case,
+)
 
 WORLD = 2
 GRID = dict(nn_method="grid", grid_model_tile=128, grid_scene_tile=64)
@@ -140,3 +151,38 @@ def test_sharded_grid_plane_engines_match_jax(got, jmesh, engine):
         want = j_gicp_sharded(model, scene, cfg, model_normals=mn, scene_normals=sn,
                               mesh=jmesh, trace=trace)
     _same(got[engine], want, 1e-9, trace=trace, trace_rtol=1e-6)
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["world1", "world2"])
+def gn_world(request, tmp_path_factory):
+    """(world size, each rank's results) of the ``gn_grid`` suite."""
+    world = request.param
+    return world, run_ranks("gn_grid", world, tmp_path_factory.mktemp(f"gn_grid{world}"))
+
+
+@pytest.mark.parametrize("engine", GN_GRID_ENGINES)
+def test_public_gn_sharded_grid_matches_jax(gn_world, engine):
+    """JAX's ``gn_sharded_grid(model, scene, config, *, engine=...)`` on as
+    many devices as the port's ranks, the same normals: the same
+    iterations, points within 1e-9, traces within rtol 1e-6; every rank
+    returns the same result."""
+    world, ranks = gn_world
+    got = ranks[0]
+    model, scene = surface_case(8, 1100, 800)
+    mn, sn = (jnp.asarray(got["normals"][k]) for k in ("model", "scene"))
+    cfg = _jcfg(max_iter=25, validate_inputs=False, threshold=1e-12, nn_method="bcast")
+    want = j_gn_sharded_grid(model, scene, cfg, engine=engine, model_normals=mn,
+                             scene_normals=sn, mesh=j_make_mesh(jax.devices()[:world]),
+                             trace=True)
+    _same(got[engine], want, 1e-9, trace=True, trace_rtol=1e-6)
+    for rank in ranks[1:]:
+        for k, v in got[engine].items():
+            np.testing.assert_array_equal(rank[engine][k], v, err_msg=f"{engine}.{k}")
+
+
+def test_public_gn_sharded_grid_estimates_missing_normals(gn_world):
+    """Normals left out are the port's ``estimate_normals`` of each whole
+    cloud: the run equals the one given them, bit for bit."""
+    got = gn_world[1][0]
+    for k, v in got["estimated_given"].items():
+        np.testing.assert_array_equal(got["estimated"][k], v, err_msg=k)

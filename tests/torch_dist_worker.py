@@ -289,6 +289,40 @@ def suite_grid() -> dict:
     return out
 
 
+GN_GRID_ENGINES = ("point_to_plane", "symmetric", "gicp")
+
+
+def suite_gn_grid() -> dict:
+    """The public ``gn_sharded_grid`` (JAX's signature) for the three plane
+    engines at this group's size, its config's NN method ``"bcast"`` (the
+    entry runs the grid loop whatever it says), the normals given; and the
+    symmetric engine with both clouds' normals left to it, beside the same
+    call given the port's ``estimate_normals`` of each cloud."""
+    import torch
+
+    from icp_tpu_torch import make_mesh
+    from icp_tpu_torch.ops.normals import estimate_normals
+    from icp_tpu_torch.parallel.sharded_grid import gn_sharded_grid
+
+    mesh = make_mesh("cpu")
+    model, scene = surface_case(8, 1100, 800)
+    mn = estimate_normals(torch.as_tensor(model), k=12, device="cpu")
+    sn = estimate_normals(torch.as_tensor(scene), k=12, device="cpu")
+    cfg = _cfg(max_iter=25, validate_inputs=False, threshold=1e-12, grid_model_tile=128,
+               grid_scene_tile=64)
+    out = {"normals": dict(model=mn.numpy(), scene=sn.numpy())}
+    for engine in GN_GRID_ENGINES:
+        out[engine] = _fields(gn_sharded_grid(model, scene, cfg, engine=engine, model_normals=mn,
+                                              scene_normals=sn, mesh=mesh, trace=True))
+    out["estimated"] = _fields(gn_sharded_grid(model, scene, cfg, engine="symmetric",
+                                               normal_k=12, mesh=mesh))
+    out["estimated_given"] = _fields(gn_sharded_grid(
+        model, scene, cfg, engine="symmetric", mesh=mesh,
+        model_normals=estimate_normals(torch.as_tensor(model), k=12, device="cpu"),
+        scene_normals=estimate_normals(torch.as_tensor(scene), k=12, device="cpu")))
+    return out
+
+
 def suite_distributed() -> dict:
     """The dense ring over two processes, and the bundle adjustment."""
     import torch
@@ -337,7 +371,7 @@ def suite_bench() -> dict:
 
 
 SUITES = {"sharded": suite_sharded, "grid": suite_grid, "distributed": suite_distributed,
-          "bench": suite_bench}
+          "bench": suite_bench, "gn_grid": suite_gn_grid}
 
 
 # ---------------------------------------------------------------------------
