@@ -59,7 +59,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``qcp_fused`` step with the bcast NN on cow (one K5 launch an
      iteration, its device launches an iteration and ms/iter); the
      bf16 prefilter (K9) through ``icp_symmetric`` with ``nn_method="bf16"``
-     on a seeded surface and on cow_tr1.  The launch counts of each run are
+     on a seeded surface and on cow_tr1; the CLI's other flags
+     (``FLAG_CASES``: ``--no-scale``, ``--mse``, ``--dtype float64``,
+     ``--threshold 1e-3`` and cow_tr2 ``--no-scale --mse`` on K3,
+     ``--solver eigh|qcp|kabsch`` on K1 with the solve in torch, ``--nn
+     matmul`` with K5, ``--nn grid`` on K1's seed, K4 and K2, and
+     ``nn_method="bf16"`` through ``icp`` on K9 and K5) against the JAX
+     CLI's runs (``tests/fixtures/torch_flags/``), each with its path's
+     launch counts; horse_tr1 3 with ``--no-scale`` and with ``--mse`` on
+     the grid path against the port's ``--nn pallas`` run; ``nb_iter`` -3
+     (no launch, the scene written) and a refused run mode after an
+     unopenable file (exit 2).  The launch counts of each run are
      read with the counts set to 0 just before it.  Then two repairs: the
      cow_tr1 CLI case and an ``icp_symmetric`` cow_tr1 run under the
      caller's ``torch.set_float32_matmul_precision("high")`` (same
@@ -85,7 +95,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K3's status words bit-equal to their plain versions; resume —
      ``icp_resumable`` killed after one chunk of 3 and resumed, bit-equal
      to the uninterrupted chunked run; metrics — the CLI's ``--metrics
-     --metrics-ops`` on cow and horse;
+     --metrics-ops`` on cow and horse; the quantile — a trimmed cow_tr1 run
+     with ``histogram_quantile(rounds=3, bins=64)`` against the same run on
+     the CPU;
   6. slam (``[slam]`` lines): ``icp_batched`` on cow and cow moved by
      seeded similarities, 10 iterations: bcast/eigh (B = 8), bcast/qcp_fused
      (K5), pallas/eigh (K1) and bf16/eigh and bf16/qcp_fused (K9, K5) at
@@ -226,6 +238,39 @@ PLANE_CASES = {
 # the engines that estimate normals of both clouds
 BOTH_NORMALS = ("symmetric", "gicp")
 TRACE_RTOL = 1e-2  # on entries > 1e-6: float32 coordinates, see ROADMAP C6
+# The CLI's other flags against the JAX CLI's runs on the CPU
+# (tests/fixtures/torch_flags/: cow_ref.txt against the scene at nb_iter
+# FLAG_NB_ITER): case -> (scene, flags, iterations, trace rtol on entries >
+# 1e-6, output atol, the path the card takes).  Paths: "fused" K3 alone,
+# "pipeline" K1 then the solver in torch, "k5" the torch NN then K5, "grid"
+# K1's seed, K4 and K2, "bf16" K9 then K5.  --nn bf16 is in neither CLI: that
+# case runs _bf16_cli, the CLI's steps around icp(..., trace=True).
+FLAG_NB_ITER = 10
+FLAG_CASES = {
+    # K3's float32 expansion-form distance cannot order two neighbours whose
+    # squared distances differ by < 8.9e-7: at iteration 3 three rows take
+    # the other one, and iteration 5's 1.1e-5 (the trace's smallest entry
+    # above 1e-6) lands 0.109 off JAX's bcast/eigh run in K3's plain version
+    # on the CPU (1.17968e-5 against 1.06386e-5), where JAX's own
+    # pallas/qcp_fused run on the CPU lands 0.138 off (1.21103e-5)
+    "no_scale": ("cow_tr1", ["--no-scale"], 7, 0.15, 1e-5, "fused"),
+    "mse": ("cow_tr1", ["--mse"], 6, TRACE_RTOL, 1e-5, "fused"),
+    # K3 casts both clouds to float32: float32 coordinates, float64 sums
+    "float64": ("cow_tr1", ["--dtype", "float64"], 7, TRACE_RTOL, 1e-5, "fused"),
+    # stops at 7.2e-4, where the CPU pair is already 7e-5 apart
+    "threshold_1e-3": ("cow_tr1", ["--threshold", "1e-3"], 5, TRACE_RTOL, 1e-4, "fused"),
+    "solver_eigh": ("cow_tr1", ["--solver", "eigh"], 7, TRACE_RTOL, 1e-5, "pipeline"),
+    "solver_qcp": ("cow_tr1", ["--solver", "qcp"], 7, TRACE_RTOL, 1e-5, "pipeline"),
+    "solver_kabsch": ("cow_tr1", ["--solver", "kabsch"], 7, TRACE_RTOL, 1e-5, "pipeline"),
+    "nn_matmul": ("cow_tr1", ["--nn", "matmul"], 7, TRACE_RTOL, 1e-5, "k5"),
+    "nn_grid": ("cow_tr1", ["--nn", "grid"], 7, TRACE_RTOL, 1e-5, "grid"),
+    "nn_bf16": ("cow_tr1", ["--nn", "bf16"], 10, TRACE_RTOL, 1e-5, "bf16"),
+    "cow_tr2_no_scale_mse": ("cow_tr2", ["--no-scale", "--mse"], 10, TRACE_RTOL, 1e-5, "fused"),
+}
+# horse_tr1 at nb_iter 3 on the grid path (K1's seed, K4, K2 with
+# with_scale=0 / err_factor=1.0), held to the port's own --nn pallas run
+# of the same flags (K1 + K2, exact NN): flags -> label
+HORSE_FLAG_CASES = {("--no-scale",): "horse_tr1_no_scale", ("--mse",): "horse_tr1_mse"}
 NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
 FPFH_K = 64  # the neighbours fpfh_features fetches: max(k + 1, orient_k = 64)
 BUNNY = ["bun000", "bun045", "bun180", "bun270", "bun315"]
@@ -1318,20 +1363,50 @@ def _golden(path):
         return [float(e) for _, e in _TRACE_RE.findall(f.read())]
 
 
-def _run_cli(args: list[str]):
+def _bf16_cli(argv: list[str]) -> int:
+    """The CLI's steps with ``nn_method="bf16"``, which neither CLI offers
+    (the fixture's ``BF16_RUN`` in ``scripts/make_torch_fixtures.py``): the
+    loads, ``icp(..., trace=True)``, the ``[ICP]`` lines and the output."""
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.io.csv import load_matrix, write_matrix
+
+    ap = argparse.ArgumentParser()
+    for name in ("ref", "scene", "nb_iter"):
+        ap.add_argument(name)
+    for flag in ("--nn", "--output", "--device"):
+        ap.add_argument(flag)
+    ap.add_argument("--solver", default="auto")
+    a = ap.parse_args(argv)
+    model, scene = load_matrix(a.ref), load_matrix(a.scene)
+    tr = icp(model, scene, ICPConfig(max_iter=int(a.nb_iter), nn_method=a.nn, solver=a.solver),
+             trace=True, device=a.device)
+    for i, e in enumerate(tr.errs[:int(tr.result.iters)].tolist()):
+        print(f"[ICP] iteration number {i} | error value = {e:g}", file=sys.stderr)
+    write_matrix(tr.result.points.cpu().numpy(), a.output)
+    return 0
+
+
+def _run_cli(args: list[str], device: str = "cuda"):
     """(exit code, trace, stderr, seconds, launches) of one CLI run on the
-    card, the launch counts set to 0 just before it and read just after."""
+    card (or ``device``), the launch counts set to 0 just before it and read
+    just after; an exit through ``sys.exit`` (an unopenable file) gives its
+    code."""
     import torch
 
     from icp_tpu_torch.engine.cli import main as cli_main
     from icp_tpu_torch.kernels import _build
 
+    entry = _bf16_cli if "bf16" in args else cli_main
     _build.reset_counts()
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = cli_main([*args, "--device", "cuda"])
-    torch.cuda.synchronize()
+        try:
+            rc = entry([*args, "--device", device])
+        except SystemExit as e:
+            rc = e.code
+    if device == "cuda":
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     used = dict(_build.LAUNCHES)
     got = [float(e) for _, e in _TRACE_RE.findall(err.getvalue())]
@@ -1356,13 +1431,32 @@ def _check_output(label, out_path, gold_path, atol):
     return off
 
 
-def _check_trace(label, got, want, want_iters):
+def _check_trace(label, got, want, want_iters, rtol=TRACE_RTOL):
     require(len(got) == want_iters == len(want),
             f"cli {label}: {len(got)} iterations, reference {len(want)}")
     big = [(g, w) for g, w in zip(got, want) if w > 1e-6]
     worst = max(abs(g - w) / w for g, w in big)
-    require(worst <= TRACE_RTOL, f"cli {label}: trace off by {worst:.3g} relative")
+    require(worst <= rtol, f"cli {label}: trace off by {worst:.3g} relative")
     return worst
+
+
+def flag_case_args(case: str, out_path: str, root: str = ROOT) -> list[str]:
+    """The CLI arguments of a ``FLAG_CASES`` case (clouds under ``root``)."""
+    scene, flags = FLAG_CASES[case][:2]
+    return [os.path.join(root, "data", "cow_ref.txt"), os.path.join(root, "data", f"{scene}.txt"),
+            str(FLAG_NB_ITER), *flags, "--output", out_path]
+
+
+def hold_flag_case(case: str, rc, got: list, err: str, out_path: str):
+    """(trace's relative gap, output's absolute gap) of a ``FLAG_CASES``
+    run against its JAX fixture, within the case's tolerances."""
+    _, _, want_iters, rtol, atol, _ = FLAG_CASES[case]
+    fixdir = os.path.join(FIXTURES, "torch_flags")
+    require(rc == 0, f"cli {case}: exit {rc}\n{err}")
+    worst = _check_trace(case, got, _golden(os.path.join(fixdir, f"{case}_stderr.txt")),
+                         want_iters, rtol)
+    off = _check_output(case, out_path, os.path.join(fixdir, f"{case}_output.txt"), atol)
+    return worst, off
 
 
 def _add(total: dict, used: dict) -> None:
@@ -1400,6 +1494,7 @@ def phase_cli(tmp: str) -> dict:
         say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
 
+    _add(total, _flag_cases(tmp))
     for engine, (folder, short, pairs) in PLANE_CASES.items():
         _add(total, _plane_engine_cli(tmp, engine, folder, short, pairs))
     _add(total, _chunked_entry())
@@ -1409,6 +1504,89 @@ def phase_cli(tmp: str) -> dict:
     _add(total, _bf16_path())
     _full_float32_under_tf32(tmp)
     _fixed_mode_nan()
+    return total
+
+
+def _flag_path_taken(case: str, path: str, iters: int, used: dict) -> None:
+    """The launches that prove a flag case's path on the card: the loops
+    that keep their state on the card launch whole chunks (``_launched``),
+    those that solve in torch read the done flag each iteration."""
+    launched = _launched(iters, FLAG_NB_ITER)
+    want = {
+        "fused": used["icp_fused"] == launched and used["qcp_step"] == 0
+        and used["nn_dense"] == 0,
+        "pipeline": used["nn_dense"] == iters and used["icp_fused"] == 0
+        and used["qcp_step"] == 0 and used["qcp_rotation"] == 0,
+        "k5": used["qcp_rotation"] == iters and used["nn_dense"] == 0 and used["icp_fused"] == 0,
+        "grid": used["nn_dense"] == 1 and used["nn_grid"] == used["qcp_step"] == launched
+        and used["icp_fused"] == 0,
+        "bf16": used["nn_bf16"] == used["qcp_rotation"] == iters and used["nn_dense"] == 0
+        and used["icp_fused"] == 0,
+    }[path]
+    require(want, f"cli {case}: {path} path not taken ({used}, {iters} iterations)")
+
+
+def _flag_cases(tmp: str) -> dict:
+    """The CLI's other flags on the card: each ``FLAG_CASES`` case against
+    JAX's run, the horse cases against the port's own dense run, and the two
+    repaired CLI faults (C1: a refused run mode after an unopenable file
+    exits 2; C2: a negative ``nb_iter`` runs nothing and writes the scene)."""
+    import numpy as np
+
+    from icp_tpu_torch.io.csv import load_matrix
+
+    total = {}
+    t_all = time.perf_counter()
+    for case, (_, _, _, _, _, path) in FLAG_CASES.items():
+        out_path = os.path.join(tmp, f"flags_{case}_output.txt")
+        rc, got, err, seconds, used = _run_cli(flag_case_args(case, out_path))
+        worst, off = hold_flag_case(case, rc, got, err, out_path)
+        _flag_path_taken(case, path, len(got), used)
+        _add(total, used)
+        say("cli", case=f"flags_{case}", path=path, iters=len(got),
+            trace_max_rel_err=f"{worst:.3e}", output_max_abs_err=f"{off:.3e}",
+            seconds=f"{seconds:.3f}", launches=used)
+
+    horse = [os.path.join(ROOT, "data", f) for f in ("horse_ref.txt", "horse_tr1.txt")]
+    for flags, label in HORSE_FLAG_CASES.items():
+        runs = {}
+        for nn in ("auto", "pallas"):
+            out_path = os.path.join(tmp, f"{label}_{nn}_output.txt")
+            rc, got, err, seconds, used = _run_cli(
+                [*horse, "3", *flags, "--nn", nn, "--output", out_path])
+            require(rc == 0, f"cli {label} --nn {nn}: exit {rc}\n{err}")
+            runs[nn] = (got, seconds, used, out_path)
+            _add(total, used)
+        (got, seconds, used, out_path), (dense, _, dused, dense_path) = runs["auto"], runs["pallas"]
+        launched = _launched(len(got), 3)
+        require(used["nn_dense"] == 1 and used["nn_grid"] == used["qcp_step"] == launched
+                and used["icp_fused"] == 0, f"cli {label}: grid path not taken ({used})")
+        require(dused["nn_dense"] == dused["qcp_step"] == _launched(len(dense), 3)
+                and dused["nn_grid"] == 0, f"cli {label} --nn pallas: K1 + K2 not taken ({dused})")
+        worst = _check_trace(label, got, dense, len(dense))
+        off = _check_output(label, out_path, dense_path, 2e-6)
+        say("cli", case=f"flags_{label}", path="grid", iters=len(got),
+            trace=",".join(f"{e:.6g}" for e in got), trace_max_rel_err_vs_dense=f"{worst:.3e}",
+            output_max_abs_err_vs_dense=f"{off:.3e}", seconds=f"{seconds:.3f}",
+            launches=used, dense_launches=dused)
+
+    cow = [os.path.join(ROOT, "data", f) for f in ("cow_ref.txt", "cow_tr1.txt")]
+    out_path = os.path.join(tmp, "flags_negative_output.txt")
+    rc, got, err, seconds, used = _run_cli([*cow, "-3", "--output", out_path])
+    require(rc == 0 and not got and not any(used.values()),
+            f"cli nb_iter -3: exit {rc}, {len(got)} iterations, launches {used}\n{err}")
+    with contextlib.redirect_stderr(io.StringIO()):
+        moved = float(np.abs(load_matrix(out_path) - load_matrix(cow[1])).max())
+    require(moved == 0.0, f"cli nb_iter -3: the scene moved by {moved:.3g}")
+    say("cli", case="flags_nb_iter_negative", rc=rc, iters=0, scene_moved=moved, launches=used)
+    missing = os.path.join(tmp, "nope.txt")
+    rc, _, err, _, used = _run_cli([cow[0], missing, "5", "--sharded", "--metrics",
+                                    os.path.join(tmp, "m.json")])
+    require(rc == 2 and f"[load] {missing} could not be opened" in err
+            and "cannot be combined" not in err, f"cli refused run mode, missing file: "
+            f"exit {rc}\n{err}")
+    say("cli", case="flags_refusal_after_load", rc=rc, launches=used)
+    say("cli", case="flags_total", seconds=f"{time.perf_counter() - t_all:.3f}")
     return total
 
 
@@ -2036,12 +2214,52 @@ def _features_metrics(tmp: str) -> dict:
     return total
 
 
+def _features_quantile_params() -> dict:
+    """``histogram_quantile(rounds=3, bins=64)`` as the trim's quantile in a
+    trimmed cow_tr1 run on the pipeline (K1 + K2), held to the same run on
+    the CPU (the same iterations, points within 1e-5)."""
+    from unittest import mock
+
+    import icp_tpu_torch.engine.icp as engine_icp
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.ops.quantile import histogram_quantile
+
+    calls = []
+
+    def quantile(*args, **kwargs):
+        calls.append(args[0].device.type)
+        return histogram_quantile(*args, rounds=3, bins=64, **kwargs)
+
+    model, scene = _load("cow_ref.txt"), _load("cow_tr1.txt")
+    cfg = ICPConfig(max_iter=30, trim_fraction=0.1, nn_method="pallas", solver="qcp_fused")
+    with mock.patch.object(engine_icp, "histogram_quantile", quantile):
+        card, used = _counted(lambda: icp(model, scene, cfg, trace=True))
+        cpu = icp(model, scene, cfg, trace=True, device="cpu")
+    default = icp(model, scene, cfg, trace=True)
+    n, n_cpu = int(card.result.iters), int(cpu.result.iters)
+    launched = _launched(n, 30)
+    off = max_abs(card.result.points.cpu(), cpu.result.points)
+    require(n == n_cpu and off <= 1e-5 and calls.count("cuda") == launched,
+            f"features quantile rounds=3 bins=64: {n} iterations on the card, {n_cpu} on the "
+            f"CPU, points {off:.3g} apart, {calls.count('cuda')} card calls")
+    require(used["nn_dense"] == used["qcp_step"] == launched and used["icp_fused"] == 0,
+            f"features quantile rounds=3 bins=64: not the pipeline ({used})")
+    say("features", case="trim_quantile_rounds3_bins64_cow_tr1", iters=n, cpu_iters=n_cpu,
+        default_params_iters=int(default.result.iters),
+        trace=",".join(f"{e:.6g}" for e in card.errs[:n].tolist()),
+        trace_max_abs_err_vs_cpu=f"{max_abs(card.errs[:n].cpu(), cpu.errs[:n]):.3e}",
+        trace_max_abs_diff_vs_default_params=f"{max_abs(card.errs[:n], default.errs[:n]):.3e}",
+        points_max_abs_err_vs_cpu=f"{off:.3e}", launches=used)
+    return used
+
+
 def phase_features(tmp: str) -> dict:
-    """Trim, bucket padding, the device guard, resume and run metrics;
-    returns the launches of every run."""
+    """Trim, bucket padding, the device guard, resume, run metrics and the
+    quantile's parameters; returns the launches of every run."""
     total = {}
     for fn in (lambda: _features_trim(tmp), _features_bucket, _features_guard,
-               lambda: _features_resume(tmp), lambda: _features_metrics(tmp)):
+               lambda: _features_resume(tmp), lambda: _features_metrics(tmp),
+               _features_quantile_params):
         _add(total, fn())
     return total
 

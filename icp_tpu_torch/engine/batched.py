@@ -245,6 +245,7 @@ def icp_batched(models, scenes, *, n_iters: int, solver: str = "eigh",
     solver = cfg.resolved_solver(dev.type)
     kw = dict(with_scale=with_scale, reference_compat=reference_compat,
               trim_fraction=trim_fraction)
+    n_iters = max(int(n_iters), 0)  # a negative count runs no iteration
     if nn_method == "pallas" and solver == "qcp_fused":
         return _icp_batched_kernels(models, scenes, n_iters=n_iters, s_n=s_n, m_n=m_n, **kw)
     if nn_method in _BATCHED_NN and solver in _BATCHED_SOLVERS:

@@ -134,10 +134,6 @@ def main(argv=None) -> int:
         print("Usage: icp-torch [path_to_ref_cloud] [path_to_transform_cloud] [nb_iter]")
         return -1
     args = build_parser().parse_args(argv)
-    refused = _run_mode_error(args)
-    if refused:
-        print(refused, file=sys.stderr)
-        return -1
 
     import torch
 
@@ -162,6 +158,11 @@ def main(argv=None) -> int:
         reference_compat=not args.mse,
         trim_fraction=args.trim,
     )
+    # after the loads, as JAX's CLI: an unopenable file exits 2 first
+    refused = _run_mode_error(args)
+    if refused:
+        print(refused, file=sys.stderr)
+        return -1
     errs = None
     rank = 0
     try:

@@ -153,6 +153,8 @@ class LoopState:
     def __init__(self, bound: int, length: int, threshold: float,
                  reference_compat: bool, device, converge: bool = True,
                  guard: bool = False):
+        # a negative count runs no iteration, as the reference's loop
+        bound, length = max(int(bound), 0), max(int(length), 0)
         self.bound = bound
         self.ctl = new_loop_control(bound, device)
         self.errs = new_err_buffer(length, device)

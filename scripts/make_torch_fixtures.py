@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Regenerate the JAX fixtures that the PyTorch port's runs are held
 against (``tests/fixtures/torch_p2pl/``, ``torch_sym/``, ``torch_gicp/``,
-``torch_trim/``, ``torch_slam/`` and ``torch_slam_grid/``).
+``torch_trim/``, ``torch_flags/``, ``torch_slam/`` and ``torch_slam_grid/``).
 
     JAX_PLATFORMS=cpu python3 scripts/make_torch_fixtures.py [FOLDER ...]
 
@@ -18,6 +18,12 @@ closure candidates, the pose graph's cost) and a README with the command
 and the run's wall seconds.  ``torch_slam_grid/``: the same CLI on the
 grid path (``SLAM_GRID_FLAGS``: ``--subsample 4 --nn grid``, a few minutes
 on the CPU, where the grid kernels run in Pallas interpret mode).
+``torch_flags/``: point-to-point on cow at ``FLAG_NB_ITER`` iterations with
+each of the CLI's other flags (``FLAG_RUNS``: ``--no-scale``, ``--mse``,
+``--dtype float64``, ``--threshold``, ``--solver``, ``--nn``), files
+``{case}_stderr.txt`` and ``{case}_output.txt``; the JAX CLI has no
+``--nn bf16``, so that case runs ``BF16_RUN``, JAX's ``icp(...,
+trace=True)`` with the CLI's loads, trace lines and output.
 With folder names, only those are rewritten.  The
 JAX package is imported only by the subprocess; the port and
 ``chip_smoke.py`` read the files.
@@ -42,6 +48,65 @@ RUNS = [("point_to_plane", "torch_p2pl", [], ""), ("symmetric", "torch_sym", [],
 RUNS += [(engine, "torch_trim",
           ["--trim", "0.1"] + (["--dtype", "float64"] if engine == "point_to_point" else []),
           f"{engine}_") for engine in ("point_to_point", "point_to_plane", "symmetric", "gicp")]
+# torch_flags: case -> (scene, flags); cow_ref.txt is the model of every case
+FLAG_RUNS = {
+    "no_scale": ("cow_tr1.txt", ["--no-scale"]),
+    "mse": ("cow_tr1.txt", ["--mse"]),
+    "float64": ("cow_tr1.txt", ["--dtype", "float64"]),
+    "threshold_1e-3": ("cow_tr1.txt", ["--threshold", "1e-3"]),
+    "solver_eigh": ("cow_tr1.txt", ["--solver", "eigh"]),
+    "solver_qcp": ("cow_tr1.txt", ["--solver", "qcp"]),
+    "solver_kabsch": ("cow_tr1.txt", ["--solver", "kabsch"]),
+    "nn_matmul": ("cow_tr1.txt", ["--nn", "matmul"]),
+    "nn_grid": ("cow_tr1.txt", ["--nn", "grid"]),
+    "nn_bf16": ("cow_tr1.txt", ["--nn", "bf16"]),
+    "cow_tr2_no_scale_mse": ("cow_tr2.txt", ["--no-scale", "--mse"]),
+}
+FLAG_NB_ITER = "10"  # the reference fixtures' count
+# JAX's CLI with --nn bf16, which its parser does not offer: the same
+# loads, [ICP] lines and output.txt around icp(..., trace=True)
+BF16_RUN = """import sys
+import numpy as np
+from icp_tpu import ICPConfig, icp
+from icp_tpu.io.csv import load_matrix, write_matrix
+model, scene = load_matrix(sys.argv[1]), load_matrix(sys.argv[2])
+tr = icp(model, scene, ICPConfig(max_iter=int(sys.argv[3]), nn_method="bf16"), trace=True)
+for i, e in enumerate(np.asarray(tr.errs)[:int(tr.result.iters)]):
+    print(f"[ICP] iteration number {i} | error value = {e:g}", file=sys.stderr)
+write_matrix(np.asarray(tr.result.points), sys.argv[4])
+"""
+FLAGS_README = """# torch_flags: the JAX CLI's point-to-point runs with its other flags
+
+The stderr trace and `output.txt` of the JAX package's CLI on the CPU,
+`data/cow_ref.txt` against a cow scene at `nb_iter` {nb_iter} (the reference
+fixtures' count), one case a flag (`{{case}}_stderr.txt`,
+`{{case}}_output.txt`). The port's CLI is held against them on the CPU
+(`tests/test_torch_cli_flags.py`) and on the card (`chip_smoke.py`'s
+`FLAG_CASES`, with `--device cuda`).
+
+Made from the repository root by
+`JAX_PLATFORMS=cpu python3 scripts/make_torch_fixtures.py torch_flags`
+(the JAX package unchanged), which runs, keeping the program's own stderr
+lines (`[load]`, `[ICP]`, `[output]`):
+
+```bash
+{commands}
+```
+
+JAX's CLI offers no `--nn bf16`, so `nn_bf16` runs `BF16_RUN` of the
+script: JAX's `icp(..., ICPConfig(max_iter={nb_iter}, nn_method="bf16"),
+trace=True)` between the CLI's `load_matrix` and `write_matrix`, printing
+the CLI's `[ICP]` lines. The port runs it through `icp` too.
+
+| case | iterations | last error |
+|---|---|---|
+{table}
+
+On the CPU "auto" resolves to JAX's `bcast` NN and `eigh` solver, so these
+are float32 runs (float64 for `float64`), each with the flag's own NN or
+solver; `--nn grid` and `--nn bf16` run their Pallas kernels in interpret
+mode.
+"""
 CASES = [("cow_tr1", "cow_ref.txt", "cow_tr1.txt"),
          ("cow_tr2", "cow_ref.txt", "cow_tr2.txt")]
 NB_ITER = "30"
@@ -116,10 +181,52 @@ def make_slam(env, folder: str) -> int:
     return 0
 
 
+def _flag_command(case: str, out_txt: str) -> list:
+    """The command of a torch_flags case, from the repository root."""
+    scene, flags = FLAG_RUNS[case]
+    clouds = [os.path.join("data", "cow_ref.txt"), os.path.join("data", scene), FLAG_NB_ITER]
+    if flags == ["--nn", "bf16"]:
+        return [sys.executable, "-c", BF16_RUN, *clouds, out_txt]
+    return [sys.executable, "-m", "icp_tpu.engine.cli", *clouds, *flags, "--output", out_txt]
+
+
+def make_flags(env) -> int:
+    out_dir = os.path.join(FIXTURES, "torch_flags")
+    os.makedirs(out_dir, exist_ok=True)
+    commands, rows = [], []
+    for case, (scene, flags) in FLAG_RUNS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            out_txt = os.path.join(tmp, "output.txt")
+            r = subprocess.run(_flag_command(case, out_txt), cwd=ROOT, env=env,
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                print(r.stderr, file=sys.stderr)
+                return r.returncode
+            lines = [ln.replace(out_txt, "output.txt") for ln in r.stderr.splitlines()
+                     if ln.startswith("[")]
+            with open(os.path.join(out_dir, f"{case}_stderr.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            shutil.copyfile(out_txt, os.path.join(out_dir, f"{case}_output.txt"))
+        trace = [ln.rsplit("= ", 1)[1] for ln in lines if ln.startswith("[ICP]")]
+        rows.append(f"| `{case}` | {len(trace)} | {trace[-1] if trace else '-'} |")
+        if case != "nn_bf16":
+            commands.append(f"JAX_PLATFORMS=cpu python -m icp_tpu.engine.cli data/cow_ref.txt "
+                            f"data/{scene} {FLAG_NB_ITER} {' '.join(flags)}")
+        print(f"torch_flags {case}: {len(trace)} iterations")
+    with open(os.path.join(out_dir, "README.md"), "w") as f:
+        f.write(FLAGS_README.format(nb_iter=FLAG_NB_ITER, commands="\n".join(commands),
+                                    table="\n".join(rows)))
+    return 0
+
+
 def main(argv=None) -> int:
     only = set(sys.argv[1:] if argv is None else argv)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if not only or "torch_flags" in only:
+        code = make_flags(env)
+        if code:
+            return code
     for folder in SLAM_RUNS:
         if not only or folder in only:
             code = make_slam(env, folder)
