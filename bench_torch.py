@@ -34,7 +34,8 @@ instead of hanging its caller.
 
 Env knobs (seconds unless noted):
   ICP_BENCH_INIT_TIMEOUT=600     init phase watchdog (the device's first
-                                 answer, the data; imports are in spawn)
+                                 answer, the data; imports and the CSV
+                                 loader's build are in spawn)
   ICP_BENCH_GATE_TIMEOUT=1200    convergence gate (includes the kernels' build)
   ICP_BENCH_MEASURE_TIMEOUT=1500 timing phase
   ICP_BENCH_ATTEMPTS=2           supervised attempts
@@ -146,6 +147,12 @@ def _measure(device: str, verdict) -> int:
     )
     from icp_tpu_torch.config import ICPConfig
     from icp_tpu_torch.engine.icp import icp
+    from icp_tpu_torch.io.native import get_lib
+
+    # the CSV loader's one-time g++ build (a fresh checkout has none) is
+    # set-up like the imports, whose time on a loaded host is no measure
+    # of the device or the data
+    get_lib()
 
     _phase("init")
     on_card = device == "cuda"

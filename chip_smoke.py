@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``icp_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--seed N] [--phases kernels,cli,features,slam,sharded,scale,bench]
+    python3 chip_smoke.py [--seed N]
+        [--phases kernels,cli,dispatch,features,slam,sharded,scale,bench]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -46,13 +47,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      time beside the batch's;
   4. cli: the reference program's path, ``engine.cli.main`` with
      ``--device cuda``: point-to-point on cow_tr1 10 and cow_tr2 10 (fused
-     path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (grid
-     path) and cow_tr1 10 with ``--nn bcast
+     path: one K3 launch an iteration and no K2 launch), horse_tr1 3 (the
+     fused path too, the card's cap being above horse; and with ``--nn
+     grid``: K1's seed, K4, K2) and cow_tr1 10 with ``--nn bcast
      --solver qcp_fused`` (K5), each held against the reference binary's
      fixtures; ``--engine point_to_plane``, ``symmetric`` and ``gicp`` on
      cow_tr1 30 and cow_tr2 30 against the JAX CLI's fixtures, and on
-     horse_tr1 30 (grid path, K7 normals) against the port's own dense
-     path; the lane-chunked NN (K8) and the ``"mxu"`` form (K10) through
+     horse_tr1 30 (the dense path and K6 normals under "auto" on the card,
+     and through the engine the grid path with K7 normals) against the
+     port's own dense path; the lane-chunked NN (K8) and the ``"mxu"`` form (K10) through
      their entry point at K1's shapes, against K1 and the plain version,
      and K11 through ``closest_points_and_targets_dense`` at cow, horse
      and the grid seed, against K1 and ``model[idx]``; the
@@ -79,16 +82,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      Then ms/iter of the cow and horse loops of the four engines (and of
      the trimmed point-to-point loops, and horse's bucket-padded one), and
      the normals' ms;
-  5. features (``[features]`` lines): trim — the CLI with ``--trim 0.1`` on
+  5. dispatch (``[dispatch]`` lines): "auto" at one size on each side of
+     each dispatch size the card resolves by (``scripts/dispatch_sweep.py``
+     measured them): point-to-point at 65,535 rows (K3) and 65,536 (K1's
+     seed, K4, K2), ``nn_method="pallas"`` at 262,144 model rows (K3) and
+     262,145 (K1, K2), ``knn_indices`` at 131,071 rows (K6) and 131,072
+     (K7), each by its launches and held against the other side's run on
+     the same clouds, with both sides' times; the bunny chain at
+     ``--subsample 4`` and the SLAM CLI's defaults (no bucket on the card:
+     K3 on each pair, bit-equal to ``bucket_quantum=None``, held to the
+     bucketed run); horse_tr1 3 through ``icp-torch`` with "auto" (K3)
+     against the reference binary's fixture;
+  6. features (``[features]`` lines): trim — the CLI with ``--trim 0.1`` on
      cow_tr1/cow_tr2 (point-to-point: the pipeline, K1 + K2 a launched
      iteration, no K3) and on cow_tr1 for the plane engines, each against
      the JAX CLI's runs (``tests/fixtures/torch_trim/``), and horse_tr1
      trimmed on the grid path (K4 + K2) against the dense trimmed path;
      bucket — horse through ``pad_to_bucket`` (49,152 rows) and
      ``scene_n``/``model_n`` against the unpadded run, point-to-point and
-     point-to-plane, and the normals of the sentinel-padded cow (K6) and
-     horse (K7, with its exact table past the capacity and folded pairs)
-     against the unpadded normals; guard — cow_tr1 with a NaN coordinate
+     point-to-plane, with "auto" (the dense path on the card, the unpadded
+     run's fused path off: a masked run never takes K3) and on the grid,
+     and the normals of the sentinel-padded cow and horse (K6 under "auto"),
+     and horse's on K7 (with its exact table past the capacity and folded
+     pairs) against the unpadded normals; guard — cow_tr1 with a NaN coordinate
      and ``guard="device"`` raising ``ICPGuardError`` at iteration 1 on the
      fused path (K3) and the pipeline (K1 + K2), a clean guarded run
      bit-equal to the unguarded one with the same launches, and K2's and
@@ -98,7 +114,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --metrics-ops`` on cow and horse; the quantile — a trimmed cow_tr1 run
      with ``histogram_quantile(rounds=3, bins=64)`` against the same run on
      the CPU;
-  6. slam (``[slam]`` lines): ``icp_batched`` on cow and cow moved by
+  7. slam (``[slam]`` lines): ``icp_batched`` on cow and cow moved by
      seeded similarities, 10 iterations: bcast/eigh (B = 8), bcast/qcp_fused
      (K5), pallas/eigh (K1) and bf16/eigh and bf16/qcp_fused (K9, K5) at
      B = 8 and 32 held to each pair's ``icp_fixed_iters``, and
@@ -107,8 +123,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      pair-iteration; ``register_chain_batched`` on the five bunny scans at
      full resolution (bcast/eigh and bf16/eigh, one K9 launch an iteration,
      held to the padded pairs, pallas/qcp_fused as one K1 and one K2 launch
-     an iteration held to them within 1e-6 / 1e-9, and "auto": the grid
-     path pair by pair); ``global_register`` on two partly overlapping
+     an iteration held to them within 1e-6 / 1e-9, "auto": the same
+     batch, and the grid path pair by pair); ``global_register`` on two partly overlapping
      bunny crops held to the known pose; the ``icp-slam-torch`` CLI at the
      flags of the JAX fixtures ``tests/fixtures/torch_slam/`` (dense path)
      and ``torch_slam_grid/`` (``--subsample 4 --nn grid``: K4 must run)
@@ -117,18 +133,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --refine`` (closure 0<-4, trimmed errors under 5e-4, the closure's
      inconsistency shrunk by the pose graph), with its wall seconds and
      launches;
-  7. sharded (``[sharded]`` lines): the sharded engines on a world-1 NCCL
+  8. sharded (``[sharded]`` lines): the sharded engines on a world-1 NCCL
      group (``parallel/``), each held against its single-device engine on
      the card (the same iterations, points within atol 1e-4 and rtol
      2e-4): ``icp_sharded`` on cow (K1 each hop, K5 each iteration; ring
      and all-gather traced, trimmed), ``icp_sharded_2d`` on a 1 x 1 mesh,
-     the sharded grid (K4 each hop) on horse, horse with a capacity of one
-     candidate and the 1M pair (10 iterations, timed over 7-10);
-     ``icp_point_to_plane_sharded`` on cow (K6 normals) and it,
-     ``icp_symmetric_sharded`` and ``icp_generalized_sharded`` on horse (K7
-     normals, K4's normals payload); ``bundle_adjust_sharded`` on the bunny
-     chain's correspondences (poses within 1e-5 of ``bundle_adjust``); and
-     ``icp-torch --sharded`` on cow_tr1 against the reference fixture.
+     horse with "auto" (the dense ring on the card), the sharded grid (K4
+     each hop) on horse, horse with a capacity of one candidate and the 1M
+     pair (10 iterations, timed over 7-10); ``icp_point_to_plane_sharded``
+     on cow (K6 normals) and it, ``icp_symmetric_sharded`` and
+     ``icp_generalized_sharded`` on horse ("auto": K6 normals, K1 each
+     hop; and the grid with K7 normals, K4's normals payload);
+     ``bundle_adjust_sharded`` on the bunny chain's correspondences (poses
+     within 1e-5 of ``bundle_adjust``); and ``icp-torch --sharded`` on cow_tr1 against the reference fixture.
      Each line gives ms/iter and device launches an iteration beside the
      single-device engine's, the K1, K4, K5, K6 and K7 launches, and the
      card's name and power limit.  Under ``torchrun`` (``python -m
@@ -136,7 +153,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      --phases sharded``) every rank runs the phase on its own card at the
      group's world size, ``icp_sharded_2d`` on a (2, world / 2) mesh, and
      rank 0 alone prints;
-  8. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
+  9. scale: a 1,000,000 x 1,000,000 pair (horse upsampled with seeded
      jitter, a known similarity): K4 on the first and the third grid
      iteration's tables, each checked against K1 brute force on 65,536
      seeded scene rows and against the plain version on sampled scene
@@ -150,7 +167,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      iterations of the point-to-plane, symmetric and GICP engines, each
      with a falling error; the 10 point-to-point grid iterations again with
      ``trim_fraction=0.1`` (a ``[features] case=scale_trim`` line);
-  9. bench (``[bench]`` lines): the port's harness
+  10. bench (``[bench]`` lines): the port's harness
      (``icp_tpu_torch/bench/``) on the card, one row a call with the counts
      set to 0 just before it: every row at cow and every row but the host
      NumPy engine at horse, each a positive time or ``unresolved``, every
@@ -226,6 +243,7 @@ CLI_CASES = [
     ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5, []),
     ("cow_tr2", "cow_ref.txt", "cow_tr2.txt", 10, 10, 1e-5, []),
     ("horse_tr1", "horse_ref.txt", "horse_tr1.txt", 3, 3, 2e-6, []),
+    ("horse_tr1", "horse_ref.txt", "horse_tr1.txt", 3, 3, 2e-6, ["--nn", "grid"]),
     ("cow_tr1", "cow_ref.txt", "cow_tr1.txt", 10, 7, 1e-5, ["--nn", "bcast", "--solver", "qcp_fused"]),
 ]
 # the plane engines against the JAX CLI's fixtures:
@@ -267,9 +285,10 @@ FLAG_CASES = {
     "nn_bf16": ("cow_tr1", ["--nn", "bf16"], 10, TRACE_RTOL, 1e-5, "bf16"),
     "cow_tr2_no_scale_mse": ("cow_tr2", ["--no-scale", "--mse"], 10, TRACE_RTOL, 1e-5, "fused"),
 }
-# horse_tr1 at nb_iter 3 on the grid path (K1's seed, K4, K2 with
-# with_scale=0 / err_factor=1.0), held to the port's own --nn pallas run
-# of the same flags (K1 + K2, exact NN): flags -> label
+# horse_tr1 at nb_iter 3 with "auto" (K3: the card's fused cap is above
+# horse), the same as the port's own --nn pallas run of the same flags, and
+# with --nn grid (K1's seed, K4, K2 with with_scale=0 / err_factor=1.0) held
+# to it: flags -> label
 HORSE_FLAG_CASES = {("--no-scale",): "horse_tr1_no_scale", ("--mse",): "horse_tr1_mse"}
 NORMAL_K = 17  # the normals' k_eff: 16 neighbours and the point itself
 FPFH_K = 64  # the neighbours fpfh_features fetches: max(k + 1, orient_k = 64)
@@ -1471,7 +1490,7 @@ def phase_cli(tmp: str) -> dict:
 
     total = {}
     for fixture, ref, scene, nb_iter, want_iters, atol, extra in CLI_CASES:
-        label = fixture + ("_k5" if extra else "")
+        label = fixture + {"bcast": "_k5", "grid": "_grid"}.get(extra[1] if extra else "", "")
         out_path = os.path.join(tmp, f"{label}_output.txt")
         rc, got, err, seconds, used = _run_cli(
             [os.path.join(ROOT, "data", ref), os.path.join(ROOT, "data", scene), str(nb_iter),
@@ -1480,16 +1499,16 @@ def phase_cli(tmp: str) -> dict:
         worst = _check_trace(label, got, _golden(os.path.join(FIXDIR, f"{fixture}_stderr.txt")),
                              want_iters)
         off = _check_output(label, out_path, os.path.join(FIXDIR, f"{fixture}_output.txt"), atol)
-        if extra:
+        if "bcast" in extra:
             require(used["qcp_rotation"] >= want_iters and used["qcp_step"] == 0,
                     f"cli {label}: K5 path not taken ({used})")
-        elif fixture.startswith("cow"):  # one K3 launch an iteration, K2 inside it
+        elif "grid" in extra:
+            require(used["nn_grid"] >= want_iters and used["qcp_step"] >= want_iters
+                    and used["nn_dense"] >= 1, f"cli {label}: grid path not taken ({used})")
+        else:  # one K3 launch an iteration, K2 inside it (horse too: the card's cap)
             launched = min(nb_iter, -(-want_iters // _CHUNK) * _CHUNK)
             require(used["icp_fused"] == launched and used["qcp_step"] == 0,
                     f"cli {label}: fused path not taken ({used})")
-        else:
-            require(used["nn_grid"] >= want_iters and used["qcp_step"] >= want_iters
-                    and used["nn_dense"] >= 1, f"cli {label}: grid path not taken ({used})")
         _add(total, used)
         say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
@@ -1550,19 +1569,29 @@ def _flag_cases(tmp: str) -> dict:
     horse = [os.path.join(ROOT, "data", f) for f in ("horse_ref.txt", "horse_tr1.txt")]
     for flags, label in HORSE_FLAG_CASES.items():
         runs = {}
-        for nn in ("auto", "pallas"):
+        for nn in ("auto", "grid", "pallas"):
             out_path = os.path.join(tmp, f"{label}_{nn}_output.txt")
             rc, got, err, seconds, used = _run_cli(
                 [*horse, "3", *flags, "--nn", nn, "--output", out_path])
             require(rc == 0, f"cli {label} --nn {nn}: exit {rc}\n{err}")
             runs[nn] = (got, seconds, used, out_path)
             _add(total, used)
-        (got, seconds, used, out_path), (dense, _, dused, dense_path) = runs["auto"], runs["pallas"]
+        (dense, _, dused, dense_path) = runs["pallas"]
+        # "auto" and --nn pallas: K3 (the card's fused cap is above horse)
+        for nn in ("auto", "pallas"):
+            got, _, used, _ = runs[nn]
+            require(used["icp_fused"] == _launched(len(got), 3) and used["nn_dense"] == 0
+                    and used["qcp_step"] == used["nn_grid"] == 0,
+                    f"cli {label} --nn {nn}: fused path not taken ({used})")
+        got, seconds, used, out_path = runs["auto"]
+        require(got == dense and _check_output(label, out_path, dense_path, 0.0) == 0.0,
+                f"cli {label}: auto is not the --nn pallas run")
+        say("cli", case=f"flags_{label}_auto", path="fused", iters=len(got),
+            trace=",".join(f"{e:.6g}" for e in got), seconds=f"{seconds:.3f}", launches=used)
+        got, seconds, used, out_path = runs["grid"]
         launched = _launched(len(got), 3)
         require(used["nn_dense"] == 1 and used["nn_grid"] == used["qcp_step"] == launched
                 and used["icp_fused"] == 0, f"cli {label}: grid path not taken ({used})")
-        require(dused["nn_dense"] == dused["qcp_step"] == _launched(len(dense), 3)
-                and dused["nn_grid"] == 0, f"cli {label} --nn pallas: K1 + K2 not taken ({dused})")
         worst = _check_trace(label, got, dense, len(dense))
         off = _check_output(label, out_path, dense_path, 2e-6)
         say("cli", case=f"flags_{label}", path="grid", iters=len(got),
@@ -1620,14 +1649,18 @@ def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dic
         say("cli", case=label, iters=len(got), trace_max_rel_err=f"{worst:.3e}",
             output_max_abs_err=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
 
+    # horse_tr1: "auto" through the CLI (the dense path and K6 normals on
+    # the card, below its grid and normals thresholds), and the grid path
+    # with K7 normals (K4 with the normals payload) through the engine,
+    # each held to the dense path run through the engine
     label = f"{short}_horse_tr1"
     out_path = os.path.join(tmp, f"{label}_output.txt")
     rc, got, err, seconds, used = _run_cli(
         [os.path.join(ROOT, "data", "horse_ref.txt"), os.path.join(ROOT, "data", "horse_tr1.txt"),
          "30", "--engine", engine, "--output", out_path])
     require(rc == 0, f"cli {label}: exit {rc}\n{err}")
-    require(used["knn_grid"] == 2 * clouds and used["nn_grid"] >= len(got)
-            and used["nn_dense"] >= 1, f"cli {label}: grid {engine} path not taken ({used})")
+    require(used["knn_dense"] == clouds and used["nn_dense"] >= len(got) and used["nn_grid"] == 0
+            and used["knn_grid"] == 0, f"cli {label}: dense {engine} path not taken ({used})")
     _add(total, used)
     model = torch.tensor(_load("horse_ref.txt"), dtype=torch.float32, device="cuda")
     scene_t = torch.tensor(_load("horse_tr1.txt"), dtype=torch.float32, device="cuda")
@@ -1636,16 +1669,39 @@ def _plane_engine_cli(tmp: str, engine: str, folder: str, short: str, pairs: dic
     dense = run_engine(engine, model, scene_t, ICPConfig(max_iter=30, nn_method="pallas"),
                        model_normals=normals, scene_normals=scene_normals, trace=True)
     n_dense = int(dense.result.iters)
-    require(len(got) == n_dense, f"cli {label}: {len(got)} iterations, dense path {n_dense}")
+    dense_errs = dense.errs[:n_dense].tolist()
+
+    def held(case, got, points):
+        require(len(got) == n_dense, f"cli {case}: {len(got)} iterations, dense path {n_dense}")
+        off = float(abs(points - dense.result.points.cpu().numpy()).max())
+        require(off <= 1e-5, f"cli {case}: output {off:.3g} from the dense path")
+        worst = max((abs(g - w) / w for g, w in zip(got, dense_errs) if w > 1e-6), default=0.0)
+        return dict(iters=len(got), dense_iters=n_dense, trace=",".join(f"{e:.6g}" for e in got),
+                    trace_max_rel_err_vs_dense=f"{worst:.3e}",
+                    output_max_abs_err_vs_dense=f"{off:.3e}")
+
     with contextlib.redirect_stderr(io.StringIO()):
         out = load_matrix(out_path)
-    off = float(abs(out - dense.result.points.cpu().numpy()).max())
-    require(off <= 1e-5, f"cli {label}: output {off:.3g} from the dense path")
-    dense_errs = dense.errs[:n_dense].tolist()
-    worst = max((abs(g - w) / w for g, w in zip(got, dense_errs) if w > 1e-6), default=0.0)
-    say("cli", case=label, path="grid", iters=len(got), dense_iters=n_dense,
-        trace=",".join(f"{e:.6g}" for e in got), trace_max_rel_err_vs_dense=f"{worst:.3e}",
-        output_max_abs_err_vs_dense=f"{off:.3e}", seconds=f"{seconds:.3f}", launches=used)
+    say("cli", case=label, path="dense", **held(label, got, out), seconds=f"{seconds:.3f}",
+        launches=used)
+
+    def grid_run():
+        kw = dict(model_normals=estimate_normals(model, method="grid"))
+        if clouds == 2:
+            kw["scene_normals"] = estimate_normals(scene_t, method="grid")
+        return run_engine(engine, model, scene_t, ICPConfig(max_iter=30, nn_method="grid"),
+                          trace=True, **kw)
+
+    t0 = time.perf_counter()
+    grid, used = _counted(grid_run)
+    seconds = time.perf_counter() - t0
+    require(used["knn_grid"] == 2 * clouds and used["nn_grid"] >= int(grid.result.iters)
+            and used["nn_dense"] >= 1, f"cli {label}_grid: grid {engine} path not taken ({used})")
+    _add(total, used)
+    n = int(grid.result.iters)
+    say("cli", case=f"{label}_grid", path="grid",
+        **held(f"{label}_grid", grid.errs[:n].tolist(), grid.result.points.cpu().numpy()),
+        seconds=f"{seconds:.3f}", launches=used)
     return total
 
 
@@ -1987,11 +2043,14 @@ def _features_trim(tmp: str) -> dict:
 def _features_bucket() -> dict:
     """Bucket padding: horse through ``pad_to_bucket`` (quantum 4,096:
     49,152 rows) against the unpadded run, point-to-point and
-    point-to-plane; the normals of the sentinel-padded cow (K6) and horse
-    (K7) against the unpadded normals on the real rows, with K7's tables."""
+    point-to-plane, with "auto" (the dense path) and on the grid; the
+    normals of the sentinel-padded cow and horse with "auto" (K6) and
+    horse's on K7 against the unpadded normals on the real rows, with K7's
+    tables."""
     import torch
 
     from icp_tpu_torch import ICPConfig, icp, icp_point_to_plane
+    from icp_tpu_torch.bench.harness import fused_path_disabled
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.kernels import knn_grid, nn_grid
     from icp_tpu_torch.ops.normals import estimate_normals
@@ -2002,30 +2061,38 @@ def _features_bucket() -> dict:
     m_pad, m_n = pad_to_bucket(horse_ref, quantum=4096)
     s_pad, s_n = pad_to_bucket(horse_tr1, quantum=4096)
     require(m_pad.shape[0] == s_pad.shape[0] == 49152, f"bucket: {m_pad.shape}, {s_pad.shape}")
+    # "auto" (on the card the dense path at horse: a masked run never takes
+    # K3, so the unpadded run it is held to has the fused path off too) and
+    # the grid path
     for engine, fn, tol in (("point_to_point", icp, 1e-6),
                             ("point_to_plane", icp_point_to_plane, 1e-5)):
-        cfg = ICPConfig(max_iter=30)
-        exact, used_e = _counted(lambda: fn(horse_ref, horse_tr1, cfg))
-        padded, used_p = _counted(lambda: fn(m_pad, s_pad, cfg, scene_n=s_n, model_n=m_n))
-        _add(total, used_p)
-        n = int(exact.iters)
-        off = max_abs(padded.points[:s_n], exact.points)
-        require(int(padded.iters) == n and off <= tol,
-                f"features bucket {engine}: {int(padded.iters)} iterations, exact {n}, "
-                f"points {off:.3g} apart")
-        require(used_p["nn_grid"] >= n and used_p["nn_grid"] == used_e["nn_grid"],
-                f"features bucket {engine}: not the grid path ({used_p})")
-        say("features", case=f"bucket_horse_{engine}", rows=m_pad.shape[0], real=s_n,
-            iters=n, points_max_abs_err=f"{off:.3e}", tol=tol, launches=used_p)
+        for nn in ("auto", "grid"):
+            cfg = ICPConfig(max_iter=30, nn_method=nn)
+            with fused_path_disabled():
+                exact, used_e = _counted(lambda: fn(horse_ref, horse_tr1, cfg))
+            padded, used_p = _counted(lambda: fn(m_pad, s_pad, cfg, scene_n=s_n, model_n=m_n))
+            _add(total, used_p)
+            n = int(exact.iters)
+            off = max_abs(padded.points[:s_n], exact.points)
+            require(int(padded.iters) == n and off <= tol,
+                    f"features bucket {engine} {nn}: {int(padded.iters)} iterations, exact {n}, "
+                    f"points {off:.3g} apart")
+            hop = "nn_grid" if nn == "grid" else "nn_dense"
+            require(used_p[hop] >= n and used_p[hop] == used_e[hop] and not used_p["icp_fused"],
+                    f"features bucket {engine} {nn}: not the {hop} path ({used_p})")
+            say("features", case=f"bucket_horse_{engine}" + ("_grid" if nn == "grid" else ""),
+                nn_method=nn, rows=m_pad.shape[0], real=s_n, iters=n,
+                points_max_abs_err=f"{off:.3e}", tol=tol, launches=used_p)
 
-    for label, cloud, method in (("cow", _load("cow_ref.txt"), "dense"),
-                                 ("horse", horse_ref, "grid")):
+    # "auto" normals (K6 on the card below 131,072 rows) and horse's on K7
+    for label, cloud, method in (("cow", _load("cow_ref.txt"), "auto"),
+                                 ("horse", horse_ref, "auto"), ("horse", horse_ref, "grid")):
         padded, n = pad_to_bucket(cloud, quantum=4096)
-        want = estimate_normals(cloud)
-        got, used = _counted(lambda: estimate_normals(padded))
+        want = estimate_normals(cloud, method=method)
+        got, used = _counted(lambda: estimate_normals(padded, method=method))
         _add(total, used)
         # K6 once; K7 twice (the seed and the exact pass)
-        kernel, calls = ("knn_dense", 1) if method == "dense" else ("knn_grid", 2)
+        kernel, calls = ("knn_dense", 1) if method == "auto" else ("knn_grid", 2)
         require(used[kernel] == calls,
                 f"features bucket normals {label}: {kernel} not taken ({used})")
         off = max_abs(got[:n], want)
@@ -2047,7 +2114,8 @@ def _features_bucket() -> dict:
                 shape = k7_table(cand, counts, kgrid.tiles.shape[0], kgrid.model_tile, tn)
                 extra[f"{tag}_past_capacity"] = shape["fallback_tiles"]
                 extra[f"{tag}_folded_pairs"] = shape["folded_pairs"]
-        say("features", case=f"bucket_normals_{label}", rows=padded.shape[0], real=n,
+        say("features", case=f"bucket_normals_{label}" + ("_grid" if method == "grid" else ""),
+            method=method, rows=padded.shape[0], real=n,
             kernel=kernel, normals_max_abs_err=f"{off:.3e}", **extra, launches=used)
     return total
 
@@ -2166,8 +2234,8 @@ def _features_resume(tmp: str) -> dict:
 
 
 def _features_metrics(tmp: str) -> dict:
-    """The CLI's ``--metrics --metrics-ops`` on cow (K3's path; K1 timed)
-    and horse (the grid path; K4 timed).  The op timer's calls (warm-up and
+    """The CLI's ``--metrics --metrics-ops`` on cow and horse (K3's path;
+    K1 timed) and horse with ``--nn grid`` (K4 timed).  The op timer's calls (warm-up and
     timed, after the loop) are counted apart and left out of the launches
     the run returns, which are the loop's."""
     from unittest import mock
@@ -2185,16 +2253,18 @@ def _features_metrics(tmp: str) -> dict:
         return out
 
     total = {}
-    for label, ref, scene, nn, kernels in (
-            ("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", ("icp_fused",)),
-            ("horse", "horse_ref.txt", "horse_tr1.txt", "grid", ("nn_grid", "qcp_step"))):
+    for label, ref, scene, nn, kernels, flags in (
+            ("cow", "cow_ref.txt", "cow_tr1.txt", "pallas", ("icp_fused",), []),
+            ("horse", "horse_ref.txt", "horse_tr1.txt", "pallas", ("icp_fused",), []),
+            ("horse_grid", "horse_ref.txt", "horse_tr1.txt", "grid", ("nn_grid", "qcp_step"),
+             ["--nn", "grid"])):
         mpath = os.path.join(tmp, f"metrics_{label}.json")
         timer.clear()
         with mock.patch.object(metrics, "_op_times", counted_op_times):
             rc, got, err, seconds, used = _run_cli(
                 [os.path.join(ROOT, "data", ref), os.path.join(ROOT, "data", scene), "30",
                  "--metrics", mpath, "--metrics-ops", "--output",
-                 os.path.join(tmp, f"metrics_{label}_output.txt")])
+                 os.path.join(tmp, f"metrics_{label}_output.txt"), *flags])
         require(rc == 0, f"features metrics {label}: exit {rc}\n{err}")
         with open(mpath) as f:
             rec = json.load(f)
@@ -2342,12 +2412,193 @@ def phase_loop_times():
                 setup_plus_one_iter_ms=f"{t1 * 1e3:.3f}")
 
 
-def scale_pair(seed: int, n: int = 1_000_000):
-    """(model, scene, s_true) on the card: horse upsampled to ``n`` points
-    with seeded jitter; the scene is another jittered draw moved by a known
-    similarity (4 degrees about a seeded axis, scale 1.03, a small shift)."""
+# The dispatch sizes the card resolves "auto" by, as scripts/dispatch_sweep.py
+# measured them (perf_h100/dispatch_sweep.jsonl): (constant, rows, the NN
+# method asked for, the path it must take, the other side's NN method and
+# path on the same clouds).  The fused cap is above the grid threshold, so
+# its two sides ask for the dense kernel.
+DISPATCH_CASES = (
+    ("grid_threshold", 65535, "auto", "fused", "grid", "grid"),
+    ("grid_threshold", 65536, "auto", "grid", "pallas", "fused"),
+    ("fused_cap", 262144, "pallas", "fused", "pallas", "pipeline"),
+    ("fused_cap", 262145, "pallas", "pipeline", "pallas", "fused"),
+)
+DISPATCH_NORMALS_ROWS = (131071, 131072)  # K6 below NORMALS_GRID_THRESHOLD_CUDA, K7 from it
+# The two sides' points: K3 orders near-ties in the float32 expansion form,
+# K1 and the grid by differences (the sweep: 1.3e-7 to 3.2e-7 apart at
+# these sizes, converged)
+DISPATCH_POINTS_ATOL = 1e-5
+# The bunny chain unbucketed (K3) against bucketed (the masked pipeline):
+# three of its four pairs stop at the 60-iteration cap unconverged, and the
+# near-tie choices drift apart over them: 2.21e-5 on the card and 2.207e-5
+# between the two plain versions on the CPU (pair 1->2)
+DISPATCH_CHAIN_ATOL = 1e-4
+# Launches that prove a path: (kernels it must launch, kernels it must not)
+DISPATCH_PATHS = {
+    "fused": (("icp_fused",), ("nn_dense", "nn_grid", "qcp_step")),
+    "grid": (("nn_dense", "nn_grid", "qcp_step"), ("icp_fused",)),
+    "pipeline": (("nn_dense", "qcp_step"), ("icp_fused", "nn_grid")),
+}
+
+
+def _dispatch_gate(path: str):
+    """The fused gate that makes ``nn_method="pallas"`` take ``path``: the
+    fused path off for the pipeline, K3's cap lifted for K3."""
+    from unittest import mock
+
+    from icp_tpu_torch.bench.harness import fused_path_disabled
+    from icp_tpu_torch.kernels import icp_fused
+
+    if path == "pipeline":
+        return fused_path_disabled()
+    if path == "fused":
+        return mock.patch.object(icp_fused, "MAX_FUSED_MODEL_CUDA", 1 << 62)
+    return contextlib.nullcontext()
+
+
+def _dispatch_path(label: str, path: str, used: dict) -> None:
+    need, never = DISPATCH_PATHS[path]
+    require(all(used.get(k) for k in need) and not any(used.get(k) for k in never),
+            f"dispatch {label}: the {path} path not taken ({used})")
+
+
+def phase_dispatch(seed: int, smi: str) -> dict:
+    """``"auto"`` on the card at one size on each side of each dispatch size
+    the sweep moved (``[dispatch]`` lines, each with its launches and
+    times): the grid threshold (point-to-point at 65,535 and 65,536 rows:
+    K3 below it; K1's seed, K4 and K2 from it), the fused cap (``nn_method="pallas"``: K3 up to it,
+    K1 and K2 above), the normals' (K6 below, K7 from it), each run held
+    against the other side on the same clouds; the chain's bucket (none on
+    the card: K3 on each unbucketed pair of the bunny scans at
+    ``--subsample 4``, bit-equal to ``bucket_quantum=None`` and held to the
+    bucketed run); and horse_tr1 3 through ``icp-torch`` with "auto" (K3)
+    against the reference binary's fixture.  Returns the launches of the
+    "auto" runs."""
     import numpy as np
     import torch
+
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.ops.normals import knn_indices
+    from icp_tpu_torch.ops.padding import resolve_auto_bucket
+    from icp_tpu_torch.ops.transform import apply_similarity
+    from icp_tpu_torch.slam.pairwise import register_chain
+
+    t_all = time.perf_counter()
+    total = {}
+    f32 = dict(dtype=torch.float32, device="cuda")
+    for const, n, nn, path, other_nn, other_path in DISPATCH_CASES:
+        model, scene = (torch.tensor(c, **f32) for c in scale_pair_np(seed, n)[:2])
+        label = f"{const}_{n}"
+
+        def run(k, nn, threshold=1e-5):
+            return icp(model, scene, ICPConfig(max_iter=k, threshold=threshold, nn_method=nn))
+
+        got, used = _counted(lambda: run(30, nn))
+        _dispatch_path(label, path, used)
+        _add(total, used)
+        with _dispatch_gate(other_path):
+            want, other_used = _counted(lambda: run(30, other_nn))
+            _dispatch_path(f"{label} other side", other_path, other_used)
+            other_ms = _ms_per_iter(lambda k: float(run(k, other_nn, -math.inf).err), 1, 6)
+        ms = _ms_per_iter(lambda k: float(run(k, nn, -math.inf).err), 1, 6)
+        off = max_abs(got.points, want.points)
+        require(int(got.iters) == int(want.iters) and off <= DISPATCH_POINTS_ATOL,
+                f"dispatch {label}: {int(got.iters)} iterations and {int(want.iters)} on the "
+                f"other side, points {off:.3g} apart")
+        say("dispatch", case=label, rows=n, nn_method=nn, path=path, iters=int(got.iters),
+            ms_per_iter=f"{ms:.4f}", other_side=other_path, other_ms_per_iter=f"{other_ms:.4f}",
+            points_max_abs_err_vs_other=f"{off:.3e}", launches=used, card=repr(smi))
+
+    horse = torch.tensor(_load("horse_ref.txt"), **f32)
+    rng = np.random.default_rng(seed)
+    for n in DISPATCH_NORMALS_ROWS:
+        pts = horse[torch.as_tensor(rng.integers(0, horse.shape[0], n), device="cuda")]
+        pts = pts + 2e-4 * torch.randn(pts.shape, generator=torch.Generator("cuda").manual_seed(n),
+                                       device="cuda")
+        idx, used = _counted(lambda: knn_indices(pts, NORMAL_K))
+        kernel, other = ("knn_grid", "dense") if n >= DISPATCH_NORMALS_ROWS[1] \
+            else ("knn_dense", "grid")
+        require(used[kernel] >= 1 and sum(used.values()) == used[kernel],
+                f"dispatch normals_{n}: {kernel} not taken ({used})")
+        _add(total, used)
+        want = knn_indices(pts, NORMAL_K, method=other)
+        require(bool(torch.equal(idx, want)), f"dispatch normals_{n}: the {other} kNN differs")
+        knn_indices(pts, NORMAL_K)
+        ms = statistics.median(_wall(lambda: knn_indices(pts, NORMAL_K)) for _ in range(3))
+        other_ms = statistics.median(_wall(lambda: knn_indices(pts, NORMAL_K, method=other))
+                                     for _ in range(3))
+        say("dispatch", case=f"normals_threshold_{n}", rows=n, k=NORMAL_K, kernel=kernel,
+            ms=f"{ms * 1e3:.4f}", other_side=other, other_ms=f"{other_ms * 1e3:.4f}",
+            indices_equal_other=True, launches=used, card=repr(smi))
+
+    # the chain's bucket at the SLAM CLI's defaults (icp-slam-torch)
+    clouds = [_load(f"{v}.txt")[::4] for v in BUNNY]
+    cfg = ICPConfig(max_iter=60, threshold=1e-5, with_scale=False, validate_inputs=False)
+    quantum = resolve_auto_bucket(clouds, "cpu")
+    require(resolve_auto_bucket(clouds, "cuda") is None and quantum,
+            f"dispatch chain: auto bucket {resolve_auto_bucket(clouds, 'cuda')} on the card, "
+            f"{quantum} on the CPU")
+    runs = {}
+    for bucket in ("auto", None, quantum):
+        runs[bucket], used = _counted(lambda: register_chain(clouds, cfg, bucket_quantum=bucket,
+                                                             device="cuda"))
+        seconds = _wall(lambda: register_chain(clouds, cfg, bucket_quantum=bucket,
+                                               device="cuda"))
+        _dispatch_path(f"chain bucket {bucket}", "pipeline" if bucket == quantum else "fused",
+                       used)
+        if bucket == "auto":
+            _add(total, used)
+        say("dispatch", case="chain_bucket", bucket=bucket, rows=",".join(
+            str(len(c)) for c in clouds), seconds=f"{seconds:.4f}",
+            pair_iters=",".join(str(p.iters) for p in runs[bucket]),
+            pair_errs=",".join(f"{p.err:.6e}" for p in runs[bucket]), launches=used,
+            card=repr(smi))
+    scenes = [torch.tensor(c, **f32) for c in clouds[1:]]
+    for p, q in zip(runs["auto"], runs[None]):
+        require(p.iters == q.iters and p.err == q.err and all(
+            bool(torch.equal(a, b)) for a, b in zip(p.transform, q.transform)),
+            "dispatch chain: auto is not the unbucketed run")
+    off = max(max_abs(apply_similarity(s, p.transform), apply_similarity(s, q.transform))
+              for s, p, q in zip(scenes, runs["auto"], runs[quantum]))
+    require([p.iters for p in runs["auto"]] == [p.iters for p in runs[quantum]]
+            and off <= DISPATCH_CHAIN_ATOL,
+            f"dispatch chain: unbucketed and bucketed pairs {off:.3g} apart")
+    say("dispatch", case="chain_bucket_held", points_max_abs_err_vs_bucketed=f"{off:.3e}")
+
+    out_path = os.path.join(ROOT, "chiprun_out", "dispatch_horse_tr1_output.txt")
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    rc, got, err, seconds, used = _run_cli(
+        [os.path.join(ROOT, "data", "horse_ref.txt"), os.path.join(ROOT, "data", "horse_tr1.txt"),
+         "3", "--output", out_path])
+    require(rc == 0, f"dispatch horse_tr1: exit {rc}\n{err}")
+    worst = _check_trace("dispatch_horse_tr1", got,
+                         _golden(os.path.join(FIXDIR, "horse_tr1_stderr.txt")), 3)
+    off = _check_output("dispatch_horse_tr1", out_path,
+                        os.path.join(FIXDIR, "horse_tr1_output.txt"), 2e-6)
+    _dispatch_path("horse_tr1 cli", "fused", used)
+    _add(total, used)
+    say("dispatch", case="cli_horse_tr1_auto", path="fused", iters=len(got),
+        trace_max_rel_err=f"{worst:.3e}", output_max_abs_err=f"{off:.3e}",
+        seconds=f"{seconds:.3f}", launches=used)
+    say("dispatch", seconds=f"{time.perf_counter() - t_all:.1f}")
+    return total
+
+
+def scale_pair(seed: int, n: int = 1_000_000):
+    """(model, scene, s_true) on the card: ``scale_pair_np``'s clouds."""
+    import torch
+
+    model_np, scene_np, s_true = scale_pair_np(seed, n)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return torch.tensor(model_np, **f32), torch.tensor(scene_np, **f32), s_true
+
+
+def scale_pair_np(seed: int, n: int = 1_000_000):
+    """(model, scene, s_true) as float64 arrays: horse upsampled to ``n``
+    points with seeded jitter; the scene is another jittered draw moved by a
+    known similarity (4 degrees about a seeded axis, scale 1.03, a small
+    shift)."""
+    import numpy as np
 
     rng = np.random.default_rng(seed)
     horse = _load("horse_ref.txt")
@@ -2361,8 +2612,7 @@ def scale_pair(seed: int, n: int = 1_000_000):
     R = np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
     s_true, t_true = 1.03, np.array([0.004, -0.003, 0.002])
     scene_np = s_true * (base + jitter * rng.standard_normal(base.shape)) @ R.T + t_true
-    f32 = dict(dtype=torch.float32, device="cuda")
-    return torch.tensor(model_np, **f32), torch.tensor(scene_np, **f32), s_true
+    return model_np, scene_np, s_true
 
 
 def grid_loop_states(model, scene, iterations: int):
@@ -2720,8 +2970,9 @@ def _slam_chain_batched() -> dict:
     pair's ``icp_fixed_iters`` within 1e-4; ``pallas``/``qcp_fused`` (masked: one
     K1 and one K2 launch an iteration for all the pairs) held to it within
     1e-6 (points) and 1e-9 (transform), the float64 Horn sums over a pair
-    axis adding in another order; and ``"auto"`` (the grid path pair by
-    pair: K1's seed, K4 and K2 each iteration)."""
+    axis adding in another order; ``"auto"`` (on the card the batch's
+    dense path: the pallas/qcp_fused run bit for bit); and the grid path
+    pair by pair (K1's seed, K4 and K2 each iteration)."""
     import numpy as np
     import torch
 
@@ -2737,14 +2988,15 @@ def _slam_chain_batched() -> dict:
     for path, kw in (("bcast_eigh", {}), ("pallas_qcp_fused",
                                           dict(solver="qcp_fused", nn_method="pallas")),
                      ("bf16_eigh", dict(nn_method="bf16")),
-                     ("auto", dict(solver="auto", nn_method="auto"))):
+                     ("auto", dict(solver="auto", nn_method="auto")),
+                     ("grid", dict(solver="auto", nn_method="grid"))):
         out, used = _counted(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
         seconds = _wall(lambda: register_chain_batched(clouds, n_iters=n_iters, **kw))
         require(len(out) == n_pairs and all(
             r.points.shape == (len(c), 3) and bool(torch.isfinite(r.points).all())
             for r, c in zip(out, clouds[1:])), f"slam chain {path}: bad results")
         worst = worst_p = 0.0
-        if path != "auto":
+        if path not in ("auto", "grid"):
             for b in range(n_pairs):
                 mp, mn = pad_to_bucket(clouds[b], n_pad=pad)
                 sp, sn = pad_to_bucket(clouds[b + 1], n_pad=pad)
@@ -2773,15 +3025,24 @@ def _slam_chain_batched() -> dict:
                     f"slam chain {path}: an iteration {sp:.3g} / {se:.3g} from the pair's own")
             step = dict(lockstep_points_max_abs_err=f"{sp:.3e}",
                         lockstep_err_excess_over_rtol=f"{se:.3e}")
-        if path == "auto":
+        if path == "pallas_qcp_fused":
+            dense = out
+        if path == "auto":  # on the card the batch's dense path, as pallas/qcp_fused
+            require({k: v for k, v in used.items() if v} == {"nn_dense": n_iters,
+                                                              "qcp_step": n_iters}
+                    and all(bool(torch.equal(a.points, b.points)) for a, b in zip(out, dense)),
+                    f"slam chain {path}: not the pallas/qcp_fused run ({used})")
+        if path == "grid":
             require(used["nn_grid"] >= n_pairs * n_iters and used["qcp_step"] >= n_pairs * n_iters
                     and used["nn_dense"] >= n_pairs, f"slam chain {path}: grid path ({used})")
         if path != "bcast_eigh":
             _add(launches, used)
         say("slam", case="register_chain_batched", path=path, pairs=n_pairs,
             rows=",".join(str(len(c)) for c in clouds), iters=n_iters,
-            transform_max_abs_err_vs_pair=f"{worst:.3e}" if path != "auto" else "n/a",
-            points_max_abs_err_vs_pair=f"{worst_p:.3e}" if path != "auto" else "n/a", **step,
+            transform_max_abs_err_vs_pair=f"{worst:.3e}" if path not in ("auto", "grid")
+            else "n/a",
+            points_max_abs_err_vs_pair=f"{worst_p:.3e}" if path not in ("auto", "grid")
+            else "n/a", **step,
             errs=",".join(f"{float(r.err):.3e}" for r in out), ms=f"{seconds * 1e3:.1f}",
             ms_per_pair=f"{seconds * 1e3 / n_pairs:.2f}",
             ms_per_pair_iter=f"{seconds * 1e3 / n_pairs / n_iters:.3f}", launches=used)
@@ -2911,9 +3172,10 @@ def _slam_cli_fixture(tmp: str, device: str = "cuda", folder: str = "torch_slam"
     return used
 
 
-def _slam_cli_full(tmp: str, device: str = "cuda", subsample: int = 1) -> dict:
+def _slam_cli_full(tmp: str, device: str = "cuda", subsample: int = 1, nn: str = "auto") -> dict:
     """``icp-slam-torch`` on the five scans at full resolution (31,702-40,257
-    rows: the grid path, K7 normals) with ``--engine point_to_plane --init
+    rows; on the card "auto" takes the dense path, K6 normals and no
+    bucket, ``nn="grid"`` the grid path) with ``--engine point_to_plane --init
     fpfh --trim 0.3 --multiscale 4 1 --detect-closures --closure-min-inliers
     0.06 --refine``: closure 0<-4 found, every pair's trimmed error under 5e-4, and the pose graph
     shrinking the closure's inconsistency (to 0.6 of it, rotation and
@@ -2922,11 +3184,11 @@ def _slam_cli_full(tmp: str, device: str = "cuda", subsample: int = 1) -> dict:
 
     flags = ["--subsample", str(subsample), "--engine", "point_to_plane", "--init", "fpfh",
              "--trim", "0.3", "--multiscale", "4", "1", "--detect-closures",
-             "--closure-min-inliers", str(FULL_CLOSURE_MIN), "--refine"]
-    poses = os.path.join(tmp, "full_poses.npz")
+             "--closure-min-inliers", str(FULL_CLOSURE_MIN), "--refine", "--nn", nn]
+    poses = os.path.join(tmp, f"full_{nn}_poses.npz")
     rc, err, seconds, used = _run_slam_cli(
         [os.path.join(ROOT, "data", f"{v}.txt") for v in BUNNY] + flags
-        + ["--output-prefix", os.path.join(tmp, "full_"), "--poses", poses], device)
+        + ["--output-prefix", os.path.join(tmp, f"full_{nn}_"), "--poses", poses], device)
     require(rc == 0, f"slam cli full: exit {rc}\n{err[-3000:]}")
     pairs = _SLAM_PAIR_RE.findall(err)
     require(len(pairs) == 4 and all(float(p[3]) < 5e-4 for p in pairs),
@@ -2942,6 +3204,8 @@ def _slam_cli_full(tmp: str, device: str = "cuda", subsample: int = 1) -> dict:
     got = np.load(poses)
     require(ba is not None and all(bool(np.isfinite(got[k]).all()) for k in "sRt"),
             f"slam cli full: bundle adjustment\n{err[-2000:]}")
+    require(nn != "grid" or device != "cuda" or used["nn_grid"] > 0,
+            "slam cli full: the grid path was not taken")
     say("slam", case="cli_full_resolution", flags=" ".join(flags),
         pairs=";".join(f"{p[0]}->{p[1]}:{p[2]}:{p[3]}" for p in pairs),
         closures=",".join(f"{c[0]}<-{c[1]}:{c[2]}" for c in closures),
@@ -2958,7 +3222,7 @@ def phase_slam(seed: int, tmp: str) -> dict:
     launches = {}
     for used in (_slam_batched(seed), _slam_chain_batched(), _slam_global_register(),
                  _slam_cli_fixture(tmp), _slam_cli_fixture(tmp, folder="torch_slam_grid"),
-                 _slam_cli_full(tmp)):
+                 _slam_cli_full(tmp), _slam_cli_full(tmp, nn="grid")):
         _add(launches, used)
     return launches
 
@@ -3028,10 +3292,10 @@ def _sharded_case(label: str, sharded, single, timed, k: tuple, smi: str, **info
 def _sharded_point_to_point(mesh, smi: str, seed: int) -> dict:
     """``icp_sharded`` (ring and all-gather, traced; trimmed; K1 each hop,
     K5 each iteration) and ``icp_sharded_2d`` on a (2, world / 2) mesh (1 x
-    1 at world size 1) on cow; the
-    sharded grid (K4 each hop) on horse, horse with a capacity of one
-    candidate, and the 1M pair, 10 iterations (timed over iterations 7-10,
-    past K4's first, larger tables)."""
+    1 at world size 1) on cow; horse with "auto" (on the card the dense
+    ring); the sharded grid (K4 each hop) on horse, horse with a capacity
+    of one candidate, and the 1M pair, 10 iterations (timed over iterations
+    7-10, past K4's first, larger tables)."""
     import torch
     import torch.distributed as dist
 
@@ -3051,8 +3315,9 @@ def _sharded_point_to_point(mesh, smi: str, seed: int) -> dict:
         ("cow_allgather", "cow", dict(nn_method="pallas"), dict(ring=False, trace=True), (1, 21)),
         ("cow_trimmed", "cow", dict(nn_method="pallas", trim_fraction=0.1), {}, (1, 21)),
         ("cow_2d", "cow", dict(nn_method="pallas"), dict(mesh2d=True), (1, 21)),
-        ("horse_grid", "horse", {}, dict(trace=True), (1, 11)),
-        ("horse_grid_cap1", "horse", dict(grid_max_candidates=1), {}, (1, 6)),
+        ("horse_auto", "horse", {}, dict(trace=True), (1, 11)),
+        ("horse_grid", "horse", dict(nn_method="grid"), dict(trace=True), (1, 11)),
+        ("horse_grid_cap1", "horse", dict(nn_method="grid", grid_max_candidates=1), {}, (1, 6)),
         ("scale_1m_grid", "scale_1m", dict(max_iter=10, threshold=-math.inf), {}, (6, 10)),
     ]
     for label, name, cfg_kw, kw, k in cases:
@@ -3075,7 +3340,8 @@ def _sharded_point_to_point(mesh, smi: str, seed: int) -> dict:
         used = _sharded_case(label, lambda: sharded(cfg), lambda: icp(model, scene, cfg,
                                                                         trace=kw.get("trace", False)),
                              timed, k, smi, rows=scene.shape[0])
-        hop = "nn_grid" if name != "cow" else "nn_dense"
+        hop = "nn_grid" if cfg.resolved_nn_method("cuda", scene.shape[0]) == "grid" \
+            else "nn_dense"
         require(used[hop] >= 1 and used["qcp_rotation"] >= 1,
                 f"sharded {label}: {hop} or K5 not launched ({used})")
         _add(total, used)
@@ -3087,8 +3353,10 @@ def _sharded_plane(mesh, smi: str) -> dict:
     (``icp_point_to_plane_sharded``, ``icp_symmetric_sharded``,
     ``icp_generalized_sharded``), 30 iterations, as a user calls them
     (normals estimated inside): point-to-plane on cow (K6 normals, K1 each
-    hop) and the three on horse (K7 normals, ``gn_sharded_grid`` with K4's
-    normals payload), each against the single-device engine."""
+    hop) and the three on horse ("auto": on the card K6 normals and K1 each
+    hop), and the three on horse's grid (K7 normals handed in,
+    ``gn_sharded_grid`` with K4's normals payload), each against the
+    single-device engine."""
     import torch
 
     from icp_tpu_torch import (ICPConfig, icp_generalized_sharded, icp_point_to_plane_sharded,
@@ -3109,30 +3377,44 @@ def _sharded_plane(mesh, smi: str) -> dict:
                                        scene_normals=scene_normals, mesh=mesh, **kw)
 
     total = {}
-    for name, engines in (("cow", ("point_to_plane",)),
-                          ("horse", ("point_to_plane", "symmetric", "gicp"))):
+    # "auto" (normals estimated inside; on the card dense at horse, K6
+    # normals) and horse's grid (K7 normals estimated in the run, handed to
+    # both entries)
+    for name, engines, nn in (("cow", ("point_to_plane",), "auto"),
+                              ("horse", ("point_to_plane", "symmetric", "gicp"), "auto"),
+                              ("horse", ("point_to_plane", "symmetric", "gicp"), "grid")):
         model, scene = (torch.tensor(_load(f"{name}_{s}.txt"), dtype=torch.float32,
                                      device="cuda") for s in ("ref", "tr1"))
-        normals = {"model_normals": estimate_normals(model),
-                   "scene_normals": estimate_normals(scene)}
+        method = "grid" if nn == "grid" else "auto"
+        normals = {"model_normals": estimate_normals(model, method=method),
+                   "scene_normals": estimate_normals(scene, method=method)}
+        given = normals if nn == "grid" else {}
         for engine in engines:
-            cfg = ICPConfig(max_iter=30)
+            cfg = ICPConfig(max_iter=30, nn_method=nn)
 
-            def timed(entry, n, engine=engine, model=model, scene=scene):
-                c = ICPConfig(max_iter=n, threshold=-math.inf)
+            def timed(entry, n, engine=engine, model=model, scene=scene, nn=nn):
+                c = ICPConfig(max_iter=n, threshold=-math.inf, nn_method=nn)
                 fn = sharded if entry == "sharded" else run_engine
                 res = fn(engine, model, scene, c, **normals)
                 require(int(res.iters) == n, f"sharded {engine}: timed run stopped early")
 
+            def entry(engine=engine, model=model, scene=scene, cfg=cfg, method=method):
+                kw = {}
+                if given:  # estimated in the counted run
+                    kw = {"model_normals": estimate_normals(model, method=method),
+                          "scene_normals": estimate_normals(scene, method=method)}
+                return sharded(engine, model, scene, cfg, trace=True, **kw)
+
+            label = f"{engine}_{name}" + ("_grid" if nn == "grid" else "")
             used = _sharded_case(
-                f"{engine}_{name}",
-                lambda: sharded(engine, model, scene, cfg, trace=True),
-                lambda: run_engine(engine, model, scene, cfg, trace=True), timed, (1, 11),
-                smi, rows=scene.shape[0])
-            knn = "knn_dense" if name == "cow" else "knn_grid"
-            hop = "nn_dense" if name == "cow" else "nn_grid"
+                label, entry,
+                lambda: run_engine(engine, model, scene, cfg, trace=True, **given), timed,
+                (1, 11), smi, rows=scene.shape[0])
+            grid = cfg.resolved_nn_method("cuda", scene.shape[0]) == "grid"
+            knn = "knn_grid" if grid or method == "grid" else "knn_dense"
+            hop = "nn_grid" if grid else "nn_dense"
             require(used[knn] >= 1 and used[hop] >= 1,
-                    f"sharded {engine}_{name}: {knn} or {hop} not launched ({used})")
+                    f"sharded {label}: {knn} or {hop} not launched ({used})")
             _add(total, used)
     return total
 
@@ -3156,7 +3438,7 @@ def _sharded_bundle_adjust(mesh, smi: str) -> dict:
     clouds = [_load(f"{v}.txt")[::16].astype(np.float32) for v in BUNNY]
     cfg = ICPConfig(max_iter=30, validate_inputs=False, with_scale=False, trim_fraction=0.3)
     pairs = register_chain(clouds, cfg, multiscale=(4, 1), init="pca", engine="point_to_plane",
-                           bucket_quantum=resolve_auto_bucket(clouds), device="cuda")
+                           bucket_quantum=resolve_auto_bucket(clouds, "cuda"), device="cuda")
     poses = chain_to_world_poses(pairs)
     corr = []
     for k, pr in enumerate(pairs):
@@ -3516,10 +3798,10 @@ def _bench_matrix(workload: str) -> dict:
     import torch
 
     from icp_tpu_torch.bench.harness import benchmark_matrix, load_pair
-    from icp_tpu_torch.kernels.icp_fused import MAX_FUSED_MODEL
+    from icp_tpu_torch.kernels.icp_fused import MAX_FUSED_MODEL_CUDA
 
     with contextlib.redirect_stderr(io.StringIO()):
-        fused = load_pair(workload)[0].shape[0] <= MAX_FUSED_MODEL
+        fused = load_pair(workload)[0].shape[0] <= MAX_FUSED_MODEL_CUDA
     total = {}
     for key in BENCH_ROWS:
         if workload == "horse" and key == "full_loop_numpy":
@@ -3636,9 +3918,9 @@ def _torchrun_rank():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,cli,features,slam,sharded,scale,bench",
-                    help="comma list of kernels, cli, features, slam, sharded, scale, bench "
-                         "(device and build always run)")
+    ap.add_argument("--phases", default="kernels,cli,dispatch,features,slam,sharded,scale,bench",
+                    help="comma list of kernels, cli, dispatch, features, slam, sharded, scale, "
+                         "bench (device and build always run)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3667,6 +3949,8 @@ def run_phases(seed: int, phases: set) -> int:
         missing = [k for k in KERNELS if not launches.get(k)]
         require(not missing, f"kernels never launched on the main paths: {missing}")
         phase_loop_times()
+    if "dispatch" in phases:
+        _add(launches, phase_dispatch(seed, smi))
     if "features" in phases:
         with tempfile.TemporaryDirectory() as tmp:
             _add(launches, phase_features(tmp))

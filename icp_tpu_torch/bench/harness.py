@@ -28,7 +28,7 @@ stdout-metrics / stderr-logs split).  ``main`` is ``icp-bench-torch``::
 What each row launches on the card: ``closest_pallas`` K1; ``closest_grid``
 K4 (its K1 seed before the timed calls); ``closest_bf16`` K9;
 ``find_alignment`` K5; ``full_loop`` K3 once an iteration (models up to
-``MAX_FUSED_MODEL`` rows; above it the pipeline); ``full_loop_pipeline``
+``MAX_FUSED_MODEL_CUDA`` rows; above it the pipeline); ``full_loop_pipeline``
 K1 and K2 once an iteration; ``full_loop_grid`` K1's seed, then K4 and K2
 an iteration; ``global_register`` K6; ``batched_bucketed`` K1 and K2 once an
 iteration for the four pairs; ``full_loop_sharded`` K1 a ring hop and K5 an
@@ -211,7 +211,7 @@ def loop_per_iter(ref: torch.Tensor, tr1: torch.Tensor, path: str, small: int = 
     ``icp_fixed_iters(ref, tr1)`` (``ref`` the model, ``tr1`` the scene) on
     ``path``, by ``differenced``.  On the card (``nn_method="pallas"``,
     ``solver="qcp_fused"``): ``"fused"`` the dense loop as dispatched (K3
-    once an iteration up to ``MAX_FUSED_MODEL`` model rows, above it the
+    once an iteration up to ``MAX_FUSED_MODEL_CUDA`` model rows, above it the
     pipeline), ``"pipeline"`` the same under ``fused_path_disabled`` (K1,
     float64 sums, K2), ``"grid"`` ``nn_method="grid"`` (K1's seed, then K4
     and K2).  On the CPU the dense paths run ``bcast``/``eigh``, the plain

@@ -6,8 +6,8 @@ selects this package's dense NN kernel (``kernels/nn_dense.py``),
 ``nn_method="grid"`` the kd-tile work-list kernel (``kernels/nn_grid.py``),
 and ``solver="qcp_fused"`` the scalar-solve kernel (``kernels/qcp.py``).
 Where the JAX package resolves ``"auto"`` for ``"tpu"``, this one resolves it
-for ``"cuda"``; on ``"cpu"`` both resolve to the plain ``bcast``/``eigh``
-paths.
+for ``"cuda"``, at the card's own threshold; on ``"cpu"`` both resolve to
+the plain ``bcast``/``eigh`` paths at every size.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import dataclasses
 import torch
 
 # Smallest cloud (max of model/scene rows) at which ``nn_method="auto"``
-# takes the kd-grid engine on the card.  This is the JAX package's value,
-# kept so that the port takes the same branches as the reference; it has
-# not yet been measured on the H100.
-GRID_AUTO_THRESHOLD = 4096
+# takes the kd-grid engine on the card; only ``"cuda"`` reads it.  Measured
+# on an NVIDIA H100 80GB HBM3 at 700 W by ``scripts/dispatch_sweep.py``
+# (``perf_h100/dispatch_sweep.jsonl``): the point-to-point dense loop (K3)
+# is faster than the grid's at every size up to 48,485 rows and slower
+# from 65,536 (the point-to-plane K1 loop from 131,072: one size serves
+# every engine, as in JAX).  JAX's TPU value is 4,096.
+GRID_AUTO_THRESHOLD = 65536
 
 
 @dataclasses.dataclass(frozen=True)

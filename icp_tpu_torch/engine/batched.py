@@ -9,7 +9,8 @@ same ops and kernels for B pairs as for one, with no Python loop over the
 pairs and no host read inside the loop:
 
   * ``nn_method="pallas"``, ``solver="qcp_fused"``, unmasked and untrimmed
-    with models of at most ``MAX_FUSED_MODEL`` rows: one launch of K3 an
+    with models of at most ``MAX_FUSED_MODEL`` rows (``MAX_FUSED_MODEL_CUDA``
+    on the card): one launch of K3 an
     iteration (``kernels/icp_fused.py``), each pair's state, loop control
     and error buffer its own;
   * the same bucket-padded (``scene_ns``), trimmed or with larger models:
@@ -186,7 +187,7 @@ def _icp_batched_kernels(models, scenes, *, n_iters: int, with_scale: bool,
     pipeline paths (``engine/icp._icp_dense``) with a pair axis.  Each pair
     has its own (32,) state block, (4,) loop control and (n_iters,) error
     buffer; every iteration is one K3 launch (unmasked, untrimmed, models
-    of at most ``MAX_FUSED_MODEL`` rows), or one K1 launch, the float64
+    within the fused cap), or one K1 launch, the float64
     Horn sums and one K2 launch, for all the pairs.  Fixed mode: only the
     bound raises a pair's done flag, so no iteration needs a host read."""
     b, dt, dev = scenes.shape[0], scenes.dtype, scenes.device
@@ -195,7 +196,7 @@ def _icp_batched_kernels(models, scenes, *, n_iters: int, with_scale: bool,
     ctl, errs = new_loop_control(n_iters, dev, b), new_err_buffer(n_iters, dev, b)
     step_kw = dict(with_scale=with_scale, threshold=-math.inf,
                    err_factor=2.0 if reference_compat else 1.0, converge=False, guard=False)
-    if fused_path_available("qcp_fused", "pallas", trim_fraction, models.shape[1],
+    if fused_path_available("qcp_fused", "pallas", trim_fraction, models,
                             masked=mask is not None):
         prep = prepare_fused_inputs(scenes, models)
         for _ in range(n_iters):

@@ -22,8 +22,9 @@ error on the host instead — ``torch.linalg.eigh`` synchronises with the
 host in any case.
 
 Paths, as in the JAX engine (``icp_tpu/engine/icp.py:160-219``):
-  * fused (qcp_fused + pallas, model <= ``MAX_FUSED_MODEL``, untrimmed and
-    not bucket-padded): one launch of K3 per iteration, whose last block
+  * fused (qcp_fused + pallas, model within the fused cap
+    (``kernels/icp_fused.fused_path_available``), untrimmed and not
+    bucket-padded): one launch of K3 per iteration, whose last block
     runs K2's step; only the state block changes, the moved cloud is never
     written until the one apply after the loop;
   * pipeline (qcp_fused + pallas otherwise): NN (K1), matched-point
@@ -327,7 +328,7 @@ def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
     model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
     loop = LoopState(bound, length, threshold, reference_compat, dev, converge, guard)
     step_kw = loop.step_kw(with_scale)
-    if fused_path_available(solver, nn_method, trim_fraction, model.shape[0],
+    if fused_path_available(solver, nn_method, trim_fraction, model,
                             masked=mask is not None):
         prep = prepare_fused_inputs(scene, model)
         state = identity_state(dev) if init is None else pack_total_state(init, dev)

@@ -37,10 +37,14 @@ from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points
 from icp_tpu_torch.kernels.qcp import CTL_SLOTS, N_SUMS, STATE_SLOTS, qcp_step_plain
 
-# Model-size cap of the fused path: the JAX package's value (its fully
-# unrolled fold range), kept so the port takes the same branches as the
-# reference; not yet measured on the H100.
+# Model-size cap of the fused path on the CPU: the JAX package's (its
+# fully unrolled fold range), so the plain versions take the reference's
+# branches.  K3 folds any model in chunks; on the card its cap is the
+# largest model at which ``scripts/dispatch_sweep.py`` measured it (NVIDIA
+# H100 80GB HBM3, 700 W): faster than the pipeline (K1, the float64 sums,
+# K2) at every size from 4,096 to 262,144 rows.
 MAX_FUSED_MODEL = 5120
+MAX_FUSED_MODEL_CUDA = 262144
 
 _PLAIN_BLOCK_ELEMS = 1 << 24
 
@@ -96,12 +100,14 @@ def prepare_fused_inputs(scene: torch.Tensor, model: torch.Tensor) -> FusedInput
 
 
 def fused_path_available(solver: str, nn_method: str, trim_fraction: float,
-                         n_model: int, masked: bool = False) -> bool:
+                         model: torch.Tensor, masked: bool = False) -> bool:
     """The fused path serves qcp_fused + pallas, untrimmed, unmasked (no
     bucket padding: K3 has no weighted sums, ``icp_tpu/engine/icp.py:337``),
-    models of at most ``MAX_FUSED_MODEL`` points (as ``icp_fused.py:306``)."""
+    models (``([B,] M, 3)``) of at most ``MAX_FUSED_MODEL`` points on the
+    CPU (as ``icp_fused.py:306``), ``MAX_FUSED_MODEL_CUDA`` on the card."""
+    cap = MAX_FUSED_MODEL_CUDA if model.is_cuda else MAX_FUSED_MODEL
     return (solver == "qcp_fused" and nn_method == "pallas" and not masked
-            and trim_fraction == 0.0 and n_model <= MAX_FUSED_MODEL)
+            and trim_fraction == 0.0 and model.shape[-2] <= cap)
 
 
 def _check_loop(prep: FusedInputs, state, ctl, errs) -> tuple:

@@ -2,8 +2,8 @@
 ``icp_tpu/ops/normals.py``).
 
 The neighbours come from the kNN kernels: K6 (``kernels/knn_dense.py``)
-below ``NORMALS_GRID_THRESHOLD`` points and K7 (``kernels/knn_grid.py``)
-from there up.  The normal is the smallest eigenvector of the neighbours'
+below ``NORMALS_GRID_THRESHOLD`` points (``NORMALS_GRID_THRESHOLD_CUDA``
+on the card) and K7 (``kernels/knn_grid.py``) from there up.  The normal is the smallest eigenvector of the neighbours'
 covariance, in closed form (trigonometric eigenvalues and the largest
 cross product of the rows of C - lambda_min I), as tensor ops with no
 library eigensolver and no host read.  Orientation is arbitrary; the
@@ -20,10 +20,14 @@ import torch
 from icp_tpu_torch.engine.icp import as_points
 from icp_tpu_torch.utils.precision import in_full_float32
 
-# Smallest cloud at which ``method="auto"`` takes the grid kNN (K7).  This is
-# the JAX package's value, kept so that the port takes the same branches as
-# the reference; it has not been measured on the H100.
+# Smallest cloud at which ``method="auto"`` takes the grid kNN (K7): on the
+# CPU the JAX package's value, so the plain versions take the reference's
+# branches; on the card as ``scripts/dispatch_sweep.py`` measured it (NVIDIA
+# H100 80GB HBM3, 700 W; k 17): K6 faster at every size up to 65,536 rows
+# (beyond the spread of the passes up to 48,485), K7 (its plan, host read
+# and kd sorts) from 131,072.
 NORMALS_GRID_THRESHOLD = 16384
+NORMALS_GRID_THRESHOLD_CUDA = 131072
 
 
 def _det3(B: torch.Tensor) -> torch.Tensor:
@@ -76,10 +80,12 @@ def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
                 grid_max_candidates: int = 32) -> torch.Tensor:
     """(N, k) indices of each point's k nearest points, itself included:
     K6 (``"dense"``) or K7 (``"grid"``); ``"auto"`` is the grid from
-    ``NORMALS_GRID_THRESHOLD`` points."""
+    ``NORMALS_GRID_THRESHOLD`` points (``NORMALS_GRID_THRESHOLD_CUDA`` on
+    the card)."""
     n = points.shape[0]
     if method == "auto":
-        method = "grid" if n >= NORMALS_GRID_THRESHOLD else "dense"
+        least = NORMALS_GRID_THRESHOLD_CUDA if points.is_cuda else NORMALS_GRID_THRESHOLD
+        method = "grid" if n >= least else "dense"
     pts32 = points.to(torch.float32).contiguous()
     if method == "dense":
         from icp_tpu_torch.kernels.knn_dense import knn_dense
@@ -112,8 +118,8 @@ def estimate_normals(points, k: int = 16, method: str = "auto",
     (itself among them), from K6 or K7 in float32 whatever the cloud's
     dtype; the PCA runs in the cloud's dtype (float32 for numpy input).
     ``method``: ``"dense"``, ``"grid"`` or ``"auto"`` (grid from 16,384
-    points).  Devices as in ``icp``: numpy input goes to the card unless
-    ``device="cpu"``."""
+    points, 131,072 on the card).  Devices as in ``icp``: numpy input goes
+    to the card unless ``device="cpu"``."""
     dtype = points.dtype if isinstance(points, torch.Tensor) else torch.float32
     pts = as_points(points, dtype, device)
     k_eff = min(k + 1, pts.shape[0])

@@ -43,9 +43,16 @@ def auto_quantum(n_max: int) -> int:
     return min(4096, max(64, 1 << max(0, target - 1).bit_length()))
 
 
-def resolve_auto_bucket(clouds) -> int | None:
-    """The chain-level "auto" policy: ``auto_quantum`` of the largest cloud
-    when the chain has unequal cloud sizes, None when all share one."""
+def resolve_auto_bucket(clouds, device) -> int | None:
+    """The chain-level "auto" policy for a chain registered on ``device``:
+    on the CPU, as in JAX, ``auto_quantum`` of the largest cloud when the
+    chain has unequal cloud sizes, None when all share one.  On the card
+    None: the buckets serve the TPU's compile cache, which the card does
+    not have, and ``scripts/dispatch_sweep.py`` measured the bunny chain
+    (NVIDIA H100 80GB HBM3, 700 W) slower bucketed on the dense paths, the
+    same on the grid, with the same pairs' iterations and errors."""
+    if torch.device(device).type == "cuda":
+        return None
     sizes = {len(c) for c in clouds}
     return auto_quantum(max(sizes)) if len(sizes) > 1 else None
 

@@ -48,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trimmed registration: reject this fraction of worst matches")
     p.add_argument("--bucket", type=int, default=-1, metavar="QUANTUM",
                    help="pad each pair's clouds to the next QUANTUM multiple (true counts "
-                        "masked); -1 = auto (on for unequal-count chains), 0 = off")
+                        "masked); -1 = auto (on for unequal-count chains on the CPU, "
+                        "off on the card), 0 = off")
     p.add_argument("--refine", action="store_true", help="bundle-adjust poses after the chain")
     p.add_argument("--detect-closures", action="store_true",
                    help="detect overlapping non-adjacent scan pairs (FPFH + RANSAC), "
@@ -104,7 +105,7 @@ def main(argv=None) -> int:
                     nn_method=args.nn, with_scale=args.scale, validate_inputs=False,
                     trim_fraction=args.trim)
     if args.bucket < 0:
-        bucket_quantum = resolve_auto_bucket(reg_clouds)
+        bucket_quantum = resolve_auto_bucket(reg_clouds, dev)
     else:
         bucket_quantum = args.bucket or None
     if bucket_quantum:

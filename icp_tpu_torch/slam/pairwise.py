@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from icp_tpu_torch.config import ICPConfig
+from icp_tpu_torch.engine.icp import target_device
 from icp_tpu_torch.engine.plane import run_engine
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.padding import bucket_size, pad_to_bucket, resolve_auto_bucket
@@ -119,10 +120,10 @@ def register_chain(clouds: Sequence[np.ndarray], config: Optional[ICPConfig] = N
     """Register each scan onto its predecessor: ``results[i]`` maps cloud
     i+1 into cloud i's frame.  ``bucket_quantum="auto"`` pads every pair
     of an unequal-count chain to the chain-wide largest bucket of each
-    level (``resolve_auto_bucket``), None turns it off, an int sets the
-    quantum."""
+    level on the CPU, none on the card (``resolve_auto_bucket``), None
+    turns it off, an int sets the quantum."""
     if bucket_quantum == "auto":
-        bucket_quantum = resolve_auto_bucket(clouds)
+        bucket_quantum = resolve_auto_bucket(clouds, target_device(None, device))
     pad_sizes = None
     if bucket_quantum:
         pad_sizes = [bucket_size(max(len(c[::k]) for c in clouds), bucket_quantum)

@@ -1097,3 +1097,29 @@ def test_sharded_world1_nccl_matches_single_device(dev, nccl_mesh, case):
     torch.testing.assert_close(sharded.points, single.points, atol=1e-4, rtol=2e-4)
     hops = _build.LAUNCHES["nn_grid" if name == "horse" else "nn_dense"]
     assert hops >= iters and _build.LAUNCHES["qcp_rotation"] >= iters
+
+
+def test_auto_dispatch_on_the_card(dev):
+    """"auto" on the card at the sizes ``scripts/dispatch_sweep.py``
+    measured there: the grid from 65,536 rows, K3 up to 262,144 model
+    rows, K7 normals from 131,072 rows, no chain bucket (on the CPU each
+    resolves as JAX's: ``tests/test_torch_dispatch.py``)."""
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.ops.normals import knn_indices
+    from icp_tpu_torch.ops.padding import resolve_auto_bucket
+
+    cfg = ICPConfig()
+    assert [cfg.resolved_nn_method("cuda", n) for n in (65535, 65536)] == ["pallas", "grid"]
+    assert icp_fused.fused_path_available("qcp_fused", "pallas", 0.0,
+                                          torch.empty((262144, 3), device=dev))
+    assert not icp_fused.fused_path_available("qcp_fused", "pallas", 0.0,
+                                              torch.empty((262145, 3), device=dev))
+    for n, kernel in ((131071, "knn_dense"), (131072, "knn_grid")):
+        pts = _cloud(n, n).to(dev)
+        _build.reset_counts()
+        knn_indices(pts, 4)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[kernel] >= 1 and sum(_build.LAUNCHES.values()) \
+            == _build.LAUNCHES[kernel], dict(_build.LAUNCHES)
+    clouds = [np.zeros((n, 3)) for n in (40256, 31701)]
+    assert resolve_auto_bucket(clouds, dev) is None

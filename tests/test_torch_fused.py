@@ -6,6 +6,8 @@ JAX kernel does all of it in float32; so the tolerances are K2's: R/t atol
 1e-5, s rtol 1e-5, the closed-form residual rtol 1e-3.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,13 +62,32 @@ def test_prepare_fused_inputs_layout():
     np.testing.assert_allclose(prep.mt[:, 3].numpy(), jmt[3, :37], rtol=1e-6)
 
 
-def test_fused_path_gating():
-    assert tf.fused_path_available("qcp_fused", "pallas", 0.0, tf.MAX_FUSED_MODEL)
-    assert not tf.fused_path_available("qcp_fused", "pallas", 0.0, tf.MAX_FUSED_MODEL + 1)
-    assert not tf.fused_path_available("qcp_fused", "bcast", 0.0, 100)
-    assert not tf.fused_path_available("eigh", "pallas", 0.0, 100)
-    assert not tf.fused_path_available("qcp_fused", "pallas", 0.1, 100)
+# The card's fused cap: the largest model scripts/dispatch_sweep.py measured
+# K3 at, faster there than the pipeline (perf_h100/dispatch_sweep.jsonl).
+CARD_FUSED_CAP = 262144
+
+
+def _model(n: int, on_card: bool):
+    """What the gate reads of a model: its rows and whether it is on the
+    card (a card's tensor cannot be made here)."""
+    return SimpleNamespace(shape=(n, 3), is_cuda=on_card)
+
+
+@pytest.mark.parametrize("n", [100, 5119, 5120, 5121, CARD_FUSED_CAP - 1, CARD_FUSED_CAP,
+                               CARD_FUSED_CAP + 1])
+def test_fused_path_gating(n):
+    """On CPU tensors the gate is JAX's at every size; on the card's its cap
+    is the measured one."""
     assert tf.MAX_FUSED_MODEL == jf._MAX_FUSED_MODEL
+    assert tf.MAX_FUSED_MODEL_CUDA == CARD_FUSED_CAP
+    cpu = torch.empty((n, 3))
+    for solver, nn, trim in (("qcp_fused", "pallas", 0.0), ("qcp_fused", "bcast", 0.0),
+                             ("eigh", "pallas", 0.0), ("qcp_fused", "pallas", 0.1)):
+        want = jf.fused_path_available(solver, nn, trim, n)
+        assert tf.fused_path_available(solver, nn, trim, cpu) == want
+        assert tf.fused_path_available(solver, nn, trim, _model(n, True)) == (
+            solver == "qcp_fused" and nn == "pallas" and trim == 0.0 and n <= CARD_FUSED_CAP)
+    assert not tf.fused_path_available("qcp_fused", "pallas", 0.0, _model(n, True), masked=True)
 
 
 def test_fused_step_after_done_is_a_no_op():

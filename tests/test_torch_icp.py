@@ -159,13 +159,23 @@ def test_input_checks_and_options_not_ported(cow):
         icp(cow["ref"], cow["cow_tr1"], guard="host", device="cpu")
 
 
-def test_auto_resolution_mirrors_jax():
+# The card's grid threshold, as scripts/dispatch_sweep.py measured it on the
+# H100 (perf_h100/dispatch_sweep.jsonl); JAX's TPU value is 4,096.
+CARD_GRID_THRESHOLD = 65536
+
+
+@pytest.mark.parametrize("n", [2903, 4095, 4096, 48485, CARD_GRID_THRESHOLD - 1,
+                               CARD_GRID_THRESHOLD, CARD_GRID_THRESHOLD + 1])
+def test_auto_resolution_mirrors_jax(n):
+    """On the CPU "auto" resolves as JAX's at every size; on the card at
+    the card's measured threshold (JAX's TPU resolution takes the grid from
+    4,096)."""
     cfg = ICPConfig()
     jcfg = icp_tpu.ICPConfig()
-    assert icp_tpu_torch.GRID_AUTO_THRESHOLD == icp_tpu.config.GRID_AUTO_THRESHOLD
-    for n in (2903, 4095, 4096, 48485):
-        assert cfg.resolved_nn_method("cuda", n) == jcfg.resolved_nn_method("tpu", n)
-        assert cfg.resolved_nn_method("cpu", n) == jcfg.resolved_nn_method("cpu", n)
+    assert icp_tpu_torch.GRID_AUTO_THRESHOLD == CARD_GRID_THRESHOLD
+    assert cfg.resolved_nn_method("cpu", n) == jcfg.resolved_nn_method("cpu", n)
+    assert cfg.resolved_nn_method("cuda", n) == ("grid" if n >= CARD_GRID_THRESHOLD
+                                                 else "pallas")
     assert cfg.resolved_solver("cuda") == jcfg.resolved_solver("tpu") == "qcp_fused"
     assert cfg.resolved_solver("cpu") == jcfg.resolved_solver("cpu") == "eigh"
 

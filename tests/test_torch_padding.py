@@ -52,8 +52,8 @@ def test_host_functions_match_jax():
         assert auto_quantum(n) == jpad.auto_quantum(n)
     assert auto_quantum(2903) == 512 and auto_quantum(512) == 64
     clouds = [np.zeros((120, 3)), np.zeros((90, 3))]
-    assert resolve_auto_bucket(clouds) == jpad.resolve_auto_bucket(clouds) == 64
-    assert resolve_auto_bucket(clouds[:1]) is None
+    assert resolve_auto_bucket(clouds, "cpu") == jpad.resolve_auto_bucket(clouds) == 64
+    assert resolve_auto_bucket(clouds[:1], "cpu") is None
     with pytest.raises(ValueError):
         bucket_size(0)
     with pytest.raises(ValueError):
