@@ -425,6 +425,40 @@ def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "folded_pairs": folded_pairs(counts, cap, nj, tm, tn)}
 
 
+@contextlib.contextmanager
+def recorded_tables(rec: list):
+    """Each K4 and K7 launch within the body, as its table's shape (``ni``,
+    ``nj``, the tiles, the capacity, and ``k4_table``'s or ``k7_table``'s
+    counts) appended to ``rec``; the first K4 launch also keeps its indices
+    (in the kd order of its scene)."""
+    from unittest import mock
+
+    from icp_tpu_torch.kernels import knn_grid, nn_grid
+
+    k4, k7 = nn_grid.nn_grid, knn_grid.knn_worklist
+
+    def shape(cand, tiles, scene_tile):
+        return {"ni": cand.shape[0], "nj": tiles.shape[0], "scene_tile": scene_tile,
+                "model_tile": tiles.shape[1], "capacity": cand.shape[1]}
+
+    def rec4(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):
+        out = k4(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
+        first = not any(r["kernel"] == "K4" for r in rec)
+        rec.append({"kernel": "K4", **shape(cand, tiles, scene_tile),
+                    **k4_table(cand, counts, tiles.shape[0], tiles.shape[1], scene_tile),
+                    "idx": out[1] if first else None})
+        return out
+
+    def rec7(cand, counts, query, tiles, scene_tile, k, bound=None):
+        rec.append({"kernel": "K7", **shape(cand, tiles, scene_tile),
+                    **k7_table(cand, counts, tiles.shape[0], tiles.shape[1], scene_tile)})
+        return k7(cand, counts, query, tiles, scene_tile, k, bound)
+
+    with mock.patch.object(nn_grid, "nn_grid", rec4), \
+            mock.patch.object(knn_grid, "knn_worklist", rec7):
+        yield
+
+
 def device_us(fn, names, reps: int = 20) -> float:
     """Microseconds on the device a call of ``fn`` spends in the kernels
     named in ``names`` (substrings): the sum over the names of the mean of
@@ -2580,7 +2614,132 @@ def phase_dispatch(seed: int, smi: str) -> dict:
     say("dispatch", case="cli_horse_tr1_auto", path="fused", iters=len(got),
         trace_max_rel_err=f"{worst:.3e}", output_max_abs_err=f"{off:.3e}",
         seconds=f"{seconds:.3f}", launches=used)
+    _add(total, _dispatch_grid_sizes(seed, smi))
     say("dispatch", seconds=f"{time.perf_counter() - t_all:.1f}")
+    return total
+
+
+def _table_line(r: dict) -> dict:
+    return {k: v for k, v in r.items() if k not in ("kernel", "idx")}
+
+
+def _dispatch_grid_sizes(seed: int, smi: str) -> dict:
+    """The grid's sizes on the card (``config.GRID_SIZES_CUDA``,
+    ``config.KNN_GRID_SIZES_CUDA``, ``engine.grid.BOUND_STRIDE_CUDA``, as
+    ``scripts/dispatch_sweep.py --sections grid`` measured them) on the
+    1M pair: point-to-point "auto" for 3 iterations takes them, shown by
+    its K4 launches' tables (tiles, capacity, tiles past it, folded pairs)
+    beside the first table at JAX's sizes, whose indices the first launch
+    matches bit for bit; the model's normals kNN "auto" takes K7 at the
+    card's sizes, its neighbours held to K6 on 16,384 seeded rows.  Then
+    K4 (first and third tables), K1 (the seed at the card's stride) and K7
+    (seed and exact tables) at the card's sizes, each held against its
+    plain version and timed beside its bound.  Returns the "auto" runs'
+    launches."""
+    import numpy as np
+    import torch
+
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.config import GRID_SIZES_CUDA, KNN_GRID_SIZES_CUDA
+    from icp_tpu_torch.engine.grid import BOUND_STRIDE_CUDA, _prepare_scene
+    from icp_tpu_torch.kernels import knn_dense, nn_dense, nn_grid
+    from icp_tpu_torch.ops.normals import knn_indices
+
+    model, scene, _ = scale_pair(seed)
+    m = model.shape[0]
+    total = {}
+
+    def expect(rec, sizes, label, capacity=True):
+        """Require the tiles (and the capacity) a table at ``sizes`` (scene
+        tile, model tile, capacity) has on the pair's rows."""
+        tn = nn_grid._round_up(-(-m // 2 ** nn_grid.levels_for(m, sizes[0])), 8)
+        lvl = nn_grid.levels_for(m, sizes[1])
+        tm, nj = nn_grid._round_up(-(-m // 2 ** lvl), 128), 2 ** lvl
+        want = (tn, tm, nj, min(sizes[2], nj) if capacity else rec["capacity"])
+        got = (rec["scene_tile"], rec["model_tile"], rec["nj"], rec["capacity"])
+        require(got == want, f"dispatch {label}: table {got}, the card's sizes give {want}")
+
+    rec = []
+    with recorded_tables(rec):
+        res, used = _counted(lambda: icp(model, scene, ICPConfig(max_iter=3, threshold=-math.inf)))
+    k4 = [r for r in rec if r["kernel"] == "K4"]
+    _dispatch_path("grid_sizes_1M", "grid", used)
+    require(len(k4) == used["nn_grid"] == 3 and int(res.iters) == 3,
+            f"dispatch grid_sizes_1M: {len(k4)} K4 tables, launches {used}")
+    for r in k4:
+        expect(r, GRID_SIZES_CUDA, "grid_sizes_1M")
+    _add(total, used)
+    # the first table at JAX's sizes (256 / 1,024 / 16, seed stride 16)
+    grid, tn, states = grid_loop_states(model, scene, 1)
+    p, u = states[0]
+    idx_jax = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn)[0]
+    cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=16)
+    jax_table = k4_table(cand, counts, grid.tiles.shape[0], grid.model_tile, tn)
+    orig_jax = idx_jax[_prepare_scene(scene, 256)[2]]
+    orig = k4[0]["idx"][_prepare_scene(scene, GRID_SIZES_CUDA[0])[2]]
+    require(bool(torch.equal(orig, orig_jax)),
+            f"dispatch grid_sizes_1M: {int((orig != orig_jax).sum())} first-iteration "
+            "indices differ from the table at JAX's sizes")
+    del grid, states, p, u, cand, counts, idx_jax
+    for i in (0, 2):
+        say("dispatch", case="grid_sizes_1M", path="auto", iteration=i + 1,
+            **_table_line(k4[i]), **({"jax_sizes_table": f"{jax_table['fallback_tiles']} tiles "
+                                      f"past 16, {jax_table['folded_pairs']} folded pairs"}
+                                     if i == 0 else {}),
+            first_iter_idx_equal_jax_sizes=True, launches=used, card=repr(smi))
+    del res, k4, rec, orig, orig_jax
+
+    rec = []
+    with recorded_tables(rec):
+        nbr, used = _counted(lambda: knn_indices(model, NORMAL_K))
+    require(used.get("knn_grid") == 2 and sum(used.values()) == 2 and len(rec) == 2,
+            f"dispatch normals_1M: K7 not taken ({used})")
+    expect(rec[0], KNN_GRID_SIZES_CUDA, "normals_1M seed", capacity=False)
+    expect(rec[1], KNN_GRID_SIZES_CUDA, "normals_1M exact")
+    _add(total, used)
+    rows = torch.tensor(np.sort(np.random.default_rng(seed + 2).choice(m, 16384, replace=False)),
+                        device=model.device)
+    _, idx_k6 = knn_dense.knn_dense(model[rows].contiguous(), model, NORMAL_K)
+    mism = int((nbr[rows] != idx_k6).sum())
+    require(mism == 0, f"dispatch normals_1M: {mism} K7 neighbours of 16,384 rows differ from K6")
+    for r, launch in zip(rec, ("seed", "exact")):
+        say("dispatch", case="normals_sizes_1M", path="auto", launch=launch, **_table_line(r),
+            rows_held_to_k6=16384, launches=used, card=repr(smi))
+    del nbr, rec, idx_k6
+
+    # the kernels at the card's sizes, each held against its plain version
+    # and timed beside its bound: K4 on the first and third tables, K1 on
+    # the seed (every BOUND_STRIDE_CUDA-th model point), K7's seed and
+    # exact tables
+    rng = np.random.default_rng(seed + 3)
+    grid, tn, states = grid_loop_states(model, scene, 3, *GRID_SIZES_CUDA[:2], BOUND_STRIDE_CUDA)
+    n_kd = states[0][0].shape[0]
+    rows = torch.tensor(np.sort(rng.choice(n_kd, min(65536, n_kd), replace=False)),
+                        device=model.device)
+    k4_tables_held("dispatch", model, grid, tn, states, GRID_SIZES_CUDA[2], rows, rng)
+    p = states[0][0]
+    del grid, states
+    sub = model[::BOUND_STRIDE_CUDA].contiguous()
+    ik, dk = nn_dense.nn_dense(p, sub, with_dist=True)
+    ip, dp = nn_dense.nn_dense_plain(p[rows].contiguous(), sub, with_dist=True)
+    require(torch.equal(ik[rows], ip) and torch.equal(dk[rows], dp),
+            "dispatch: K1 seed at the card's stride differs from plain")
+    ms = cuda_ms(lambda: nn_dense.nn_dense(p, sub), 5)
+    b = bound(PAIR_OPS * p.shape[0] * sub.shape[0], 12 * (p.shape[0] + sub.shape[0]) + 4 * p.shape[0])
+    say("dispatch", kernel="nn_dense", case="seed_stride_1M", stride=BOUND_STRIDE_CUDA,
+        shape=f"{p.shape[0]}x{sub.shape[0]}", plain_rows=rows.numel(), equal_plain=True,
+        ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    del p, sub, ik, dk
+    kgrid = nn_grid.build_model_grid(model, target_tile=KNN_GRID_SIZES_CUDA[1])
+    q7, _, _, tn7, _ = _prepare_scene(model, KNN_GRID_SIZES_CUDA[0])
+
+    def sample(cand, counts):
+        fall = torch.nonzero(counts > cand.shape[1]).flatten()[:4]
+        pick = torch.tensor(rng.choice(cand.shape[0], 64, replace=False), device=model.device)
+        return torch.unique(torch.cat([pick, fall]))
+
+    k7_launches(q7.contiguous(), kgrid, tn7, KNN_GRID_SIZES_CUDA[2], sample=sample,
+                phase="dispatch")
     return total
 
 
@@ -2615,11 +2774,12 @@ def scale_pair_np(seed: int, n: int = 1_000_000):
     return model_np, scene_np, s_true
 
 
-def grid_loop_states(model, scene, iterations: int):
+def grid_loop_states(model, scene, iterations: int, scene_tile: int = 256,
+                     model_tile: int = 1024, stride: int = 16):
     """(model grid, scene tile, [(p, u)] of the first ``iterations``
     point-to-point grid iterations): the kd-sorted scene and its bounds as
     K4's table sees them, the loop's steps taken with the float64 Horn sums
-    and the eigh solve."""
+    and the eigh solve.  The sizes default to JAX's."""
     import torch
 
     from icp_tpu_torch.engine.grid import _prepare_scene
@@ -2627,9 +2787,9 @@ def grid_loop_states(model, scene, iterations: int):
     from icp_tpu_torch.ops.alignment import Similarity, alignment_from_stats, compute_alignment_stats
     from icp_tpu_torch.ops.transform import apply_similarity
 
-    grid = nn_grid.build_model_grid(model, target_tile=1024)
-    p, w, _, tn, _ = _prepare_scene(scene, 256)
-    u = nn_grid.bound_from_indices(p, grid, nn_grid.initial_bound_indices(p, model))
+    grid = nn_grid.build_model_grid(model, target_tile=model_tile)
+    p, w, _, tn, _ = _prepare_scene(scene, scene_tile)
+    u = nn_grid.bound_from_indices(p, grid, nn_grid.initial_bound_indices(p, model, stride=stride))
     states = [(p, u)]
     while len(states) < iterations:
         _, y, _, _, _ = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn)
@@ -2639,6 +2799,53 @@ def grid_loop_states(model, scene, iterations: int):
         u = nn_grid.next_bound(y, p)
         states.append((p, u))
     return grid, tn, states
+
+
+def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng) -> bool:
+    """K4 on the first- and third-iteration tables of ``states`` at
+    capacity ``cap``: held against K1 brute force on the scene ``rows`` and
+    against the plain version on 64 seeded scene tiles and up to 4 tiles
+    that fold all tiles, then timed beside its bound (a line each with the
+    table's tiles past the capacity and folded pairs).  Returns whether
+    the first table overflowed."""
+    import torch
+
+    from icp_tpu_torch.kernels import nn_dense, nn_grid
+
+    nj, tm = grid.tiles.shape[0], grid.model_tile
+    over_first = None
+    for label, (p, u) in (("first", states[0]), ("third", states[2])):
+        idx, y, _, d2, over = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn,
+                                                                   max_candidates=cap)
+        over_first = bool(over) if over_first is None else over_first
+        idx_bf, d2_bf = nn_dense.nn_dense(p[rows].contiguous(), model, with_dist=True)
+        mism = int((idx[rows] != idx_bf).sum())
+        require(mism == 0, f"{phase}: {mism} of {rows.numel()} {label}-iteration matches "
+                "differ from brute force")
+        require(bool(torch.equal(d2[rows], d2_bf)), f"{phase}: {label}-iteration distances differ")
+        require(bool(torch.equal(y[rows], model[idx_bf.long()])),
+                f"{phase}: {label}-iteration matched points are not the winners")
+        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=min(cap, nj))
+        args = (cand, counts, p, grid.tiles, tn)
+        outs = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+        ni = cand.shape[0]
+        fall = torch.nonzero(counts > cand.shape[1]).flatten()[:4]
+        pick = torch.tensor(rng.choice(ni, 64, replace=False), device=p.device)
+        sel = torch.unique(torch.cat([pick, fall]))
+        srows = (sel[:, None] * tn + torch.arange(tn, device=p.device)).flatten()
+        sub = nn_grid.nn_grid_plain(cand[sel].contiguous(), counts[sel].contiguous(),
+                                    p[srows].contiguous(), grid.tiles, tn, kd_row=grid.kd_row)
+        for name, a, b in zip(("d2", "idx", "y"), outs, sub):
+            require(torch.equal(a[srows], b), f"{phase}: K4 {label} {name} differs from plain")
+        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=grid.kd_row), 10)
+        shape = k4_table(cand, counts, nj, tm, tn)
+        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p, grid.tiles)
+                  + p.shape[0] * (4 + 4 + 12))
+        say(phase, kernel="nn_grid", table=label, tiles=f"{ni}x{nj}", scene_tile=tn,
+            model_tile=tm, capacity=cand.shape[1], **shape,
+            brute_force_rows=rows.numel(), plain_tiles=int(sel.numel()), equal_plain=True,
+            ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    return over_first
 
 
 def phase_scale(seed: int):
@@ -2660,44 +2867,12 @@ def phase_scale(seed: int):
     model, scene, s_true = scale_pair(seed, n)
     rng = np.random.default_rng(seed + 1)
 
-    # K4 on two 1M tables: the first iteration's and the third's (the
-    # loop's steady state).  Each is held against K1 brute force on 65,536
-    # seeded scene rows and against the plain version on 64 seeded scene
-    # tiles and up to 4 tiles that fold all tiles, then timed.
+    # K4 on two 1M tables at JAX's sizes (capacity 16: the overflow's work
+    # items): the first iteration's and the third's (the loop's steady state)
     grid, tn, states = grid_loop_states(model, scene, 3)
-    nj, tm = grid.tiles.shape[0], grid.model_tile
     rows = torch.tensor(np.sort(rng.choice(states[0][0].shape[0], 65536, replace=False)),
                         device="cuda")
-    over_first = None
-    for label, (p, u) in (("first", states[0]), ("third", states[2])):
-        idx, y, _, d2, over = nn_grid.closest_point_indices_pruned(p, grid, u, scene_tile=tn)
-        over_first = bool(over) if over_first is None else over_first
-        idx_bf, d2_bf = nn_dense.nn_dense(p[rows].contiguous(), model, with_dist=True)
-        mism = int((idx[rows] != idx_bf).sum())
-        require(mism == 0, f"scale: {mism} of 65536 {label}-iteration matches differ "
-                "from brute force")
-        require(bool(torch.equal(d2[rows], d2_bf)), f"scale: {label}-iteration distances differ")
-        require(bool(torch.equal(y[rows], model[idx_bf.long()])),
-                f"scale: {label}-iteration matched points are not the winners")
-        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=16)
-        args = (cand, counts, p, grid.tiles, tn)
-        outs = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
-        ni = cand.shape[0]
-        fall = torch.nonzero(counts > 16).flatten()[:4]
-        pick = torch.tensor(rng.choice(ni, 64, replace=False), device="cuda")
-        sel = torch.unique(torch.cat([pick, fall]))
-        srows = (sel[:, None] * tn + torch.arange(tn, device="cuda")).flatten()
-        sub = nn_grid.nn_grid_plain(cand[sel].contiguous(), counts[sel].contiguous(),
-                                    p[srows].contiguous(), grid.tiles, tn, kd_row=grid.kd_row)
-        for name, a, b in zip(("d2", "idx", "y"), outs, sub):
-            require(torch.equal(a[srows], b), f"scale: K4 {label} {name} differs from plain")
-        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=grid.kd_row), 10)
-        shape = k4_table(cand, counts, nj, tm, tn)
-        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p, grid.tiles)
-                  + p.shape[0] * (4 + 4 + 12))
-        say("scale", kernel="nn_grid", table=label, tiles=f"{ni}x{nj}", **shape,
-            brute_force_rows=65536, plain_tiles=int(sel.numel()), equal_plain=True,
-            ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    over_first = k4_tables_held("scale", model, grid, tn, states, 16, rows, rng)
     # K1 on the 1M bound seed (the kd-sorted scene x every 16th model
     # point), held against its plain version on 65,536 seeded scene rows.
     p = states[0][0]
@@ -2724,7 +2899,7 @@ def phase_scale(seed: int):
         idx_equal_k1=True, equal_plain=True, ms=f"{cuda_ms(lambda: nn_dense.nn_chunked(p, sub), 5):.4f}",
         device_us=f"{device_us(lambda: nn_dense.nn_chunked(p, sub), ('nn_chunked',), 3):.1f}",
         k1_ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
-    del grid, states, p, u, idx, y, d2, ik, dk, i8
+    del grid, states, p, ik, dk, i8
 
     def run(k, trim=0.0):
         torch.cuda.synchronize()

@@ -303,7 +303,9 @@ def _grid_op(ref: torch.Tensor):
     kd-sorted, padded scene against ``ref`` with the previous iteration's
     bounds, what every iteration after the first sees (the scene has
     converged onto the model).  K1's seed of the bounds runs here, outside
-    the timed calls."""
+    the timed calls.  The grid's sizes are the device's
+    (``config.grid_sizes``)."""
+    from icp_tpu_torch.config import grid_sizes
     from icp_tpu_torch.engine.grid import _prepare_scene
     from icp_tpu_torch.kernels.nn_grid import (
         bound_from_indices,
@@ -312,15 +314,16 @@ def _grid_op(ref: torch.Tensor):
     )
     from icp_tpu_torch.ops.distance import closest_point_indices
 
-    grid = build_model_grid(ref)
-    p_kd, _, _, tn, _ = _prepare_scene(ref, 256)
+    scene_tile, model_tile, cap = grid_sizes(ref.device)
+    grid = build_model_grid(ref, target_tile=model_tile)
+    p_kd, _, _, tn, _ = _prepare_scene(ref, scene_tile)
     prev = closest_point_indices(p_kd, ref, method="pallas")
     u_prev = bound_from_indices(p_kd, grid, prev.to(torch.int64))
 
     def nn_grid(m, p, c):
         return closest_point_indices_grid(torch.add(p_kd, c, alpha=_EPS), grid,
                                           torch.add(u_prev, c, alpha=_EPS),
-                                          scene_tile=tn)[0]
+                                          scene_tile=tn, max_candidates=cap)[0]
 
     return nn_grid
 

@@ -12,7 +12,8 @@ Same loop as ``engine/icp.py`` with three at-scale changes:
     as are the pad rows of a bucket-padded scene (``scene_n``), which
     ``bucket_prologue`` replica-fills before the kd sort.
 
-The first bounds come from K1 against every 16th model point.  Each
+The first bounds come from K1 against every 16th model point (every 64th
+on the card: ``BOUND_STRIDE_CUDA``).  Each
 iteration: K4 (with the candidate table built in torch), the trim weights
 from K4's own float32 distances (recomputed from y and p in float64
 configurations, as JAX does), the float64 Horn sums in torch, K2 (solve,
@@ -25,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from icp_tpu_torch.config import grid_sizes
 from icp_tpu_torch.engine.icp import LoopState, bucket_prologue
 from icp_tpu_torch.kernels.nn_grid import (
     _round_up,
@@ -52,6 +54,30 @@ from icp_tpu_torch.ops.alignment import (
 )
 from icp_tpu_torch.ops.quantile import histogram_quantile
 from icp_tpu_torch.ops.transform import apply_similarity, compose, identity_similarity
+
+
+# The model stride of the first bounds (K1 against every stride-th model
+# point) where the caller gives none: JAX's 16 on the CPU; on the card 64,
+# as ``scripts/dispatch_sweep.py --sections grid`` measured it (NVIDIA H100
+# 80GB HBM3, 700 W; ``perf_h100/grid_sweep.jsonl``): set-up + first
+# iteration of the 1M pair 35.8 -> 17.4 ms (K1's seed a quarter of the
+# pairs; the first table folds 6% more), ms an iteration unchanged.
+BOUND_STRIDE = 16
+BOUND_STRIDE_CUDA = 64
+
+
+def bound_stride_for(device) -> int:
+    """The first bounds' model stride on ``device`` (a ``torch.device``)."""
+    return BOUND_STRIDE_CUDA if device.type == "cuda" else BOUND_STRIDE
+
+
+def seed_bounds(p, grid, device, bound_stride=None):
+    """(N,) first bounds of the kd-sorted scene ``p``: the squared distance
+    to its nearest of every stride-th model point (K1), the stride the
+    caller's or the device's, at most a quarter of the model."""
+    stride = bound_stride_for(device) if bound_stride is None else bound_stride
+    stride = max(1, min(stride, grid.model_orig.shape[0] // 4))
+    return bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig, stride=stride))
 
 
 def _prepare_scene(scene: torch.Tensor, target_tile: int, n_valid=None):
@@ -86,20 +112,20 @@ def grid_weights(p, y, d2, w, trim_fraction: float):
 
 def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
               solver: str, with_scale: bool, reference_compat: bool,
-              scene_tile_target: int = 256, model_tile_target: int = 1024,
-              max_candidates: int = 16, bound_stride: int = 16,
+              scene_tile_target: int | None = None, model_tile_target: int | None = None,
+              max_candidates: int | None = None, bound_stride: int | None = None,
               init: Optional[Similarity] = None, trace: bool = False,
               converge: bool = True, trim_fraction: float = 0.0, scene_n=None,
               model_n=None):
     dt, dev = scene.dtype, scene.device
+    scene_tile_target, model_tile_target, max_candidates = grid_sizes(
+        dev, scene_tile_target, model_tile_target, max_candidates)
     model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
     if init is not None:
         scene = apply_similarity(scene, init)
     grid = build_model_grid(model, target_tile=model_tile_target)
     p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
-    stride = max(1, min(bound_stride, model.shape[0] // 4))
-    u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig,
-                                                          stride=stride))
+    u = seed_bounds(p, grid, dev, bound_stride)
     loop = LoopState(bound, length, threshold, reference_compat, dev, converge)
 
     if solver == "qcp_fused":

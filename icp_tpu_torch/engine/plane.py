@@ -32,6 +32,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from icp_tpu_torch.config import grid_sizes
 from icp_tpu_torch.engine.icp import LoopState, bucket_prologue, step_weights, true_count
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.distance import closest_point_indices
@@ -114,29 +115,29 @@ def dense_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold:
 
 
 def grid_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: float,
-              max_iter: int, scene_tile_target: int, model_tile_target: int,
-              max_candidates: int, init: Optional[Similarity], trace: bool,
+              max_iter: int, scene_tile_target, model_tile_target,
+              max_candidates, init: Optional[Similarity], trace: bool,
               trim_fraction: float = 0.0, scene_n=None, model_n=None):
     """The grid loop of a plane engine: the model ``normals`` are K4's
-    payload, ``s_side`` the scene's (N, ...) side data or None."""
-    from icp_tpu_torch.engine.grid import _prepare_scene, grid_weights
+    payload, ``s_side`` the scene's (N, ...) side data or None; sizes left
+    None are the device's (``config.grid_sizes``)."""
+    from icp_tpu_torch.engine.grid import _prepare_scene, grid_weights, seed_bounds
     from icp_tpu_torch.kernels.nn_grid import (
-        bound_from_indices,
         build_model_grid,
         closest_point_indices_grid,
-        initial_bound_indices,
         next_bound,
     )
 
     dt, dev = scene.dtype, scene.device
+    scene_tile_target, model_tile_target, max_candidates = grid_sizes(
+        dev, scene_tile_target, model_tile_target, max_candidates)
     model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
     scene, s_side = _start(engine, scene, s_side, init)
     grid = build_model_grid(model, target_tile=model_tile_target, payload=normals)
     p, w, inv_slots, tn, perm = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
     if s_side is not None:
         s_side = torch.cat([s_side, engine.pad(s_side, p.shape[0] - scene.shape[0])])[perm]
-    stride = max(1, min(16, model.shape[0] // 4))
-    u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig, stride=stride))
+    u = seed_bounds(p, grid, dev)
     state = dict(p=p, side=s_side, u=u,
                  total=identity_similarity(dt, dev) if init is None else init)
     loop = LoopState(max_iter, max_iter, threshold, False, dev)

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from icp_tpu_torch.config import grid_sizes
 from icp_tpu_torch.engine.icp import as_points
 from icp_tpu_torch.utils.precision import in_full_float32
 
@@ -76,12 +77,14 @@ def normals_from_neighbor_indices(points: torch.Tensor, idx: torch.Tensor) -> to
 
 @in_full_float32
 def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
-                grid_scene_tile: int = 64, grid_model_tile: int = 256,
-                grid_max_candidates: int = 32) -> torch.Tensor:
+                grid_scene_tile: int | None = None, grid_model_tile: int | None = None,
+                grid_max_candidates: int | None = None) -> torch.Tensor:
     """(N, k) indices of each point's k nearest points, itself included:
     K6 (``"dense"``) or K7 (``"grid"``); ``"auto"`` is the grid from
     ``NORMALS_GRID_THRESHOLD`` points (``NORMALS_GRID_THRESHOLD_CUDA`` on
-    the card)."""
+    the card).  K7's sizes left None are the device's
+    (``config.grid_sizes(..., knn=True)``: query tile 64, model tile 256,
+    capacity 32 on the CPU, as JAX's; 64 / 512 / 256 on the card)."""
     n = points.shape[0]
     if method == "auto":
         least = NORMALS_GRID_THRESHOLD_CUDA if points.is_cuda else NORMALS_GRID_THRESHOLD
@@ -97,29 +100,28 @@ def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
     from icp_tpu_torch.kernels.knn_grid import knn_grid
     from icp_tpu_torch.kernels.nn_grid import build_model_grid
 
-    # Smaller tiles than the correspondence path, as in JAX: the cull bound
-    # is a per-query-tile maximum, tight only over few queries.
-    grid = build_model_grid(pts32, target_tile=grid_model_tile)
+    scene_tile, model_tile, cap = grid_sizes(points.device, grid_scene_tile,
+                                             grid_model_tile, grid_max_candidates, knn=True)
+    grid = build_model_grid(pts32, target_tile=model_tile)
     # kd-sorted queries for tile coherence; the idx values are original
     # indices already, so only the rows are put back in order
-    p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, grid_scene_tile)
-    _, idx_sorted = knn_grid(p_sorted, grid, k, scene_tile=tn,
-                             max_candidates=grid_max_candidates)
+    p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, scene_tile)
+    _, idx_sorted = knn_grid(p_sorted, grid, k, scene_tile=tn, max_candidates=cap)
     return idx_sorted[inv_slots]
 
 
 @in_full_float32
 def estimate_normals(points, k: int = 16, method: str = "auto",
-                     grid_scene_tile: int = 64, grid_model_tile: int = 256,
-                     grid_max_candidates: int = 32, device=None) -> torch.Tensor:
+                     grid_scene_tile: int | None = None, grid_model_tile: int | None = None,
+                     grid_max_candidates: int | None = None, device=None) -> torch.Tensor:
     """(N, 3) cloud -> (N, 3) unit normals from k-nearest-neighbour PCA.
 
     The neighbours of each point are its ``min(k + 1, N)`` nearest points
     (itself among them), from K6 or K7 in float32 whatever the cloud's
     dtype; the PCA runs in the cloud's dtype (float32 for numpy input).
     ``method``: ``"dense"``, ``"grid"`` or ``"auto"`` (grid from 16,384
-    points, 131,072 on the card).  Devices as in ``icp``: numpy input goes
-    to the card unless ``device="cpu"``."""
+    points, 131,072 on the card), K7's sizes as ``knn_indices``'s.  Devices
+    as in ``icp``: numpy input goes to the card unless ``device="cpu"``."""
     dtype = points.dtype if isinstance(points, torch.Tensor) else torch.float32
     pts = as_points(points, dtype, device)
     k_eff = min(k + 1, pts.shape[0])

@@ -35,13 +35,12 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from icp_tpu_torch.config import ICPConfig
+from icp_tpu_torch.engine.grid import seed_bounds
 from icp_tpu_torch.engine.icp import LoopState
 from icp_tpu_torch.kernels.nn_grid import (
     _round_up,
-    bound_from_indices,
     build_model_grid,
     closest_point_indices_grid,
-    initial_bound_indices,
     kd_order,
     levels_for,
     next_bound,
@@ -130,16 +129,14 @@ class _GridShard:
         m_loc = shard_rows(model, mesh, _MODEL_PAD)
         self.m_shard = m_loc.shape[0]
         pl = None if payload is None else shard_rows(payload, mesh)
-        self.grid = build_model_grid(m_loc, target_tile=cfg.grid_model_tile, payload=pl)
+        scene_tile, model_tile, self.max_candidates = cfg.resolved_grid_sizes(dev)
+        self.grid = build_model_grid(m_loc, target_tile=model_tile, payload=pl)
         p_raw = shard_rows(scene, mesh)
         w_raw = shard_rows(torch.ones(scene.shape[0], dtype=cfg.dtype, device=dev), mesh)
         self.p0, self.w, self.inv_slots, self.tn, self.perm = _prepare_scene_shard(
-            p_raw, w_raw, cfg.grid_scene_tile)
+            p_raw, w_raw, scene_tile)
         self.n_loc = p_raw.shape[0]
-        stride = max(1, min(16, self.m_shard // 4))  # the seed's model stride
-        self.u0 = bound_from_indices(self.p0, self.grid, initial_bound_indices(
-            self.p0, self.grid.model_orig, stride=stride))
-        self.max_candidates = cfg.grid_max_candidates
+        self.u0 = seed_bounds(self.p0, self.grid, dev)
 
     def correspond(self, p, u):
         return _ring_correspond_grid(p, u, self.grid, self.axis, m_shard=self.m_shard,

@@ -89,13 +89,14 @@ def _op_times(model, scene, cfg, nn: str, solver: str) -> tuple:
             initial_bound_indices,
         )
 
-        grid = build_model_grid(m, target_tile=cfg.grid_model_tile)
-        p, _, _, tn, _ = _prepare_scene(p, cfg.grid_scene_tile)
+        scene_tile, model_tile, cap = cfg.resolved_grid_sizes(p.device)
+        grid = build_model_grid(m, target_tile=model_tile)
+        p, _, _, tn, _ = _prepare_scene(p, scene_tile)
         u = bound_from_indices(p, grid, initial_bound_indices(p, grid.model_orig, stride=4))
 
         def corr():
             return closest_point_indices_grid(p, grid, u, scene_tile=tn,
-                                              max_candidates=cfg.grid_max_candidates)[1]
+                                              max_candidates=cap)[1]
     else:
         def corr():
             return m[closest_point_indices(p, m, method=nn).to(torch.int64)]

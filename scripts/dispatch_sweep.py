@@ -5,6 +5,7 @@ each other.
 
     python3 scripts/dispatch_sweep.py [--sections p2p,plane,normals,chain]
                                       [--out chiprun_out/dispatch_sweep.jsonl]
+    python3 scripts/dispatch_sweep.py --sections grid --out chiprun_out/grid_sweep.jsonl
 
 Sections (one JSON line a measurement on stdout and in ``--out``, each
 with the card's ``nvidia-smi --query-gpu=name,power.limit`` line):
@@ -24,6 +25,18 @@ with the card's ``nvidia-smi --query-gpu=name,power.limit`` line):
   * ``chain``: ``register_chain`` on the five bunny scans at
     ``icp-slam-torch``'s defaults, with the bucket JAX's "auto" gives the
     chain and with none, on the grid, the pipeline and K3.
+  * ``grid`` (not in the default list): the kd-grid's sizes, searched by
+    coordinates from JAX's (``GRID_AXES``: the candidate capacity, then the
+    scene tile, the model tile and K1's seed stride; ``NORMALS_AXES`` for
+    K7) on point-to-point (``_icp_grid`` in fixed mode, ``qcp_fused``),
+    point-to-plane and ``knn_indices(k=17, method="grid")`` at the
+    ``GRID_CELLS`` sizes; then, at every size, JAX's sizes against the
+    package's own on the device and the search's best at the largest size
+    (``confirm``).  Each setting's line carries its tables (K4's at the
+    first and third iteration, K7's seed and exact pass: ``ni``, ``nj``,
+    tiles past the capacity, folded pairs), its peak memory and its
+    agreement with the run at JAX's sizes (``GRID_P2P_ATOL``,
+    ``GRID_PLANE_ATOL``); a setting that does not hold is never the best.
 
 Times are ``(t(big) - t(small)) / (big - small)`` by host wall (ms an
 iteration), ``t(small)`` with ``small = 1`` being set-up plus the first
@@ -400,6 +413,247 @@ def section_chain(out: Out, device: str, subsample: int) -> dict:
     return times
 
 
+# The grid section: the kd-grid's sizes.  JAX's (TPU) values, the start of
+# every search; the coordinates searched in order, each at the best held
+# value of those before it (the plane engines' grid loop takes no seed
+# stride of its caller, so its search stops at the model tile).
+JAX_GRID = {"scene_tile": 256, "model_tile": 1024, "max_candidates": 16, "bound_stride": 16}
+JAX_NORMALS = {"scene_tile": 64, "model_tile": 256, "max_candidates": 32}
+GRID_AXES = (("max_candidates", (16, 32, 64, 128, 256)),
+             ("scene_tile", (64, 128, 256, 512, 1024)),
+             ("model_tile", (256, 512, 1024, 2048, 4096)),
+             ("bound_stride", (4, 8, 16, 32, 64)))
+NORMALS_AXES = (("max_candidates", (32, 64, 128, 256)), ("scene_tile", (32, 64, 128)),
+                ("model_tile", (128, 256, 512)))
+GRID_CELLS = {"p2p": (65536, 131072, 262144, 1_000_000), "plane": (131072, 1_000_000),
+              "knn": (131072, 262144, 1_000_000)}
+# Agreement with the run at JAX's sizes: K4's first-iteration indices and
+# K7's neighbours bit-equal (exact folds, lowest-index ties, whatever the
+# tiling); point-to-point converged runs the same iterations and points
+# within GRID_P2P_ATOL; the plane engine's GRID_PLANE_ITERS fixed
+# iterations within GRID_PLANE_ATOL (the kd order of the scene changes with
+# the tile, so the float32 Gauss-Newton sums add in another order; PR 17's
+# bound between two paths' points, DISPATCH_POINTS_ATOL)
+GRID_P2P_ATOL = 1e-6
+GRID_PLANE_ATOL = 1e-5
+GRID_PLANE_ITERS = 10
+
+
+def resolved(kind: str, setting: dict, device: str) -> dict:
+    """``setting`` with each None replaced by the package's own size on
+    ``device`` (what a caller who gives none gets)."""
+    import torch
+
+    from icp_tpu_torch.config import grid_sizes
+    from icp_tpu_torch.engine.grid import bound_stride_for
+
+    keys = ("scene_tile", "model_tile", "max_candidates")
+    base = grid_sizes(device, knn=kind == "knn")
+    out = {k: b if setting.get(k) is None else setting[k] for k, b in zip(keys, base)}
+    if kind == "p2p":
+        out["bound_stride"] = bound_stride_for(torch.device(device)) \
+            if setting.get("bound_stride") is None else setting["bound_stride"]
+    return out
+
+
+class GridCell:
+    """One cell of the grid section: point-to-point (``_icp_grid`` in fixed
+    mode, as ``icp_fixed_iters`` calls it, ``qcp_fused``), point-to-plane
+    (``icp_point_to_plane``, the model's normals given) or the normals'
+    kNN (``knn_indices(k=17, method="grid")``) at ``n`` rows; a setting's
+    None sizes are left to the package."""
+
+    def __init__(self, kind: str, n: int, device: str):
+        self.kind, self.n, self.device = kind, n, device
+        self.model, self.scene = pair(n, device)
+        self.normals = None
+        if kind == "plane":
+            from icp_tpu_torch.ops.normals import estimate_normals
+
+            self.normals = estimate_normals(self.model, k=16)
+        self.iters = iters_for(n)
+
+    def run(self, s: dict, k: int = 1, converge: bool = False):
+        given = {k_: v for k_, v in s.items() if v is not None}
+        if self.kind == "knn":
+            from icp_tpu_torch.ops.normals import knn_indices
+
+            return knn_indices(self.model, cs.NORMAL_K, method="grid",
+                               **{f"grid_{k_}": v for k_, v in given.items()})
+        if self.kind == "plane":
+            from icp_tpu_torch import ICPConfig
+            from icp_tpu_torch.engine.point_to_plane import icp_point_to_plane
+
+            cfg = ICPConfig(max_iter=k, threshold=-math.inf, nn_method="grid",
+                            **{f"grid_{k_}": v for k_, v in given.items()})
+            return icp_point_to_plane(self.model, self.scene, cfg, normals=self.normals)
+        from icp_tpu_torch.engine.grid import _icp_grid
+
+        names = {"scene_tile": "scene_tile_target", "model_tile": "model_tile_target",
+                 "max_candidates": "max_candidates", "bound_stride": "bound_stride"}
+        return _icp_grid(self.model, self.scene, threshold=1e-5 if converge else -math.inf,
+                         bound=k, length=k, solver="qcp_fused", with_scale=True,
+                         reference_compat=True, converge=converge,
+                         **{names[k_]: v for k_, v in given.items()})
+
+    def timer(self, s: dict):
+        """(seconds an iteration or a call, seconds of set-up + first
+        iteration; 0 for the kNN)."""
+        from icp_tpu_torch.bench.harness import differenced, wall_time
+
+        if self.kind == "knn":
+            return wall_time(lambda: self.run(s), reps=REPS), 0.0
+        return differenced(lambda k: float(self.run(s, k).err), *self.iters, REPS)
+
+    def answers(self, s: dict) -> dict:
+        """The tables of a short run (K4: the first and third iteration's;
+        K7: the seed's and the exact pass's), its peak memory, and what
+        the agreement compares."""
+        import torch
+
+        from icp_tpu_torch.engine.grid import _prepare_scene
+
+        on_card = self.device == "cuda"
+        rec = []
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with cs.recorded_tables(rec):
+            out = self.run(s, 3)
+            if self.kind != "knn":
+                float(out.err)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+        got = {"peak_gib": None if peak is None else round(peak, 4)}
+        if self.kind == "knn":
+            got["tables"] = [dict(r, launch=lbl) for r, lbl in zip(rec, ("seed", "exact"))]
+            got["idx"] = out
+            return got
+        k4 = [r for r in rec if r["kernel"] == "K4"]
+        got["tables"] = [dict({k_: v for k_, v in r.items() if k_ != "idx"}, iteration=i + 1)
+                         for i, r in enumerate(k4) if i in (0, 2)]
+        tile = resolved(self.kind, s, self.device)["scene_tile"]
+        inv = _prepare_scene(self.scene, tile)[2]
+        got["first_idx"] = k4[0]["idx"][inv]
+        if self.kind == "p2p":
+            got["final"] = self.run(s, 30, converge=True)
+        else:
+            got["final"] = self.run(s, GRID_PLANE_ITERS)
+        return got
+
+    def agree(self, got: dict, ref: dict) -> dict:
+        """``got`` against the answers at JAX's sizes, and whether it holds."""
+        import torch
+
+        if self.kind == "knn":
+            same = bool(torch.equal(got["idx"], ref["idx"]))
+            return {"idx_equal_jax_sizes": same, "held": same}
+        same = bool(torch.equal(got["first_idx"], ref["first_idx"]))
+        a, b = got["final"], ref["final"]
+        off = gap(a.points, b.points)
+        iters, iters_ref = int(a.iters), int(b.iters)
+        tol = GRID_P2P_ATOL if self.kind == "p2p" else GRID_PLANE_ATOL
+        return {"first_idx_equal_jax_sizes": same, "iters": iters, "iters_jax_sizes": iters_ref,
+                "err": float(a.err), "err_jax_sizes": float(b.err), "max_point_gap": off,
+                "atol": tol, "held": same and iters == iters_ref and off <= tol}
+
+
+def grid_label(s: dict) -> str:
+    return ",".join(f"{k}={'auto' if v is None else v}" for k, v in s.items())
+
+
+def measure(out: Out, cell: GridCell, stage: str, settings: dict, ref: dict) -> dict:
+    """Each setting of ``settings`` (label -> sizes) on ``cell``: its tables,
+    peak memory and agreement with ``ref`` (the answers at JAX's sizes),
+    then ``PASSES`` passes of every setting's timer, interleaved.  Prints a
+    ``grid`` line a setting; returns label -> (times, set-up times, held)."""
+    agreed = {}
+    for label, s in settings.items():
+        got = cell.answers(s)
+        agreed[label] = (got, cell.agree(got, ref))
+    t = timed_passes({label: (lambda s=s: cell.timer(s)) for label, s in settings.items()})
+    res = {}
+    for label, s in settings.items():
+        got, agreement = agreed[label]
+        times = summarize(t[label][0])
+        first = None if cell.kind == "knn" else summarize(t[label][1])
+        out(section="grid", kind=cell.kind, n=cell.n, stage=stage, setting=label,
+            sizes=resolved(cell.kind, s, cell.device),
+            iter_counts=None if cell.kind == "knn" else cell.iters, **times,
+            setup_plus_first_ms=None if first is None else first["ms"],
+            setup_plus_first_spread_ms=None if first is None else first["spread_ms"],
+            peak_gib=got["peak_gib"], tables=got["tables"], **agreement)
+        res[label] = (times, first, agreement["held"])
+    return res
+
+
+def search_axis(out: Out, cell: GridCell, base: dict, axis: str, values, ref: dict) -> dict:
+    """One coordinate of the search at ``base``: the setting of each value,
+    the best held one by ms an iteration (by set-up + first iteration for
+    the seed stride, which changes only the first table), and its verdicts
+    against the base's value and the value of JAX's sizes.  Returns the
+    new base: the best where it beats the base's value by more than the
+    spread of their passes, else the base."""
+    settings = {f"{axis}={v}": dict(base, **{axis: v}) for v in values}
+    res = measure(out, cell, f"axis:{axis}", settings, ref)
+    key = 1 if axis == "bound_stride" else 0
+    held = {lbl: r[key] for lbl, r in res.items() if r[2]}
+    here = f"{axis}={base[axis]}"
+    jax_label = f"{axis}={(JAX_NORMALS if cell.kind == 'knn' else JAX_GRID)[axis]}"
+    best = min(held, key=lambda lbl: held[lbl]["ms"]) if held else here
+    v_base = verdict(held, here, best) if here in held else None
+    v_jax = verdict(held, jax_label, best) if jax_label in held else None
+    moved = best != here and (v_base is None or v_base["beyond_spread"])
+    out(section="grid_axis", kind=cell.kind, n=cell.n, axis=axis, base=grid_label(base),
+        metric="setup_plus_first_ms" if key else "ms", best=best, held=sorted(held),
+        best_vs_base=v_base, best_vs_jax=v_jax, moved=moved)
+    return settings[best] if moved else base
+
+
+def section_grid(out: Out, device: str, cells: dict) -> dict:
+    """The grid section: for each cell kind and size, the coordinate search
+    from JAX's sizes, then (``confirm``) at every size JAX's sizes against
+    the package's own on this device and the search's best at the kind's
+    largest size.  Returns kind -> n -> the search's best sizes."""
+    best = {}
+    for kind, sizes in cells.items():
+        jax = dict(JAX_NORMALS if kind == "knn" else JAX_GRID)
+        axes = NORMALS_AXES if kind == "knn" else GRID_AXES
+        if kind == "plane":
+            jax.pop("bound_stride")
+            axes = tuple(a for a in axes if a[0] != "bound_stride")
+        best[kind] = {}
+        for n in sizes:
+            cell = GridCell(kind, n, device)
+            ref = cell.answers(jax)
+            base = dict(jax)
+            for axis, values in axes:
+                base = search_axis(out, cell, base, axis, values, ref)
+            best[kind][n] = base
+            out(section="grid_best", kind=kind, n=n, sizes=base, jax_sizes=jax)
+            del cell, ref
+        top = best[kind][max(sizes)]
+        for n in sizes:
+            cell = GridCell(kind, n, device)
+            ref = cell.answers(jax)
+            sides = {"jax": jax}
+            own = {k: None for k in jax}
+            if resolved(kind, own, device) != jax:
+                sides["package"] = own
+            if top != jax and resolved(kind, own, device) != top:
+                sides["search_best"] = top
+            res = measure(out, cell, "confirm", sides, ref)
+            times = {lbl: r[0] for lbl, r in res.items()}
+            firsts = {lbl: r[1] for lbl, r in res.items() if r[1] is not None}
+            out(section="grid_confirm", kind=kind, n=n,
+                sides={lbl: resolved(kind, s, device) for lbl, s in sides.items()},
+                held={lbl: r[2] for lbl, r in res.items()},
+                ms_vs_jax={lbl: verdict(times, "jax", lbl) for lbl in sides if lbl != "jax"},
+                setup_plus_first_vs_jax={lbl: verdict(firsts, "jax", lbl) for lbl in firsts
+                                         if lbl != "jax"})
+            del cell, ref
+    return best
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sections", default="p2p,plane,normals,chain")
@@ -409,6 +663,8 @@ def main(argv=None) -> int:
                                                   "rehearsal gives its own)")
     ap.add_argument("--normal-sizes", default=None)
     ap.add_argument("--bunny-subsample", type=int, default=1)
+    ap.add_argument("--grid-rows", default=None, help="comma list: the grid section's rows "
+                                                      "for every kind (default: GRID_CELLS)")
     args = ap.parse_args(argv)
 
     import torch
@@ -444,6 +700,11 @@ def main(argv=None) -> int:
                     section_normals(out, nsizes, args.device), "dense", "grid")
             if "chain" in sections:
                 section_chain(out, args.device, args.bunny_subsample)
+            if "grid" in sections:
+                cells = GRID_CELLS if not args.grid_rows else {
+                    kind: tuple(int(r) for r in args.grid_rows.split(",")) for kind in GRID_CELLS}
+                summary["grid_best"] = {kind: {str(n): v for n, v in b.items()}
+                                        for kind, b in section_grid(out, args.device, cells).items()}
             out(section="summary", seconds=round(time.perf_counter() - t0, 1), **summary)
     finally:
         out.close()

@@ -1123,3 +1123,55 @@ def test_auto_dispatch_on_the_card(dev):
             == _build.LAUNCHES[kernel], dict(_build.LAUNCHES)
     clouds = [np.zeros((n, 3)) for n in (40256, 31701)]
     assert resolve_auto_bucket(clouds, dev) is None
+
+
+def test_grid_sizes_on_the_card(dev, monkeypatch):
+    """The grid's sizes on the card as ``scripts/dispatch_sweep.py
+    --sections grid`` measured them there (K4: scene tile 256, model tile
+    512, capacity 128, K1's seed stride 64; K7: query tile 64, model tile
+    512, capacity 256; on the CPU each is JAX's:
+    ``tests/test_torch_grid_sizes.py``), reached by a grid run and the
+    normals' kNN on CUDA tensors; a caller's sizes are used as given; the
+    first table's indices equal those at JAX's sizes."""
+    from icp_tpu_torch import ICPConfig, icp
+    from icp_tpu_torch.config import grid_sizes
+    from icp_tpu_torch.engine import grid as egrid
+    from icp_tpu_torch.ops.normals import knn_indices
+
+    assert ICPConfig().resolved_grid_sizes(dev) == (256, 512, 128)
+    assert ICPConfig(grid_max_candidates=16).resolved_grid_sizes(dev) == (256, 512, 16)
+    assert grid_sizes(dev, knn=True) == (64, 512, 256)
+    assert egrid.bound_stride_for(dev) == 64
+    seen, first = {}, []
+    real_cpig, real_ibi = egrid.closest_point_indices_grid, egrid.initial_bound_indices
+
+    def cpig(p, grid, u, **k):
+        seen.setdefault("table", set()).add((grid.model_tile, k["max_candidates"]))
+        out = real_cpig(p, grid, u, **k)
+        first.append(out[0])
+        return out
+
+    def ibi(p, m, *, stride):
+        seen.setdefault("stride", set()).add(stride)
+        return real_ibi(p, m, stride=stride)
+
+    monkeypatch.setattr(egrid, "closest_point_indices_grid", cpig)
+    monkeypatch.setattr(egrid, "initial_bound_indices", ibi)
+    model = _cloud(7, 20000).to(dev)
+    scene = (1.02 * model + 0.01).contiguous()
+    runs = []
+    for cfg in (ICPConfig(nn_method="grid", max_iter=3),
+                ICPConfig(nn_method="grid", max_iter=3, grid_scene_tile=256,
+                          grid_model_tile=1024, grid_max_candidates=16)):
+        first.clear()
+        icp(model, scene, cfg)
+        tile = cfg.resolved_grid_sizes(dev)[0]
+        runs.append(first[0][egrid._prepare_scene(scene, tile)[2]])
+    assert torch.equal(runs[0], runs[1])
+    assert seen["stride"] == {64}
+    tm = {t for t, _ in seen["table"]}
+    assert {c for _, c in seen["table"]} == {128, 16} and len(tm) == 2, seen
+    pts = _cloud(8, 20000).to(dev)
+    assert torch.equal(knn_indices(pts, 17, method="grid"),
+                       knn_indices(pts, 17, method="grid", grid_model_tile=256,
+                                   grid_max_candidates=32))
