@@ -1,0 +1,15 @@
+"""K4's least time for one grid search, bytes only (``roofline.k4_bound_s``;
+the plane metrics' model normals ride it as three more columns), over its
+plan, fold and epilogue device time an iteration, taken as K3's is."""
+
+from regbench import roofline
+
+
+def read(run):
+    tr = run.trace
+    t = tr.family_seconds("K4") if tr is not None else 0.0
+    if t <= 0 or not tr.iterations:
+        return None
+    n = m = int(tr.config["rows"])
+    payload = 3 if tr.mix["reference"] == "point_to_plane" else 0
+    return 100.0 * roofline.k4_bound_s(n, m, payload) / (t / tr.iterations)
