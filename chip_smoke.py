@@ -220,6 +220,7 @@ from icp_tpu_torch.bench.roofline import (  # noqa: E402
     fused_ops,
     step_ops,
 )
+from icp_tpu_torch.kernels.nn_grid import folded_pairs  # noqa: E402
 
 FIXDIR = os.path.join(ROOT, "tests", "fixtures", "reference")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
@@ -390,15 +391,6 @@ def hold_k9(label: str, s, m, outs) -> dict:
     return {"equal": equal, "best_share": float((best == bp).double().mean()),
             "idx_share": float((idx == ip).double().mean()), "delta": delta, "max_abs_err": err,
             "k1_share": float((idx == ik1).double().mean())}
-
-
-def folded_pairs(counts, cap: int, nj: int, tm: int, tn: int) -> int:
-    """(query, model row) pairs a work-list launch folds for this table: one
-    scene tile against one model tile per work item (a tile's candidates,
-    or every tile past the capacity)."""
-    from icp_tpu_torch.kernels.nn_grid import work_item_offsets
-
-    return int(work_item_offsets(counts, cap, nj)[-1]) * tm * tn
 
 
 def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:

@@ -39,6 +39,7 @@ from icp_tpu_torch.engine.point_to_plane import _reduced, _rodrigues, _solve6
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
+from icp_tpu_torch.utils.profiling import register, span
 
 
 def disk_covariances(normals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -131,19 +132,27 @@ def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
     """
     from icp_tpu_torch.ops.normals import estimate_normals
 
-    cfg = config or ICPConfig()
-    model = as_points(model, cfg.dtype, device)
-    scene = as_points(scene, cfg.dtype, model.device)
-    _validate(model, scene, cfg)
-    model_normals = (estimate_normals(model, k=normal_k) if model_normals is None
-                     else as_points(model_normals, cfg.dtype, model.device))
-    scene_normals = (estimate_normals(scene, k=normal_k) if scene_normals is None
-                     else as_points(scene_normals, cfg.dtype, model.device))
-    if init is not None:
-        init = cast_similarity(init, cfg.dtype, model.device)
-    return run_plane(gicp_engine(eps), cfg, model, model_normals, scene,
-                     disk_covariances(scene_normals, eps), init=init, trace=trace,
-                     scene_n=scene_n, model_n=model_n)
+    where = model if device is None else device
+    with register():
+        with span("icp.prologue", where):
+            cfg = config or ICPConfig()
+            model = as_points(model, cfg.dtype, device)
+            scene = as_points(scene, cfg.dtype, model.device)
+            _validate(model, scene, cfg)
+            if model_normals is not None:
+                model_normals = as_points(model_normals, cfg.dtype, model.device)
+            if scene_normals is not None:
+                scene_normals = as_points(scene_normals, cfg.dtype, model.device)
+            if init is not None:
+                init = cast_similarity(init, cfg.dtype, model.device)
+        if model_normals is None:
+            model_normals = estimate_normals(model, k=normal_k)
+        if scene_normals is None:
+            scene_normals = estimate_normals(scene, k=normal_k)
+        with span("icp.prologue", model):
+            scene_cov = disk_covariances(scene_normals, eps)
+        return run_plane(gicp_engine(eps), cfg, model, model_normals, scene, scene_cov,
+                         init=init, trace=trace, scene_n=scene_n, model_n=model_n)
 
 
 def icp_generalized_sharded(model, scene, config: Optional[ICPConfig] = None, *,

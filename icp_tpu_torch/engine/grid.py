@@ -54,6 +54,7 @@ from icp_tpu_torch.ops.alignment import (
 )
 from icp_tpu_torch.ops.quantile import histogram_quantile
 from icp_tpu_torch.ops.transform import apply_similarity, compose, identity_similarity
+from icp_tpu_torch.utils.profiling import span
 
 
 # The model stride of the first bounds (K1 against every stride-th model
@@ -118,19 +119,26 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
               converge: bool = True, trim_fraction: float = 0.0, scene_n=None,
               model_n=None):
     dt, dev = scene.dtype, scene.device
-    scene_tile_target, model_tile_target, max_candidates = grid_sizes(
-        dev, scene_tile_target, model_tile_target, max_candidates)
-    model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
-    if init is not None:
-        scene = apply_similarity(scene, init)
-    grid = build_model_grid(model, target_tile=model_tile_target)
-    p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
-    u = seed_bounds(p, grid, dev, bound_stride)
-    loop = LoopState(bound, length, threshold, reference_compat, dev, converge)
+    with span("icp.prologue", dev):
+        scene_tile_target, model_tile_target, max_candidates = grid_sizes(
+            dev, scene_tile_target, model_tile_target, max_candidates)
+        model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
+        if init is not None:
+            scene = apply_similarity(scene, init)
+    with span("icp.setup.model_grid", dev):
+        grid = build_model_grid(model, target_tile=model_tile_target)
+    with span("icp.setup.scene_sort", dev):
+        p, w, inv_slots, tn, _ = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
+    with span("icp.setup.seed", dev):
+        u = seed_bounds(p, grid, dev, bound_stride)
+    with span("icp.prologue", dev):
+        loop = LoopState(bound, length, threshold, reference_compat, dev, converge)
+        if solver == "qcp_fused":
+            state = identity_state(dev) if init is None else pack_total_state(init, dev)
+        else:
+            total = identity_similarity(dt, dev) if init is None else init
 
     if solver == "qcp_fused":
-        state = identity_state(dev) if init is None else pack_total_state(init, dev)
-
         def step():
             nonlocal p, u
             _, y, _, d2 = closest_point_indices_grid(p, grid, u, scene_tile=tn,
@@ -142,12 +150,7 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
                      **loop.step_kw(with_scale))
             p = apply_similarity(p, step_similarity(state, dt))
             u = next_bound(y, p)
-
-        loop.run(step)
-        total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
     else:
-        total = identity_similarity(dt, dev) if init is None else init
-
         def step():
             nonlocal p, u, total
             if loop.done():
@@ -164,5 +167,8 @@ def _icp_grid(model, scene, *, threshold: float, bound: int, length: int,
             loop.record((w_eff * (d * d).sum(1)).sum(), stats.n)
             u = next_bound(y, p)
 
-        loop.run(step)
-    return loop.finish(p[inv_slots], total, dt, trace)
+    loop.run(step)
+    with span("icp.finish", dev):
+        if solver == "qcp_fused":
+            total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
+        return loop.finish(p[inv_slots], total, dt, trace)

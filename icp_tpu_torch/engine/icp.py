@@ -105,7 +105,7 @@ from icp_tpu_torch.ops.transform import (
     compose,
     identity_similarity,
 )
-from icp_tpu_torch.utils.profiling import check_finite
+from icp_tpu_torch.utils.profiling import check_finite, count, host_wait, register, span
 from icp_tpu_torch.utils.precision import in_full_float32
 
 # Iterations launched between two reads of the device's done flag.
@@ -173,26 +173,32 @@ class LoopState:
     def run(self, step: Callable[[], None]) -> None:
         """Call ``step`` until the done flag is up, reading it once per
         chunk of ``_CHUNK`` iterations."""
-        launched = 0
-        while launched < self.bound:
-            k = min(_CHUNK, self.bound - launched)
-            for _ in range(k):
-                step()
-            launched += k
-            if int(self.ctl[1]):
-                break
+        with span("icp.loop", self.ctl):
+            launched = 0
+            while launched < self.bound:
+                k = min(_CHUNK, self.bound - launched)
+                for _ in range(k):
+                    step()
+                launched += k
+                count("iters_launched", k)
+                with host_wait():
+                    done = int(self.ctl[1])
+                if done:
+                    break
 
     def done(self) -> bool:
-        return bool(int(self.ctl[1]))
+        with host_wait():
+            return bool(int(self.ctl[1]))
 
     def record(self, err_sum: torch.Tensor, n: torch.Tensor) -> None:
         """Host-side bookkeeping of the plain-solver paths."""
-        err = float(self.err_factor * err_sum / n)
-        status = GUARD_OK
-        if self.guard:
-            status = guard_status(err, self.best)
-            self.best = least(err, self.best)
-        record_error(self.ctl, self.errs, err, self.threshold, self.converge, status)
+        with host_wait():
+            err = float(self.err_factor * err_sum / n)
+            status = GUARD_OK
+            if self.guard:
+                status = guard_status(err, self.best)
+                self.best = least(err, self.best)
+            record_error(self.ctl, self.errs, err, self.threshold, self.converge, status)
 
     def record_on_device(self, err: torch.Tensor) -> torch.Tensor:
         """K2's bookkeeping in tensor ops, with no host read: errs[it] = err,
@@ -215,17 +221,21 @@ class LoopState:
 
     def finish(self, points, transform, dtype, trace: bool):
         iters = self.ctl[0].clone()
+        count("iters_done", iters)
         last = (iters.to(torch.int64) - 1).clamp(min=0)
         if self.errs.numel():
-            err = torch.where(iters > 0, self.errs[last],
-                              torch.full_like(self.errs[0], math.inf))
+            with host_wait():  # indexing by a 0-d device tensor reads it
+                err = torch.where(iters > 0, self.errs[last],
+                                  torch.full_like(self.errs[0], math.inf))
         else:
             err = torch.full((), math.inf, dtype=torch.float64,
                              device=iters.device)
         result = ICPResult(points=points, transform=transform,
                            err=err.to(dtype), iters=iters)
         if self.guard:  # the status, read once after the loop
-            _raise_on_guard_status(result, int(self.ctl[3]))
+            with host_wait():
+                status = int(self.ctl[3])
+            _raise_on_guard_status(result, status)
         return ICPTrace(result=result, errs=self.errs.to(dtype)) if trace else result
 
 
@@ -325,21 +335,28 @@ def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
                converge: bool = True, trim_fraction: float = 0.0, scene_n=None,
                model_n=None, guard: bool = False):
     dt, dev = scene.dtype, scene.device
-    model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
-    loop = LoopState(bound, length, threshold, reference_compat, dev, converge, guard)
-    step_kw = loop.step_kw(with_scale)
-    if fused_path_available(solver, nn_method, trim_fraction, model,
-                            masked=mask is not None):
-        prep = prepare_fused_inputs(scene, model)
-        state = identity_state(dev) if init is None else pack_total_state(init, dev)
+    with span("icp.prologue", dev):
+        model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
+        loop = LoopState(bound, length, threshold, reference_compat, dev, converge, guard)
+        step_kw = loop.step_kw(with_scale)
+        on_k2 = solver == "qcp_fused" and nn_method == "pallas"  # K2 keeps the state
+        fused = fused_path_available(solver, nn_method, trim_fraction, model,
+                                     masked=mask is not None)
+        if fused:
+            prep = prepare_fused_inputs(scene, model)
+        else:
+            p = scene if init is None else apply_similarity(scene, init)
+        if on_k2:
+            state = identity_state(dev) if init is None else pack_total_state(init, dev)
+        else:
+            total = identity_similarity(dt, dev) if init is None else init
+    if fused:
         loop.run(lambda: fused_icp_step(prep, state, loop.ctl, loop.errs, **step_kw))
-        total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
-        return loop.finish(apply_similarity(scene, total), total, dt, trace)
+        with span("icp.finish", dev):
+            total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
+            return loop.finish(apply_similarity(scene, total), total, dt, trace)
 
-    p = scene if init is None else apply_similarity(scene, init)
-    if solver == "qcp_fused" and nn_method == "pallas":
-        state = identity_state(dev) if init is None else pack_total_state(init, dev)
-
+    if on_k2:
         def step():
             nonlocal p
             y = model[closest_point_indices(p, model, method=nn_method).to(torch.int64)]
@@ -349,10 +366,9 @@ def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
             p = apply_similarity(p, step_similarity(state, dt))
 
         loop.run(step)
-        total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
-        return loop.finish(p, total, dt, trace)
-
-    total = identity_similarity(dt, dev) if init is None else init
+        with span("icp.finish", dev):
+            total = Similarity(*(v.to(dt) for v in unpack_state(state)[1]))
+            return loop.finish(p, total, dt, trace)
 
     def step():
         nonlocal p, total
@@ -365,7 +381,8 @@ def _icp_dense(model, scene, *, threshold: float, bound: int, length: int,
         loop.record(err_sum, n)
 
     loop.run(step)
-    return loop.finish(p, total, dt, trace)
+    with span("icp.finish", dev):
+        return loop.finish(p, total, dt, trace)
 
 
 def _validate(model, scene, cfg: ICPConfig) -> None:
@@ -399,43 +416,49 @@ def icp(model, scene, config: Optional[ICPConfig] = None, *, trace: bool = False
     row counts of bucket-padded clouds (``ops/padding.py``);
     ``result.points`` keeps the padded shape, slice ``[:scene_n]``.
     """
-    cfg = config or ICPConfig()
-    if n_iters is not None and (trace or guard):
-        raise ValueError("n_iters is for plain runs; trace/guard paths "
-                         "size buffers by config.max_iter")
-    if n_iters is not None and int(n_iters) > cfg.max_iter:
-        raise ValueError(
-            f"n_iters={int(n_iters)} exceeds config.max_iter={cfg.max_iter}; "
-            "n_iters is an early-exit bound, not a replacement "
-            "(use ICPConfig(max_iter=...) or icp_fixed_iters)")
-    if guard not in (False, True, "device"):
-        raise ValueError(f"guard must be False, True or 'device', got {guard!r}")
-    model = as_points(model, cfg.dtype, device)
-    scene = as_points(scene, cfg.dtype, model.device)
-    _validate(model, scene, cfg)
-    backend = scene.device.type
-    if init is not None:
-        init = cast_similarity(init, cfg.dtype, scene.device)
-    n_points = max(true_count(model.shape[0], model_n), true_count(scene.shape[0], scene_n))
-    nn_method = cfg.resolved_nn_method(backend, n_points)
-    solver = cfg.resolved_solver(backend)
-    bound = cfg.max_iter if n_iters is None else int(n_iters)
-    kw = dict(threshold=cfg.threshold, bound=bound, length=cfg.max_iter, solver=solver,
-              with_scale=cfg.with_scale, reference_compat=cfg.reference_compat, init=init,
-              trace=trace, trim_fraction=cfg.trim_fraction, scene_n=scene_n, model_n=model_n)
-    if nn_method == "grid":
-        from icp_tpu_torch.engine.grid import _icp_grid
+    where = model if device is None else device
+    with register():
+        with span("icp.prologue", where):
+            cfg = config or ICPConfig()
+            if n_iters is not None and (trace or guard):
+                raise ValueError("n_iters is for plain runs; trace/guard paths "
+                                 "size buffers by config.max_iter")
+            if n_iters is not None and int(n_iters) > cfg.max_iter:
+                raise ValueError(
+                    f"n_iters={int(n_iters)} exceeds config.max_iter={cfg.max_iter}; "
+                    "n_iters is an early-exit bound, not a replacement "
+                    "(use ICPConfig(max_iter=...) or icp_fixed_iters)")
+            if guard not in (False, True, "device"):
+                raise ValueError(f"guard must be False, True or 'device', got {guard!r}")
+            model = as_points(model, cfg.dtype, device)
+            scene = as_points(scene, cfg.dtype, model.device)
+            _validate(model, scene, cfg)
+            backend = scene.device.type
+            if init is not None:
+                init = cast_similarity(init, cfg.dtype, scene.device)
+            n_points = max(true_count(model.shape[0], model_n),
+                           true_count(scene.shape[0], scene_n))
+            nn_method = cfg.resolved_nn_method(backend, n_points)
+            solver = cfg.resolved_solver(backend)
+            bound = cfg.max_iter if n_iters is None else int(n_iters)
+            kw = dict(threshold=cfg.threshold, bound=bound, length=cfg.max_iter,
+                      solver=solver, with_scale=cfg.with_scale,
+                      reference_compat=cfg.reference_compat, init=init, trace=trace,
+                      trim_fraction=cfg.trim_fraction, scene_n=scene_n, model_n=model_n)
+        if nn_method == "grid":
+            from icp_tpu_torch.engine.grid import _icp_grid
 
-        out = _icp_grid(model, scene, scene_tile_target=cfg.grid_scene_tile,
-                        model_tile_target=cfg.grid_model_tile,
-                        max_candidates=cfg.grid_max_candidates, **kw)
-    else:
-        out = _icp_dense(model, scene, nn_method=nn_method,
-                         guard=guard == "device" and not trace, **kw)
-    if guard:
-        result = out.result if trace else out
-        check_finite("icp", result.err, result.points)
-    return out
+            out = _icp_grid(model, scene, scene_tile_target=cfg.grid_scene_tile,
+                            model_tile_target=cfg.grid_model_tile,
+                            max_candidates=cfg.grid_max_candidates, **kw)
+        else:
+            out = _icp_dense(model, scene, nn_method=nn_method,
+                             guard=guard == "device" and not trace, **kw)
+        if guard:
+            with span("icp.finish", scene):
+                result = out.result if trace else out
+                check_finite("icp", result.err, result.points)
+        return out
 
 
 @in_full_float32
@@ -448,17 +471,20 @@ def icp_fixed_iters(model, scene, *, n_iters: int, solver: str = "eigh",
     not stop it.  ``nn_method="grid"`` runs the grid engine with
     ``ICPConfig``'s default tiles.  Trim and bucket counts as in ``icp``;
     devices as in ``icp``."""
-    model = as_points(model, torch.float32, device)
-    scene = as_points(scene, torch.float32, model.device)
-    kw = dict(threshold=-math.inf, bound=n_iters, length=n_iters, solver=solver,
-              with_scale=with_scale, reference_compat=reference_compat,
-              init=None, trace=False, converge=False, trim_fraction=trim_fraction,
-              scene_n=scene_n, model_n=model_n)
-    if nn_method == "grid":
-        from icp_tpu_torch.engine.grid import _icp_grid
+    where = model if device is None else device
+    with register():
+        with span("icp.prologue", where):
+            model = as_points(model, torch.float32, device)
+            scene = as_points(scene, torch.float32, model.device)
+            kw = dict(threshold=-math.inf, bound=n_iters, length=n_iters, solver=solver,
+                      with_scale=with_scale, reference_compat=reference_compat,
+                      init=None, trace=False, converge=False, trim_fraction=trim_fraction,
+                      scene_n=scene_n, model_n=model_n)
+        if nn_method == "grid":
+            from icp_tpu_torch.engine.grid import _icp_grid
 
-        return _icp_grid(model, scene, **kw)
-    return _icp_dense(model, scene, nn_method=nn_method, **kw)
+            return _icp_grid(model, scene, **kw)
+        return _icp_dense(model, scene, nn_method=nn_method, **kw)
 
 
 def icp_resumable(model, scene, config: Optional[ICPConfig] = None, *,

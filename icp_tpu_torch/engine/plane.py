@@ -37,6 +37,7 @@ from icp_tpu_torch.engine.icp import LoopState, bucket_prologue, step_weights, t
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.distance import closest_point_indices
 from icp_tpu_torch.ops.transform import apply_similarity, compose, identity_similarity
+from icp_tpu_torch.utils.profiling import span
 
 ENGINES = ("point_to_point", "point_to_plane", "symmetric", "gicp")
 
@@ -95,12 +96,13 @@ def dense_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold:
     ``normals``) gathered with the matched points, ``s_side`` the scene's
     (N, ...) side data or None."""
     dt, dev = scene.dtype, scene.device
-    m_side = engine.rows(normals)
-    model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
-    p, side = _start(engine, scene, s_side, init)
-    state = dict(p=p, side=side,
-                 total=identity_similarity(dt, dev) if init is None else init)
-    loop = LoopState(max_iter, max_iter, threshold, False, dev)
+    with span("icp.prologue", dev):
+        m_side = engine.rows(normals)
+        model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
+        p, side = _start(engine, scene, s_side, init)
+        state = dict(p=p, side=side,
+                     total=identity_similarity(dt, dev) if init is None else init)
+        loop = LoopState(max_iter, max_iter, threshold, False, dev)
 
     def step():
         p = state["p"]
@@ -111,7 +113,8 @@ def dense_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold:
         _advance(engine, loop, state, sim, p_new, err)
 
     loop.run(step)
-    return loop.finish(state["p"], state["total"], dt, trace)
+    with span("icp.finish", dev):
+        return loop.finish(state["p"], state["total"], dt, trace)
 
 
 def grid_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: float,
@@ -129,18 +132,23 @@ def grid_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: 
     )
 
     dt, dev = scene.dtype, scene.device
-    scene_tile_target, model_tile_target, max_candidates = grid_sizes(
-        dev, scene_tile_target, model_tile_target, max_candidates)
-    model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
-    scene, s_side = _start(engine, scene, s_side, init)
-    grid = build_model_grid(model, target_tile=model_tile_target, payload=normals)
-    p, w, inv_slots, tn, perm = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
-    if s_side is not None:
-        s_side = torch.cat([s_side, engine.pad(s_side, p.shape[0] - scene.shape[0])])[perm]
-    u = seed_bounds(p, grid, dev)
-    state = dict(p=p, side=s_side, u=u,
-                 total=identity_similarity(dt, dev) if init is None else init)
-    loop = LoopState(max_iter, max_iter, threshold, False, dev)
+    with span("icp.prologue", dev):
+        scene_tile_target, model_tile_target, max_candidates = grid_sizes(
+            dev, scene_tile_target, model_tile_target, max_candidates)
+        model, scene, _ = bucket_prologue(model, scene, scene_n, model_n)
+        scene, s_side = _start(engine, scene, s_side, init)
+    with span("icp.setup.model_grid", dev):
+        grid = build_model_grid(model, target_tile=model_tile_target, payload=normals)
+    with span("icp.setup.scene_sort", dev):
+        p, w, inv_slots, tn, perm = _prepare_scene(scene, scene_tile_target, n_valid=scene_n)
+        if s_side is not None:
+            s_side = torch.cat([s_side, engine.pad(s_side, p.shape[0] - scene.shape[0])])[perm]
+    with span("icp.setup.seed", dev):
+        u = seed_bounds(p, grid, dev)
+    with span("icp.prologue", dev):
+        state = dict(p=p, side=s_side, u=u,
+                     total=identity_similarity(dt, dev) if init is None else init)
+        loop = LoopState(max_iter, max_iter, threshold, False, dev)
 
     def step():
         p = state["p"]
@@ -152,7 +160,8 @@ def grid_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: 
         _advance(engine, loop, state, sim, p_new, err, u=next_bound(y, p_new))
 
     loop.run(step)
-    return loop.finish(state["p"][inv_slots], state["total"], dt, trace)
+    with span("icp.finish", dev):
+        return loop.finish(state["p"][inv_slots], state["total"], dt, trace)
 
 
 def run_plane(engine: PlaneEngine, cfg, model, normals, scene, s_side=None, *,

@@ -30,6 +30,7 @@ from icp_tpu_torch.engine.plane import PlaneEngine, run_plane
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
+from icp_tpu_torch.utils.profiling import register, span
 
 _DAMPING = 1e-9
 
@@ -110,18 +111,21 @@ def icp_point_to_plane(model, scene, config: Optional[ICPConfig] = None, *,
     """
     from icp_tpu_torch.ops.normals import estimate_normals
 
-    cfg = config or ICPConfig()
-    model = as_points(model, cfg.dtype, device)
-    scene = as_points(scene, cfg.dtype, model.device)
-    _validate(model, scene, cfg)
-    if normals is None:
-        normals = estimate_normals(model, k=normal_k)
-    else:
-        normals = as_points(normals, cfg.dtype, model.device)
-    if init is not None:
-        init = cast_similarity(init, cfg.dtype, model.device)
-    return run_plane(POINT_TO_PLANE, cfg, model, normals, scene, init=init, trace=trace,
-                     scene_n=scene_n, model_n=model_n)
+    where = model if device is None else device
+    with register():
+        with span("icp.prologue", where):
+            cfg = config or ICPConfig()
+            model = as_points(model, cfg.dtype, device)
+            scene = as_points(scene, cfg.dtype, model.device)
+            _validate(model, scene, cfg)
+            if normals is not None:
+                normals = as_points(normals, cfg.dtype, model.device)
+            if init is not None:
+                init = cast_similarity(init, cfg.dtype, model.device)
+        if normals is None:
+            normals = estimate_normals(model, k=normal_k)
+        return run_plane(POINT_TO_PLANE, cfg, model, normals, scene, init=init, trace=trace,
+                         scene_n=scene_n, model_n=model_n)
 
 
 def icp_point_to_plane_sharded(model, scene, config: Optional[ICPConfig] = None, *,

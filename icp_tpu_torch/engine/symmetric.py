@@ -41,6 +41,7 @@ from icp_tpu_torch.engine.point_to_plane import _reduced, _rodrigues, _solve6, m
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
+from icp_tpu_torch.utils.profiling import register, span
 
 
 def _sym_step(p, y, nv, pn, w=None, reduce=None):
@@ -88,18 +89,25 @@ def icp_symmetric(model, scene, config: Optional[ICPConfig] = None, *,
     """
     from icp_tpu_torch.ops.normals import estimate_normals
 
-    cfg = config or ICPConfig()
-    model = as_points(model, cfg.dtype, device)
-    scene = as_points(scene, cfg.dtype, model.device)
-    _validate(model, scene, cfg)
-    normals = (estimate_normals(model, k=normal_k) if normals is None
-               else as_points(normals, cfg.dtype, model.device))
-    scene_normals = (estimate_normals(scene, k=normal_k) if scene_normals is None
-                     else as_points(scene_normals, cfg.dtype, model.device))
-    if init is not None:
-        init = cast_similarity(init, cfg.dtype, model.device)
-    return run_plane(SYMMETRIC, cfg, model, normals, scene, scene_normals, init=init,
-                     trace=trace, scene_n=scene_n, model_n=model_n)
+    where = model if device is None else device
+    with register():
+        with span("icp.prologue", where):
+            cfg = config or ICPConfig()
+            model = as_points(model, cfg.dtype, device)
+            scene = as_points(scene, cfg.dtype, model.device)
+            _validate(model, scene, cfg)
+            if normals is not None:
+                normals = as_points(normals, cfg.dtype, model.device)
+            if scene_normals is not None:
+                scene_normals = as_points(scene_normals, cfg.dtype, model.device)
+            if init is not None:
+                init = cast_similarity(init, cfg.dtype, model.device)
+        if normals is None:
+            normals = estimate_normals(model, k=normal_k)
+        if scene_normals is None:
+            scene_normals = estimate_normals(scene, k=normal_k)
+        return run_plane(SYMMETRIC, cfg, model, normals, scene, scene_normals, init=init,
+                         trace=trace, scene_n=scene_n, model_n=model_n)
 
 
 def icp_symmetric_sharded(model, scene, config: Optional[ICPConfig] = None, *,

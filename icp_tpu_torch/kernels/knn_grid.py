@@ -35,9 +35,11 @@ from icp_tpu_torch.kernels.nn_grid import (
     ModelGrid,
     _round_up,
     check_table,
+    folded_pairs,
     tile_box_dists,
     tile_ids,
 )
+from icp_tpu_torch.utils.profiling import count_later, host_wait
 
 _INT_MAX = 2 ** 31 - 1
 TILES_PER_ITEM = 8  # model tiles a work item of a candidate list
@@ -89,6 +91,7 @@ def knn_worklist(cand: torch.Tensor, counts: torch.Tensor, query: torch.Tensor,
     check_table("knn_grid", cand, counts, query, tiles, scene_tile)
     _check_bound(bound, query)
     check_k("knn_grid", k, k)
+    count_later(_k7_counters, counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile)
     dev = query.device
     if dev.type == "cpu":
         return knn_worklist_plain(cand, counts, query, tiles, scene_tile, k, bound)
@@ -101,8 +104,9 @@ def knn_worklist(cand: torch.Tensor, counts: torch.Tensor, query: torch.Tensor,
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     plan = torch.empty(2 * ni + 3, dtype=torch.int32, device=dev)
     totals = (ctypes.c_int * 2)()  # the plan's items and scratch slots, read back
-    _build.check(lib.knn_grid_plan(counts.data_ptr(), ni, cap, nj, g, gf, plan.data_ptr(),
-                                   ctypes.addressof(totals), stream), "knn_grid")
+    with host_wait():
+        _build.check(lib.knn_grid_plan(counts.data_ptr(), ni, cap, nj, g, gf, plan.data_ptr(),
+                                       ctypes.addressof(totals), stream), "knn_grid")
     items, slots = totals
     # partial k-lists of the items of tiles with more than one item
     scratch = torch.empty(slots * scene_tile * k, dtype=torch.int64, device=dev) if slots else None
@@ -114,6 +118,11 @@ def knn_worklist(cand: torch.Tensor, counts: torch.Tensor, query: torch.Tensor,
     _build.LAUNCHES["knn_grid"] += 1
     _build.check(code, "knn_grid")
     return d2, idx
+
+
+def _k7_counters(counts, cap: int, nj: int, tm: int, tn: int) -> dict:
+    """K7's tracing counters of one launch (``utils/profiling.py``)."""
+    return {"k7_rows": counts.shape[0] * tn, "k7_pairs": folded_pairs(counts, cap, nj, tm, tn)}
 
 
 def knn_worklist_plain(cand, counts, query, tiles, scene_tile, k, bound=None):

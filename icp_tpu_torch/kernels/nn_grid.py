@@ -30,6 +30,7 @@ import torch
 
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.kernels.nn_dense import check_points, closest_point_indices_dense
+from icp_tpu_torch.utils.profiling import count_later, host_wait
 
 _BIG = 3.0e38
 _PAD_COORD = 1.0e17
@@ -55,7 +56,8 @@ def kd_order(points: torch.Tensor, levels: int,
     dev = pts.device
     perm = torch.arange(n, dtype=torch.int64, device=dev)
     msk = torch.ones(n, dtype=torch.bool, device=dev) if real is None else real
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    with host_wait():  # a copy from the host waits for the stream
+        big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
     for lvl in range(levels):
         s = 2 ** lvl
         seg = n // s
@@ -122,12 +124,14 @@ def build_model_grid(model: torch.Tensor, *, target_tile: int = 1024,
     real = perm < m
     kd_row = torch.empty(m_pad, dtype=torch.int32, device=dev)
     kd_row[perm] = torch.arange(m_pad, dtype=torch.int32, device=dev)
-    oidx = torch.where(real, perm.to(torch.float32),
-                       torch.tensor(_BIG, dtype=torch.float32, device=dev))
+    with host_wait():  # a copy from the host waits for the stream
+        oidx = torch.where(real, perm.to(torch.float32),
+                           torch.tensor(_BIG, dtype=torch.float32, device=dev))
     tiles = torch.cat([sorted_pts, oidx[:, None]], dim=1).reshape(n_tiles, tm, 4)
     tiled = sorted_pts.reshape(n_tiles, tm, 3)
     r3 = real.reshape(n_tiles, tm, 1)
-    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    with host_wait():
+        big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
     pl_tiles, width = None, 0
     if payload is not None:
         width = payload.shape[1]
@@ -254,6 +258,7 @@ def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
             or not kd_row.is_contiguous():
         raise ValueError("nn_grid: kd_row must be a contiguous int32 (M,) tensor "
                          "beside the scene")
+    count_later(_k4_counters, counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile)
     if dev.type == "cpu":
         return nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
     ni, cap = cand.shape
@@ -292,6 +297,19 @@ def work_item_offsets(counts: torch.Tensor, cap: int, nj: int) -> torch.Tensor:
     lens = torch.where(c > cap, torch.full_like(c, nj), c.clamp(min=1))
     zero = torch.zeros(1, dtype=torch.int64, device=counts.device)
     return torch.cat([zero, lens.cumsum(0)]).to(torch.int32)
+
+
+def folded_pairs(counts: torch.Tensor, cap: int, nj: int, tm: int, tn: int) -> int:
+    """(query, model row) pairs a work-list launch (K4, K7) folds for this
+    table: one query tile of ``tn`` rows against one model tile of ``tm``
+    rows per tile of its fold list (``tile_ids``)."""
+    return int(work_item_offsets(counts, cap, nj)[-1]) * tm * tn
+
+
+def _k4_counters(counts, cap: int, nj: int, tm: int, tn: int) -> dict:
+    """K4's tracing counters of one launch (``utils/profiling.py``)."""
+    return {"k4_rows": counts.shape[0] * tn, "k4_pairs": folded_pairs(counts, cap, nj, tm, tn),
+            "k4_tiles": counts.shape[0], "k4_tiles_past_cap": int((counts > cap).sum())}
 
 
 def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):

@@ -60,6 +60,7 @@ import torch
 
 from icp_tpu_torch.kernels import _build
 from icp_tpu_torch.ops.alignment import AlignmentStats, Similarity
+from icp_tpu_torch.utils.profiling import host_wait
 
 N_SUMS = 18
 STATE_SLOTS = 32
@@ -79,7 +80,8 @@ def identity_state(device=None, pairs: int = 1) -> torch.Tensor:
     """(pairs, 32) float64 state blocks of the identity cumulative transform
     (one block, (1, 32), by default)."""
     out = torch.zeros((pairs, STATE_SLOTS), dtype=torch.float64, device=device)
-    out[:, [13, 14, 18, 22]] = 1.0  # s_tot, R_tot diagonal
+    with host_wait():  # the index list's copy from the host waits for the stream
+        out[:, [13, 14, 18, 22]] = 1.0  # s_tot, R_tot diagonal
     return out
 
 
@@ -127,8 +129,9 @@ def pack_stats(stats: AlignmentStats) -> torch.Tensor:
 def new_loop_control(bound: int, device=None, pairs=None) -> torch.Tensor:
     """ctl = [0, done, bound, status 0]; done from the start when the bound
     is 0.  ``pairs``: one such row a pair, (pairs, 4)."""
-    ctl = torch.tensor([0, int(bound <= 0), bound, GUARD_OK], dtype=torch.int32,
-                       device=device)
+    with host_wait():  # a copy from the host waits for the stream
+        ctl = torch.tensor([0, int(bound <= 0), bound, GUARD_OK], dtype=torch.int32,
+                           device=device)
     return ctl if pairs is None else ctl.repeat(pairs, 1)
 
 

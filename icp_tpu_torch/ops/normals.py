@@ -20,6 +20,7 @@ import torch
 from icp_tpu_torch.config import grid_sizes
 from icp_tpu_torch.engine.icp import as_points
 from icp_tpu_torch.utils.precision import in_full_float32
+from icp_tpu_torch.utils.profiling import span
 
 # Smallest cloud at which ``method="auto"`` takes the grid kNN (K7): on the
 # CPU the JAX package's value, so the plain versions take the reference's
@@ -85,29 +86,30 @@ def knn_indices(points: torch.Tensor, k: int, *, method: str = "auto",
     the card).  K7's sizes left None are the device's
     (``config.grid_sizes(..., knn=True)``: query tile 64, model tile 256,
     capacity 32 on the CPU, as JAX's; 64 / 512 / 256 on the card)."""
-    n = points.shape[0]
-    if method == "auto":
-        least = NORMALS_GRID_THRESHOLD_CUDA if points.is_cuda else NORMALS_GRID_THRESHOLD
-        method = "grid" if n >= least else "dense"
-    pts32 = points.to(torch.float32).contiguous()
-    if method == "dense":
-        from icp_tpu_torch.kernels.knn_dense import knn_dense
+    with span("icp.normals.knn", points):
+        n = points.shape[0]
+        if method == "auto":
+            least = NORMALS_GRID_THRESHOLD_CUDA if points.is_cuda else NORMALS_GRID_THRESHOLD
+            method = "grid" if n >= least else "dense"
+        pts32 = points.to(torch.float32).contiguous()
+        if method == "dense":
+            from icp_tpu_torch.kernels.knn_dense import knn_dense
 
-        return knn_dense(pts32, pts32, k)[1]
-    if method != "grid":
-        raise ValueError(f"unknown kNN method: {method}")
-    from icp_tpu_torch.engine.grid import _prepare_scene
-    from icp_tpu_torch.kernels.knn_grid import knn_grid
-    from icp_tpu_torch.kernels.nn_grid import build_model_grid
+            return knn_dense(pts32, pts32, k)[1]
+        if method != "grid":
+            raise ValueError(f"unknown kNN method: {method}")
+        from icp_tpu_torch.engine.grid import _prepare_scene
+        from icp_tpu_torch.kernels.knn_grid import knn_grid
+        from icp_tpu_torch.kernels.nn_grid import build_model_grid
 
-    scene_tile, model_tile, cap = grid_sizes(points.device, grid_scene_tile,
-                                             grid_model_tile, grid_max_candidates, knn=True)
-    grid = build_model_grid(pts32, target_tile=model_tile)
-    # kd-sorted queries for tile coherence; the idx values are original
-    # indices already, so only the rows are put back in order
-    p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, scene_tile)
-    _, idx_sorted = knn_grid(p_sorted, grid, k, scene_tile=tn, max_candidates=cap)
-    return idx_sorted[inv_slots]
+        scene_tile, model_tile, cap = grid_sizes(points.device, grid_scene_tile,
+                                                 grid_model_tile, grid_max_candidates, knn=True)
+        grid = build_model_grid(pts32, target_tile=model_tile)
+        # kd-sorted queries for tile coherence; the idx values are original
+        # indices already, so only the rows are put back in order
+        p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, scene_tile)
+        _, idx_sorted = knn_grid(p_sorted, grid, k, scene_tile=tn, max_candidates=cap)
+        return idx_sorted[inv_slots]
 
 
 @in_full_float32
@@ -128,7 +130,8 @@ def estimate_normals(points, k: int = 16, method: str = "auto",
     idx = knn_indices(pts, k_eff, method=method, grid_scene_tile=grid_scene_tile,
                       grid_model_tile=grid_model_tile,
                       grid_max_candidates=grid_max_candidates)
-    return normals_from_neighbor_indices(pts, idx)
+    with span("icp.normals.pca", pts):
+        return normals_from_neighbor_indices(pts, idx)
 
 
 def orient_normals(points: torch.Tensor, normals: torch.Tensor,

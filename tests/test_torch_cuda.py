@@ -1175,3 +1175,72 @@ def test_grid_sizes_on_the_card(dev, monkeypatch):
     assert torch.equal(knn_indices(pts, 17, method="grid"),
                        knn_indices(pts, 17, method="grid", grid_model_tile=256,
                                    grid_max_candidates=32))
+
+
+def _horse(dev, copies: int, seed: int):
+    """horse_ref, ``copies`` jittered copies of it (48,485 rows each)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data", "horse_ref.txt")
+    base = np.loadtxt(path, skiprows=1, delimiter=",")
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([base + rng.normal(scale=2e-4, size=base.shape) for _ in range(copies)])
+    return torch.tensor(pts, dtype=torch.float32, device=dev)
+
+
+# the benchmark cells' paths: the fused loop (48,485 rows), the grid loop
+# (from 65,536) and the plane grid loop with K7 normals (from 131,072)
+CELL_PATHS = {"fused": ("icp", 1), "grid": ("icp", 2), "plane_grid": ("icp_point_to_plane", 3)}
+
+
+@pytest.mark.parametrize("path", list(CELL_PATHS))
+def test_cell_paths_wait_only_through_the_counted_helper(dev, path, monkeypatch):
+    """One registration of each cell's path under ``torch.profiler`` and
+    ``torch.cuda.set_sync_debug_mode("error")``: every wait of the host
+    goes through ``profiling.host_wait`` (the one place the mode is
+    lifted), the answers are bit-equal to the untraced run's, and K4's and
+    K7's counters equal their launches' tables."""
+    import icp_tpu_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp_tpu_torch import ICPConfig
+    from icp_tpu_torch.utils import profiling
+    from tests.test_torch_tracing import _table_counts, record_tables
+
+    entry, copies = CELL_PATHS[path]
+    fn = getattr(icp_tpu_torch, entry)
+    model = _horse(dev, copies, 1)
+    a = 0.2
+    rot = torch.tensor([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0],
+                        [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+    scene = (_horse(dev, copies, 2) @ rot.T + torch.tensor([0.02, -0.01, 0.005], device=dev))
+    cfg = ICPConfig(max_iter=20)
+    rec4, rec7 = record_tables(monkeypatch)
+    fn(model, scene, cfg)  # builds the kernels
+    off = fn(model, scene, cfg)
+    torch.cuda.synchronize()
+    rec4.clear()
+    rec7.clear()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            on = fn(model, scene, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert torch.equal(off.points, on.points) and torch.equal(off.err, on.err)
+    assert int(off.iters) == int(on.iters) == c["iters_done"]
+    assert all(torch.equal(x, y) for x, y in zip(off.transform, on.transform))
+    assert c["registrations"] == 1 and c["host_waits"] >= 1
+    assert c["iters_launched"] >= c["iters_done"]
+    assert bool(rec4) == (path != "fused") and bool(rec7) == (path == "plane_grid")
+    if rec4:
+        want = _table_counts(rec4, "k4")
+        assert {k: c[k] for k in want} == want
+    if rec7:
+        want = _table_counts(rec7, "k7")
+        assert (c["k7_rows"], c["k7_pairs"]) == (want["k7_rows"], want["k7_pairs"])
+    setup = {k for k in c["phase_ms"] if k.startswith(("icp.setup.", "icp.normals."))}
+    assert bool(setup) == (path != "fused")
+    assert all(v >= 0 for v in c["phase_ms"].values())

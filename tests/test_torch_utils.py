@@ -76,15 +76,29 @@ def test_icp_guard_flag(cow_pair):
 
 
 def test_profiling_trace_smoke(tmp_path, capsys):
-    """``trace`` writes a Chrome trace of its body and the section line."""
+    """``trace`` writes a Chrome trace of its body, the section line, and
+    the counters of its body alone (reset at its start) as
+    ``counters.json``."""
+    rng = np.random.default_rng(0)
+    model = rng.standard_normal((200, 3))
+    cfg = ICPConfig(max_iter=5, solver="eigh", nn_method="bcast")
     log_dir = str(tmp_path / "prof")
+    with trace(str(tmp_path / "before")):
+        icp(model, model + 0.01, cfg, device="cpu")
     with trace(log_dir):
         x = torch.ones((64, 64))
         assert float((x @ x).sum()) == 64 ** 3
+        res = icp(model, model + 0.01, cfg, device="cpu")
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    assert {"icp.register", "icp.loop", "icp.host_wait"} <= {e.get("name") for e in events}
     assert "[profile] section took" in capsys.readouterr().err
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        c = json.load(f)
+    assert c["registrations"] == 1 and c["iters_done"] == int(res.iters)
+    assert c["iters_launched"] == 5 and c["host_waits"] > 0
+    assert {"icp.register", "icp.prologue", "icp.loop", "icp.finish"} == set(c["phase_ms"])
 
 
 def test_run_with_metrics_matches_jax_record(cow_pair):
