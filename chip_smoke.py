@@ -403,6 +403,11 @@ def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "items": pairs // (tm * tn), "folded_pairs": pairs}
 
 
+def k4_keywords(grid, near) -> dict:
+    """K4's keywords for ``grid`` and a table's near tiles (``fold_table``)."""
+    return dict(kd_row=grid.kd_row, near=near, tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
+
+
 def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
     """The shape of a K7 launch: tiles folding all Nj tiles, mean candidate
     count, work items (and the scratch slots of the tiles of more than
@@ -433,8 +438,8 @@ def recorded_tables(rec: list):
         return {"ni": cand.shape[0], "nj": tiles.shape[0], "scene_tile": scene_tile,
                 "model_tile": tiles.shape[1], "capacity": cand.shape[1]}
 
-    def rec4(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):
-        out = k4(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
+    def rec4(cand, counts, scene, tiles, scene_tile, payload=None, **kw):
+        out = k4(cand, counts, scene, tiles, scene_tile, payload, **kw)
         first = not any(r["kernel"] == "K4" for r in rec)
         rec.append({"kernel": "K4", **shape(cand, tiles, scene_tile),
                     **k4_table(cand, counts, tiles.shape[0], tiles.shape[1], scene_tile),
@@ -864,13 +869,13 @@ def phase_kernels(seed: int, record: dict):
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, horse_ref))
     idx_bf = nn_dense.nn_dense(p0, horse_ref)
     nj, tm = grid.tiles.shape[0], grid.tiles.shape[1]
-    kd = dict(kd_row=grid.kd_row)
     k4_err, k4 = 0.0, None
     for cap in (16, 1):
-        cand, counts, over = nn_grid.candidates(p0, u0, grid, scene_tile=tn, cap=cap)
+        cand, counts, near, over = nn_grid.fold_table(p0, u0, grid, scene_tile=tn, cap=cap)
         args = (cand, counts, p0, grid.tiles, tn)
+        kd = k4_keywords(grid, near)
         dk, ik, yk, _ = nn_grid.nn_grid(*args, **kd)
-        dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, **kd)
+        dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
         require(torch.equal(ik, ip), f"K4 cap={cap}: indices differ from plain")
         require(torch.equal(ik, idx_bf), f"K4 cap={cap}: indices differ from brute force")
         require(torch.equal(yk, horse_ref[ik.long()]), f"K4 cap={cap}: y is not the winner")
@@ -878,7 +883,7 @@ def phase_kernels(seed: int, record: dict):
         require(err == 0.0, f"K4 cap={cap}: d2/y differ from plain by {err}")
         k4_err = max(k4_err, err)
         times = (cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 20),
-                 cuda_ms(lambda: nn_grid.nn_grid_plain(*args, **kd), 3))
+                 cuda_ms(lambda: nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row), 3))
         shape = k4_table(cand, counts, nj, tm, tn)
         b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p0, grid.tiles)
                   + p0.shape[0] * (4 + 4 + 12))
@@ -889,15 +894,16 @@ def phase_kernels(seed: int, record: dict):
             ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}", bound_ms=f"{b[0]:.4f}")
     normals = estimate_normals(horse_ref, method="dense")
     pgrid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)
-    cand, counts, _ = nn_grid.candidates(p0, u0, pgrid, scene_tile=tn, cap=16)
+    cand, counts, near, _ = nn_grid.fold_table(p0, u0, pgrid, scene_tile=tn, cap=16)
     args = (cand, counts, p0, pgrid.tiles, tn, pgrid.payload)
-    dk, ik, yk, plk = nn_grid.nn_grid(*args, kd_row=pgrid.kd_row)
+    kd = k4_keywords(pgrid, near)
+    dk, ik, yk, plk = nn_grid.nn_grid(*args, **kd)
     dp, ip, yp, plp = nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row)
     require(torch.equal(ik, ip) and torch.equal(ik, idx_bf), "K4 payload: indices differ")
     require(torch.equal(plk[:, :3], normals[ik.long()]), "K4 payload: not the winner's normal")
     err = max(max_abs(dk, dp), max_abs(yk, yp), max_abs(plk, plp))
     require(err == 0.0, f"K4 payload: d2/y/payload differ from plain by {err}")
-    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=pgrid.kd_row), 20),
+    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 20),
              cuda_ms(lambda: nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row), 3))
     say("kernels", kernel="nn_grid", payload=3, idx_equal=True, max_abs_err=err,
         ms=f"{pl_ms[0]:.4f}", plain_ms=f"{pl_ms[1]:.4f}")
@@ -2817,9 +2823,10 @@ def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng
         require(bool(torch.equal(d2[rows], d2_bf)), f"{phase}: {label}-iteration distances differ")
         require(bool(torch.equal(y[rows], model[idx_bf.long()])),
                 f"{phase}: {label}-iteration matched points are not the winners")
-        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=min(cap, nj))
+        cand, counts, near, _ = nn_grid.fold_table(p, u, grid, scene_tile=tn, cap=min(cap, nj))
         args = (cand, counts, p, grid.tiles, tn)
-        outs = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+        kd = k4_keywords(grid, near)
+        outs = nn_grid.nn_grid(*args, **kd)
         ni = cand.shape[0]
         fall = torch.nonzero(counts > cand.shape[1]).flatten()[:4]
         pick = torch.tensor(rng.choice(ni, 64, replace=False), device=p.device)
@@ -2829,7 +2836,7 @@ def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng
                                     p[srows].contiguous(), grid.tiles, tn, kd_row=grid.kd_row)
         for name, a, b in zip(("d2", "idx", "y"), outs, sub):
             require(torch.equal(a[srows], b), f"{phase}: K4 {label} {name} differs from plain")
-        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, kd_row=grid.kd_row), 10)
+        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 10)
         shape = k4_table(cand, counts, nj, tm, tn)
         b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p, grid.tiles)
                   + p.shape[0] * (4 + 4 + 12))

@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"nn_dense": 0, "qcp_step": 0, "icp_fused": 0, "nn_grid": 0,
             "qcp_rotation": 0, "knn_dense": 0, "knn_grid": 0, "nn_chunked": 0,
-            "nn_bf16": 0, "nn_dense_mxu": 0, "nn_dense_points": 0}
+            "nn_bf16": 0, "nn_dense_mxu": 0, "nn_dense_points": 0, "nn_grid_near": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,7 +51,9 @@ _SIGNATURES = {
                          _P],
     "icp_fused_scene_blocks": [_I],
     "icp_fused_chunk_rows": [_I, _I, _I, _P],
-    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
+    "nn_grid_near_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "qcp_rotation_launch": [_P, _I, _P, _P],
     "qcp_rotation_from_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
     "knn_dense_launch": [_P, _I, _P, _I, _I, _P, _P, _P],

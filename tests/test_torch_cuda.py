@@ -321,6 +321,10 @@ def test_icp_fused_kernel_when_done_writes_the_identity_step(dev):
     assert _workspace_clean(prep)
 
 
+def _k4_keywords(grid, near):
+    return dict(kd_row=grid.kd_row, near=near, tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
+
+
 @pytest.mark.parametrize("cap,case", [(16, "random"), (1, "random"), (16, "straggler"),
                                       (1, "duplicates"), (16, "ragged")])
 def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
@@ -341,14 +345,16 @@ def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
         scene[:, 0] = 0.0
     grid = nn_grid.build_model_grid(model, target_tile=256)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=tn, cap=cap)
+    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=tn, cap=cap)
     if case == "straggler":
         cand[:, 0] = torch.arange(cand.shape[0], device=dev) % grid.tiles.shape[0]
         counts.fill_(1)
         counts[3] = cap + 1
+        alone = torch.cat([cand[:, :1], torch.full_like(near[:, 1:], -1)], dim=1)
+        near = torch.where((counts > cap)[:, None], near, alone).contiguous()  # in each list
     args = (cand, counts, scene, grid.tiles, tn)
     before = _build.LAUNCHES["nn_grid"]
-    dk, ik, yk, _ = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+    dk, ik, yk, _ = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
     assert _build.LAUNCHES["nn_grid"] == before + 1
     dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
@@ -364,6 +370,71 @@ def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
         assert int(ik.max()) < 1024
 
 
+@pytest.mark.parametrize("cap,payload", [(1, False), (4, True), (16, False)])
+def test_nn_grid_skips_items_exactly_from_loose_bounds(dev, cap, payload):
+    """Bounds 100 times too loose put tiles past the capacity, so they fold
+    every model tile; the near pass and the per-item skip leave d2, idx, y
+    and the payload rows bit-equal to plain and the indices to brute force,
+    and the counters show skipped items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp_tpu_torch.utils import profiling
+
+    model = _cloud(21, 6000).to(dev)
+    normals = _cloud(22, 6000).to(dev) if payload else None
+    scene = (_cloud(23, 2048) * 1.01).to(dev)
+    scene = scene[nn_grid.kd_order(scene, 4)].contiguous()  # compact tiles, as the engines'
+    grid = nn_grid.build_model_grid(model, target_tile=256, payload=normals)
+    u = 100 * nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
+    before = _build.LAUNCHES["nn_grid_near"]
+    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=cap)
+    assert _build.LAUNCHES["nn_grid_near"] == before + 1 and bool((counts > cap).any())
+    plain = nn_grid.near_tiles_plain(scene, grid, cand, counts, scene_tile=128)
+    assert torch.equal(near, plain) and bool((near >= 0).all())
+    args = (cand, counts, scene, grid.tiles, 128, grid.payload)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
+    c = profiling.counters()
+    profiling.reset_counters()
+    want = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    for got, w in zip(out, want):
+        assert (got is None and w is None) or torch.equal(got, w)
+    assert torch.equal(out[1], nn_dense.nn_dense(scene, model))
+    items = int(nn_grid.work_item_offsets(counts, cap, grid.tiles.shape[0])[-1])
+    tm = grid.model_tile
+    assert c["k4_items"] == items and 0 < c["k4_items_skipped"] < items
+    assert c["k4_pairs"] == (items - c["k4_items_skipped"]) * tm * 128
+
+
+def test_nn_grid_tie_across_a_near_tile_goes_to_the_lower_index(dev):
+    """Model rows 0..255 at x = +0.5 and their mirror images 256..511 at
+    x = -0.5; the scene tile's queries lie on x = 0 besides one point at
+    x = -0.2, so the mirrors' tiles are its near tiles and each query ties
+    between row i (a main-pass item) and row 256 + i (folded first): the
+    main pass must still fold row i's tile, and row i must win."""
+    rng = np.random.default_rng(24)
+    yz = torch.tensor(rng.uniform(0.0, 0.9, (256, 2)), dtype=torch.float32)
+    half = torch.cat([torch.full((256, 1), 0.5), yz], dim=1)
+    model = torch.cat([half, half * torch.tensor([-1.0, 1.0, 1.0])]).to(dev)
+    scene = torch.cat([torch.zeros(127, 1), yz[:127]], dim=1)
+    scene = torch.cat([scene, torch.tensor([[-0.2, 0.45, 0.45]])]).to(dev)
+    grid = nn_grid.build_model_grid(model, target_tile=128)
+    u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
+    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=16)
+    assert torch.equal(near, nn_grid.near_tiles_plain(scene, grid, cand, counts, scene_tile=128))
+    tile = grid.kd_row.long() // grid.model_tile
+    near_set = set(near[0].tolist())
+    assert set(tile[256:256 + 127].tolist()) <= near_set
+    assert not set(tile[:127].tolist()) & near_set
+    args = (cand, counts, scene, grid.tiles, 128)
+    dk, ik, yk, _ = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
+    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
+    assert ik[:127].tolist() == list(range(127))
+    assert bool((dk[:127] == 0.25).all())
+
+
 @pytest.mark.parametrize("cap", [16, 1])
 def test_nn_grid_payload_matches_plain(dev, cap):
     model = _cloud(7, 3000).to(dev)
@@ -371,10 +442,10 @@ def test_nn_grid_payload_matches_plain(dev, cap):
     scene = (_cloud(9, 1024) * 1.01).to(dev)
     grid = nn_grid.build_model_grid(model, target_tile=256, payload=normals)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
+    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=cap)
     args = (cand, counts, scene, grid.tiles, 128, grid.payload)
     before = _build.LAUNCHES["nn_grid"]
-    dk, ik, yk, pk = nn_grid.nn_grid(*args, kd_row=grid.kd_row)
+    dk, ik, yk, pk = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
     assert _build.LAUNCHES["nn_grid"] == before + 1
     dp, ip, yp, pp = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(yk, yp) and torch.equal(pk, pp)
@@ -1197,7 +1268,8 @@ def test_cell_paths_wait_only_through_the_counted_helper(dev, path, monkeypatch)
     ``torch.cuda.set_sync_debug_mode("error")``: every wait of the host
     goes through ``profiling.host_wait`` (the one place the mode is
     lifted), the answers are bit-equal to the untraced run's, and K4's and
-    K7's counters equal their launches' tables."""
+    K7's counters equal their launches' tables (K4's pairs less those of
+    the items its fold skipped)."""
     import icp_tpu_torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1237,7 +1309,10 @@ def test_cell_paths_wait_only_through_the_counted_helper(dev, path, monkeypatch)
     assert bool(rec4) == (path != "fused") and bool(rec7) == (path == "plane_grid")
     if rec4:
         want = _table_counts(rec4, "k4")
-        assert {k: c[k] for k in want} == want
+        assert len({(tm, tn) for *_, tm, tn in rec4}) == 1
+        skipped = c["k4_items_skipped"]
+        want["k4_pairs"] -= skipped * rec4[0][3] * rec4[0][4]
+        assert {k: c[k] for k in want} == want and 0 <= skipped < want["k4_items"]
     if rec7:
         want = _table_counts(rec7, "k7")
         assert (c["k7_rows"], c["k7_pairs"]) == (want["k7_rows"], want["k7_pairs"])

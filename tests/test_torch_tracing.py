@@ -7,6 +7,7 @@ no-ops, and the six per-layer metrics of a small traced ``regbench`` cell."""
 import dataclasses
 import math
 import os
+import types
 
 import numpy as np
 import pytest
@@ -140,9 +141,9 @@ def record_tables(monkeypatch):
     (K4's list, K7's list); nothing is read until the caller reads it."""
     k4, k7, rec4, rec7 = nn_grid.nn_grid, knn_grid.knn_worklist, [], []
 
-    def nn_grid_rec(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):
+    def nn_grid_rec(cand, counts, scene, tiles, scene_tile, payload=None, **kw):
         rec4.append((counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile))
-        return k4(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
+        return k4(cand, counts, scene, tiles, scene_tile, payload, **kw)
 
     def knn_rec(cand, counts, query, tiles, scene_tile, k, bound=None):
         rec7.append((counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile))
@@ -157,11 +158,12 @@ def _table_counts(rec, prefix):
     """The counters of each recorded launch, counted from its table tile by
     tile: a tile past the capacity folds all nj tiles, any other its count
     (at least one)."""
-    out = dict.fromkeys([f"{prefix}_rows", f"{prefix}_pairs", f"{prefix}_tiles",
-                         f"{prefix}_tiles_past_cap"], 0)
+    out = dict.fromkeys([f"{prefix}_rows", f"{prefix}_items", f"{prefix}_pairs",
+                         f"{prefix}_tiles", f"{prefix}_tiles_past_cap"], 0)
     for counts, cap, nj, tm, tn in rec:
         tiles = [nj if c > cap else max(c, 1) for c in counts.tolist()]
         out[f"{prefix}_rows"] += len(tiles) * tn
+        out[f"{prefix}_items"] += sum(tiles)
         out[f"{prefix}_pairs"] += sum(tiles) * tm * tn
         out[f"{prefix}_tiles"] += len(tiles)
         out[f"{prefix}_tiles_past_cap"] += sum(c > cap for c in counts.tolist())
@@ -170,7 +172,8 @@ def _table_counts(rec, prefix):
 
 def test_k4_and_k7_counters_equal_their_tables(clouds, monkeypatch):
     """The grid plane run with small capacities, so tiles pass them: the
-    counters equal what each launch's candidate table folds."""
+    counters equal what each launch's candidate table folds (K4's plain
+    version, on the CPU, skips no item)."""
     rec4, rec7 = record_tables(monkeypatch)
     ref, _, moved = clouds
     nv = normals.estimate_normals(torch.as_tensor(ref, dtype=torch.float32), method="dense")
@@ -183,9 +186,25 @@ def test_k4_and_k7_counters_equal_their_tables(clouds, monkeypatch):
     profiling.reset_counters()
     want4, want7 = _table_counts(rec4, "k4"), _table_counts(rec7, "k7")
     assert want4["k4_tiles_past_cap"] > 0 and len(rec7) == 2
-    assert {k: c[k] for k in want4} == want4
+    assert {k: c[k] for k in want4} == want4 and c["k4_items_skipped"] == 0
     assert (c["k7_rows"], c["k7_pairs"]) == (want7["k7_rows"], want7["k7_pairs"])
-    assert "k7_tiles" not in c
+    assert "k7_tiles" not in c and "k7_items" not in c
+
+
+def test_k4_skipped_item_pct_reads_the_cpu_counters(clouds):
+    """The reader of ``k4_skipped_item_pct`` on a traced CPU grid run: K4's
+    plain version skips nothing, so 0%, within [0, 100]; untraced, None."""
+    from regbench.run import read_metric
+
+    ref, tr1, _ = clouds
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        icp_tpu_torch.icp(ref, tr1, ICPConfig(max_iter=30, nn_method="grid"), device="cpu")
+    got = read_metric("k4_skipped_item_pct", types.SimpleNamespace(trace=object()))
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert c["k4_items"] > 0 and got == 0.0 and 0.0 <= got <= 100.0
+    assert read_metric("k4_skipped_item_pct", types.SimpleNamespace(trace=None)) is None
 
 
 def test_noop_iterations_of_a_plane_run_that_converges_in_2(clouds):
@@ -218,7 +237,7 @@ def test_a_traced_regbench_cell_reports_the_six_metrics(monkeypatch):
            "k4_past_capacity_pct", "k7_pairs_per_query")
     assert set(six) <= set(m) and all(math.isfinite(m[k]) for k in six), m
     assert 0 < m["setup_pct"] < 100 and 0 <= m["noop_iter_pct"] < 100
-    assert 0 <= m["k4_past_capacity_pct"] <= 100
+    assert 0 <= m["k4_past_capacity_pct"] <= 100 and 0 <= m["k4_skipped_item_pct"] <= 100
     assert m["host_waits_per_reg"] >= 1
     assert m["k4_pairs_per_query"] > 0 and m["k7_pairs_per_query"] > 0
     assert out["correct"] is True
