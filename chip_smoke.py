@@ -211,6 +211,8 @@ sys.path.insert(0, ROOT)
 from icp_tpu_torch.bench.roofline import (  # noqa: E402
     BF16_F32_PAIR_OPS,
     BF16_PAIR_OPS,
+    BOX_OPS,
+    NEAR_PAIR_OPS,
     PAIR_OPS,
     PEAK_BF16,
     PEAK_FLOPS,
@@ -238,6 +240,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "nn_bf16": ("icp_tpu_torch/csrc/nn_bf16.cu", "icp_tpu/kernels/nn_bf16.py:60"),
     "nn_dense_mxu": ("icp_tpu_torch/csrc/nn_dense.cu", "icp_tpu/kernels/nn_pallas.py:105"),
     "nn_dense_points": ("icp_tpu_torch/csrc/nn_dense.cu", "icp_tpu/kernels/nn_pallas.py:141"),
+    # K4's pick of each scene tile's near tiles, launched inside K4's call
+    "nn_grid_near": ("icp_tpu_torch/csrc/nn_grid.cu", "none: the TPU kernel folds no near tiles"),
 }
 # (fixture, model file, scene file, nb_iter, iterations, output atol, extra flags)
 CLI_CASES = [
@@ -394,8 +398,9 @@ def hold_k9(label: str, s, m, outs) -> dict:
 
 
 def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
-    """The shape of a K4 launch: tiles folding all Nj tiles, mean candidate
-    count, work items, folded (point, model row) pairs."""
+    """The shape of a K4 launch's table: tiles folding all Nj tiles, mean
+    candidate count, work items, and the (point, model row) pairs of every
+    item (``folded_pairs``; the fold skips some items, ``k4_work``)."""
     cap = cand.shape[1]
     pairs = folded_pairs(counts, cap, nj, tm, tn)
     return {"fallback_tiles": int((counts > cap).sum()),
@@ -403,9 +408,64 @@ def k4_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
             "items": pairs // (tm * tn), "folded_pairs": pairs}
 
 
-def k4_keywords(grid, near) -> dict:
-    """K4's keywords for ``grid`` and a table's near tiles (``fold_table``)."""
-    return dict(kd_row=grid.kd_row, near=near, tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
+def k4_work(fn) -> dict:
+    """K4's work in one call of ``fn``, as the program counts it
+    (``utils/profiling.py``, read under the profiler): its items, those
+    the fold skipped and the pairs of the items it folded.  The skip count
+    is the device's and may differ a little from call to call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from icp_tpu_torch.utils import profiling
+
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn()
+    c = profiling.counters()
+    profiling.reset_counters()
+    return {"items_skipped": c["k4_items_skipped"], "pairs_folded": c["k4_pairs"],
+            "work_items": c["k4_items"]}
+
+
+def k4_bound(cand, counts, p, grid, tn: int, work: dict):
+    """K4's least time: the pairs it folded, each item's box test and the
+    near tiles' pick (``near_bound``), over the inputs read once and the
+    outputs written once."""
+    ops = (PAIR_OPS * work["pairs_folded"] + BOX_OPS * work["work_items"] * tn
+           + NEAR_PAIR_OPS * cand.shape[0] * grid.tiles.shape[0])
+    return bound(ops, nbytes(cand, counts, p, grid.tiles, grid.tile_lo, grid.tile_hi)
+                 + p.shape[0] * (4 + 4 + 12))
+
+
+def near_bound(cand, counts, p, grid, near):
+    """``nn_grid_near_kernel``'s least time: a box pair for each (scene
+    tile, model tile), over the scene, the boxes, the table and the near
+    tiles."""
+    return bound(NEAR_PAIR_OPS * cand.shape[0] * grid.tiles.shape[0],
+                 nbytes(cand, counts, p, grid.tile_lo, grid.tile_hi, near))
+
+
+def near_tiles_held(phase: str, label: str, p, grid, cand, counts, tn: int, reps: int):
+    """The near tiles of a K4 table, on the card and in the plain version:
+    bit-equal, timed beside their bound, one line; returns (ms, plain_ms,
+    bound)."""
+    import torch
+
+    from icp_tpu_torch.kernels import _build, nn_grid
+
+    before = _build.LAUNCHES["nn_grid_near"]
+    near = nn_grid.near_tiles(p, grid, cand, counts, scene_tile=tn)
+    launches = _build.LAUNCHES["nn_grid_near"] - before
+    plain = nn_grid.near_tiles_plain(p, grid, cand, counts, scene_tile=tn)
+    require(torch.equal(near, plain), f"{phase}: K4 {label} near tiles differ from plain "
+            f"in {int((near != plain).any(1).sum())} scene tiles")
+    ms = cuda_ms(lambda: nn_grid.near_tiles(p, grid, cand, counts, scene_tile=tn), reps)
+    plain_ms = cuda_ms(lambda: nn_grid.near_tiles_plain(p, grid, cand, counts, scene_tile=tn), 3)
+    b = near_bound(cand, counts, p, grid, near)
+    say(phase, kernel="nn_grid_near", table=label, tiles=f"{cand.shape[0]}x{grid.tiles.shape[0]}",
+        near_tiles=near.shape[1], unlisted=int((near < 0).sum()), equal_plain=True,
+        launches=launches, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{b[0]:.4f}",
+        bound_by=b[1])
+    return ms, plain_ms, b
 
 
 def k7_table(cand, counts, nj: int, tm: int, tn: int) -> dict:
@@ -438,9 +498,10 @@ def recorded_tables(rec: list):
         return {"ni": cand.shape[0], "nj": tiles.shape[0], "scene_tile": scene_tile,
                 "model_tile": tiles.shape[1], "capacity": cand.shape[1]}
 
-    def rec4(cand, counts, scene, tiles, scene_tile, payload=None, **kw):
-        out = k4(cand, counts, scene, tiles, scene_tile, payload, **kw)
+    def rec4(cand, counts, scene, grid, scene_tile, payload=None):
+        out = k4(cand, counts, scene, grid, scene_tile, payload)
         first = not any(r["kernel"] == "K4" for r in rec)
+        tiles = grid.tiles
         rec.append({"kernel": "K4", **shape(cand, tiles, scene_tile),
                     **k4_table(cand, counts, tiles.shape[0], tiles.shape[1], scene_tile),
                     "idx": out[1] if first else None})
@@ -869,12 +930,17 @@ def phase_kernels(seed: int, record: dict):
     u0 = nn_grid.bound_from_indices(p0, grid, nn_grid.initial_bound_indices(p0, horse_ref))
     idx_bf = nn_dense.nn_dense(p0, horse_ref)
     nj, tm = grid.tiles.shape[0], grid.tiles.shape[1]
-    k4_err, k4 = 0.0, None
+    k4_err, k4, near_rec = 0.0, None, None
     for cap in (16, 1):
-        cand, counts, near, over = nn_grid.fold_table(p0, u0, grid, scene_tile=tn, cap=cap)
+        cand, counts, over = nn_grid.candidates(p0, u0, grid, scene_tile=tn, cap=cap)
+        near_times = near_tiles_held("kernels", f"cap={cap}", p0, grid, cand, counts, tn, 20)
+        near_rec = near_rec or near_times  # the real table: the numbers of the record
         args = (cand, counts, p0, grid.tiles, tn)
-        kd = k4_keywords(grid, near)
-        dk, ik, yk, _ = nn_grid.nn_grid(*args, **kd)
+
+        def k4_call():
+            return nn_grid.nn_grid(cand, counts, p0, grid, tn)
+
+        dk, ik, yk, _ = k4_call()
         dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
         require(torch.equal(ik, ip), f"K4 cap={cap}: indices differ from plain")
         require(torch.equal(ik, idx_bf), f"K4 cap={cap}: indices differ from brute force")
@@ -882,28 +948,28 @@ def phase_kernels(seed: int, record: dict):
         err = max(max_abs(dk, dp), max_abs(yk, yp))
         require(err == 0.0, f"K4 cap={cap}: d2/y differ from plain by {err}")
         k4_err = max(k4_err, err)
-        times = (cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 20),
+        times = (cuda_ms(k4_call, 20),
                  cuda_ms(lambda: nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row), 3))
-        shape = k4_table(cand, counts, nj, tm, tn)
-        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p0, grid.tiles)
-                  + p0.shape[0] * (4 + 4 + 12))
+        work = k4_work(k4_call)
+        b = k4_bound(cand, counts, p0, grid, tn, work)
         if k4 is None:  # the real table: the numbers of the record
             k4 = (*times, b)
         say("kernels", kernel="nn_grid", max_candidates=cap, tiles=f"{cand.shape[0]}x{nj}",
-            overflow=bool(over), **shape, idx_equal=True, max_abs_err=err,
-            ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}", bound_ms=f"{b[0]:.4f}")
+            overflow=bool(over), **k4_table(cand, counts, nj, tm, tn), **work, idx_equal=True,
+            max_abs_err=err, ms=f"{times[0]:.4f}", plain_ms=f"{times[1]:.4f}",
+            bound_ms=f"{b[0]:.4f}", bound_by=b[1])
+    record["nn_grid_near"] = entry(0.0, *near_rec)
     normals = estimate_normals(horse_ref, method="dense")
     pgrid = nn_grid.build_model_grid(horse_ref, target_tile=1024, payload=normals)
-    cand, counts, near, _ = nn_grid.fold_table(p0, u0, pgrid, scene_tile=tn, cap=16)
+    cand, counts, _ = nn_grid.candidates(p0, u0, pgrid, scene_tile=tn, cap=16)
     args = (cand, counts, p0, pgrid.tiles, tn, pgrid.payload)
-    kd = k4_keywords(pgrid, near)
-    dk, ik, yk, plk = nn_grid.nn_grid(*args, **kd)
+    dk, ik, yk, plk = nn_grid.nn_grid(cand, counts, p0, pgrid, tn, pgrid.payload)
     dp, ip, yp, plp = nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row)
     require(torch.equal(ik, ip) and torch.equal(ik, idx_bf), "K4 payload: indices differ")
     require(torch.equal(plk[:, :3], normals[ik.long()]), "K4 payload: not the winner's normal")
     err = max(max_abs(dk, dp), max_abs(yk, yp), max_abs(plk, plp))
     require(err == 0.0, f"K4 payload: d2/y/payload differ from plain by {err}")
-    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 20),
+    pl_ms = (cuda_ms(lambda: nn_grid.nn_grid(cand, counts, p0, pgrid, tn, pgrid.payload), 20),
              cuda_ms(lambda: nn_grid.nn_grid_plain(*args, kd_row=pgrid.kd_row), 3))
     say("kernels", kernel="nn_grid", payload=3, idx_equal=True, max_abs_err=err,
         ms=f"{pl_ms[0]:.4f}", plain_ms=f"{pl_ms[1]:.4f}")
@@ -2804,8 +2870,10 @@ def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng
     capacity ``cap``: held against K1 brute force on the scene ``rows`` and
     against the plain version on 64 seeded scene tiles and up to 4 tiles
     that fold all tiles, then timed beside its bound (a line each with the
-    table's tiles past the capacity and folded pairs).  Returns whether
-    the first table overflowed."""
+    table's tiles past the capacity, its items, those skipped and the pairs
+    folded); each table's near tiles are held against their plain version
+    and timed (``near_tiles_held``).  Returns whether the first table
+    overflowed."""
     import torch
 
     from icp_tpu_torch.kernels import nn_dense, nn_grid
@@ -2823,10 +2891,13 @@ def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng
         require(bool(torch.equal(d2[rows], d2_bf)), f"{phase}: {label}-iteration distances differ")
         require(bool(torch.equal(y[rows], model[idx_bf.long()])),
                 f"{phase}: {label}-iteration matched points are not the winners")
-        cand, counts, near, _ = nn_grid.fold_table(p, u, grid, scene_tile=tn, cap=min(cap, nj))
-        args = (cand, counts, p, grid.tiles, tn)
-        kd = k4_keywords(grid, near)
-        outs = nn_grid.nn_grid(*args, **kd)
+        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=min(cap, nj))
+        near_tiles_held(phase, label, p, grid, cand, counts, tn, 10)
+
+        def k4_call():
+            return nn_grid.nn_grid(cand, counts, p, grid, tn)
+
+        outs = k4_call()
         ni = cand.shape[0]
         fall = torch.nonzero(counts > cand.shape[1]).flatten()[:4]
         pick = torch.tensor(rng.choice(ni, 64, replace=False), device=p.device)
@@ -2836,12 +2907,11 @@ def k4_tables_held(phase: str, model, grid, tn: int, states, cap: int, rows, rng
                                     p[srows].contiguous(), grid.tiles, tn, kd_row=grid.kd_row)
         for name, a, b in zip(("d2", "idx", "y"), outs, sub):
             require(torch.equal(a[srows], b), f"{phase}: K4 {label} {name} differs from plain")
-        ms = cuda_ms(lambda: nn_grid.nn_grid(*args, **kd), 10)
-        shape = k4_table(cand, counts, nj, tm, tn)
-        b = bound(PAIR_OPS * shape["folded_pairs"], nbytes(cand, counts, p, grid.tiles)
-                  + p.shape[0] * (4 + 4 + 12))
+        ms = cuda_ms(k4_call, 10)
+        work = k4_work(k4_call)
+        b = k4_bound(cand, counts, p, grid, tn, work)
         say(phase, kernel="nn_grid", table=label, tiles=f"{ni}x{nj}", scene_tile=tn,
-            model_tile=tm, capacity=cand.shape[1], **shape,
+            model_tile=tm, capacity=cand.shape[1], **k4_table(cand, counts, nj, tm, tn), **work,
             brute_force_rows=rows.numel(), plain_tiles=int(sel.numel()), equal_plain=True,
             ms=f"{ms:.4f}", bound_ms=f"{b[0]:.4f}", bound_by=b[1])
     return over_first
@@ -3735,6 +3805,8 @@ def _signature(args, kwargs) -> tuple:
     def one(v):
         if isinstance(v, torch.Tensor):
             return ("tensor", tuple(v.shape), str(v.dtype))
+        if isinstance(v, tuple) and hasattr(v, "_fields"):  # a model grid: its fields
+            return tuple(map(one, v))
         return v if v is None or isinstance(v, (bool, int, float, str)) else type(v).__name__
     return tuple(map(one, args)) + tuple((k, one(v)) for k, v in sorted(kwargs.items()))
 
@@ -3744,6 +3816,8 @@ def _clone(x):
 
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a model grid
+        return type(x)(*map(_clone, x))
     if isinstance(x, (tuple, list)):
         return type(x)(_clone(v) for v in x)
     if isinstance(x, dict):
@@ -3898,12 +3972,16 @@ def _hold_recorded(records: dict, seed: int) -> list:
                 require(all(torch.equal(g, w) for g, w in zip(out, want)), "differs from plain")
                 name, info = "qcp_rotation", {"dtype": str(a["S"].dtype), "bit_equal_plain": True}
             elif name == "nn_grid":
-                want = nn_grid.nn_grid_plain(a["cand"], a["counts"], a["scene"], a["tiles"],
-                                             a["scene_tile"], a["payload"], kd_row=a["kd_row"])
-                require(all((g is None and w is None) or same_nan(g, w) for g, w in zip(out, want)),
+                g, tn = a["grid"], a["scene_tile"]
+                want = nn_grid.nn_grid_plain(a["cand"], a["counts"], a["scene"], g.tiles, tn,
+                                             a["payload"], kd_row=g.kd_row)
+                require(all((o is None and w is None) or same_nan(o, w) for o, w in zip(out, want)),
                         "d2, idx, y or payload differ from plain")
-                info = {**k4_table(a["cand"], a["counts"], a["tiles"].shape[0],
-                                   a["tiles"].shape[1], a["scene_tile"]), "bit_equal_plain": True}
+                near = [f(a["scene"], g, a["cand"], a["counts"], scene_tile=tn)
+                        for f in (nn_grid.near_tiles, nn_grid.near_tiles_plain)]
+                require(torch.equal(*near), "the near tiles differ from plain")
+                info = {**k4_table(a["cand"], a["counts"], g.tiles.shape[0], g.tiles.shape[1], tn),
+                        "near_tiles_equal_plain": True, "bit_equal_plain": True}
             else:  # knn_dense
                 q, pts, k = a["query"], a["points"], a["k"]
                 rows, n_rows = _sample_rows(rng, q.shape[0], pts.shape[0])

@@ -59,7 +59,15 @@ PEAK_BYTES = H100.hbm_bytes_per_s
 #   BF16_PAIR_OPS, BF16_F32_PAIR_OPS: K9's cross term as a bf16 product on
 #     the tensor cores (K padded to 16: 32 operations a pair), beside the
 #     float32 add of the norm and the fold's two compares (nn_bf16.cu).
+#   BOX_OPS: K4's test of an item, a point's squared distance to a box,
+#     6 sub + 3 mul + 2 add + the deflating mul (nn_grid.cu box_d2_rn);
+#     the max are not counted.
+#   NEAR_PAIR_OPS: K4's pick of the near tiles, a (scene tile, model tile)
+#     pair's box gap (6 sub, 3 mul, 2 add, 1 mul) and centres' distance
+#     (3 add, 3 mul, 3 sub, 3 mul, 2 add) (nn_grid.cu nn_grid_near_kernel).
 PAIR_OPS = 8
+BOX_OPS = 12
+NEAR_PAIR_OPS = 26
 FUSED_PAIR_OPS = 6
 STEP_OPS = 600
 STEP_ROW_OPS = 18

@@ -9,21 +9,19 @@
 // issues one instruction per lane and cycle, so the fold's compare makes a
 // pair cost ~10 issue slots: ~2.5x the bound is the floor of this design.
 //
-// Before it, with the candidate table, nn_grid_near_launch (one warp a
-// scene tile) picks each scene tile's near tiles: the F (the wrapper's
-// NEAR_TILES, 2) model tiles whose boxes lie nearest its own, by the table's
-// box distance, then by the distance between the boxes' centres; -1 where
-// one is not in the tile's fold list.
-//
-// The search, one C call: a memset of the keys, then four kernels:
+// The search, one C call: a memset of the keys, then five kernels:
 //  1. plan (one block): each scene tile's fold list (its candidates, or all
 //     Nj tiles when its count passes the table's capacity) becomes one work
 //     item per model tile; an exclusive scan of the lists' lengths gives
 //     each tile's first item, the total, and zeroed work and skip counters.
-//  2. near pass: the fold below over the Ni x F near tiles.  They run
+//  2. near tiles (one warp a scene tile): each scene tile's F (the
+//     wrapper's NEAR_TILES, 2) model tiles whose boxes lie nearest its own,
+//     by the table's box distance, then by the distance between the boxes'
+//     centres; -1 where one is not in the tile's fold list.
+//  3. near pass: the fold below over the Ni x F near tiles.  They run
 //     before any other item, so every point holds a tight best before the
 //     main pass starts.
-//  3. main pass: the same fold over the plan's items; an item whose model
+//  4. main pass: the same fold over the plan's items; an item whose model
 //     tile is one of its scene tile's near tiles is not folded again.
 //     Fold (persistent blocks, as many as the SMs hold): a block takes the
 //     next item from its pass's counter, finds its scene tile by binary
@@ -48,7 +46,7 @@
 //     Nj tiles as Nj items spread over the card, not as one straggler
 //     block.  One-tile items balance best at horse (48,485 points: one wave
 //     of items on the card) and cost nothing at a million points.
-//  4. epilogue (a thread per point): unpacks the key into d2 and the index,
+//  5. epilogue (a thread per point): unpacks the key into d2 and the index,
 //     and reads the winner's kd row from the grid's inverse permutation
 //     (kd_row), then its point from the tiles and, when given, its payload
 //     row (nn_grid.py:432-472, the plane engines' normals) from the
@@ -407,42 +405,53 @@ __global__ void nn_grid_epilogue_kernel(const unsigned long long* __restrict__ k
   if (payload) pl_out[i] = pl;
 }
 
+cudaError_t launch_near(const float* scene, int tn, int ni, const float* tile_lo,
+                        const float* tile_hi, int nj, const int* cand, const int* counts, int cap,
+                        int nf, int* near, cudaStream_t stream) {
+  const int warps = 256 / 32;
+  nn_grid_near_kernel<<<(ni + warps - 1) / warps, 256, 0, stream>>>(
+      scene, tn, ni, tile_lo, tile_hi, nj, cand, counts, cap, nf, near);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// near: (ni, nf) int32, nf <= kNearTiles, written by nn_grid_near_kernel.
+// The near tiles alone (nn_grid_launch picks its own): near, (ni, nf) int32.
 ICP_EXPORT int nn_grid_near_launch(const float* scene, int tn, int ni, const float* tile_lo,
                                    const float* tile_hi, int nj, const int* cand,
                                    const int* counts, int cap, int nf, int* near,
                                    cudaStream_t stream) {
   if (tn < 1 || ni < 1 || nj < 1 || nf < 1 || nf > kNearTiles || nf > nj)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int warps = 256 / 32;
-  nn_grid_near_kernel<<<(ni + warps - 1) / warps, 256, 0, stream>>>(
-      scene, tn, ni, tile_lo, tile_hi, nj, cand, counts, cap, nf, near);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_near(scene, tn, ni, tile_lo, tile_hi, nj, cand, counts, cap, nf,
+                                      near, stream));
 }
 
-// near: (ni, nf) int32 near tiles of each scene tile (-1: none); tile_lo,
-// tile_hi: (nj, 3) float32 boxes of the model tiles' real rows.
-// offsets: ni + 4 ints of scratch (offsets[ni + 3] counts the skipped
-// items); keys: n 64-bit words of scratch.
-ICP_EXPORT int nn_grid_launch(const int* cand, const int* counts, int ni, int cap,
-                              const int* near, int nf, const float* scene, int tn, int nj, int tm,
-                              const float4* tiles, const float* tile_lo, const float* tile_hi,
-                              const int* kd_row, const float4* payload,
-                              int* offsets, unsigned long long* keys,
-                              float* d2_out, int* idx_out, float* y_out,
-                              float4* pl_out, cudaStream_t stream) {
-  if (tn < 1 || ni < 1 || nf < 1 || tm % kStageRows != 0)
+// nf: near tiles a scene tile, min(kNearTiles, nj); tile_lo, tile_hi:
+// (nj, 3) float32 boxes of the model tiles' real rows.  scratch: ni + 4 +
+// ni * nf ints (the plan's offsets, the two passes' counters, the skipped
+// items at scratch[ni + 3], then the near tiles); keys: n 64-bit words of
+// scratch.
+ICP_EXPORT int nn_grid_launch(const int* cand, const int* counts, int ni, int cap, int nf,
+                              const float* scene, int tn, int nj, int tm, const float4* tiles,
+                              const float* tile_lo, const float* tile_hi, const int* kd_row,
+                              const float4* payload, int* scratch, unsigned long long* keys,
+                              float* d2_out, int* idx_out, float* y_out, float4* pl_out,
+                              cudaStream_t stream) {
+  if (tn < 1 || ni < 1 || nj < 1 || nf < 1 || nf > kNearTiles || nf > nj ||
+      tm % kStageRows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = ((tn + kPoints - 1) / kPoints + 31) / 32 * 32;
   if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int n = ni * tn;
+  int* const offsets = scratch;
+  int* const near = scratch + ni + 4;
   cudaError_t e = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * n, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   nn_grid_plan_kernel<<<1, 1024, 0, stream>>>(counts, ni, cap, nj, offsets);
   e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = launch_near(scene, tn, ni, tile_lo, tile_hi, nj, cand, counts, cap, nf, near, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   // persistent: as many blocks as the SMs hold, at most one an item
   int dev = 0, sms = 0, per_sm = 0;

@@ -51,8 +51,8 @@ _SIGNATURES = {
                          _P],
     "icp_fused_scene_blocks": [_I],
     "icp_fused_chunk_rows": [_I, _I, _I, _P],
-    "nn_grid_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+    "nn_grid_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P],
     "nn_grid_near_launch": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P],
     "qcp_rotation_launch": [_P, _I, _P, _P],
     "qcp_rotation_from_launch": [_P, _P, _P, _I, _I, _P, _P, _P],

@@ -11,7 +11,7 @@ count passes the table's capacity, as work items of one model tile each
 (``work_item_offsets``) that merge by the lexicographic minimum of
 (squared distance, original model index): the result is exact in every
 case.  Each scene tile's ``NEAR_TILES`` fold-list tiles nearest its box
-(``fold_table``) are folded first, in a pass of their own; the main pass
+(``near_tiles``) are folded first, in a pass of their own; the main pass
 then skips any item whose model tile's box lies farther from every point
 than the point's best so far, which can neither win nor tie, so the
 answer is unchanged.  The winner's point and payload row are read through
@@ -232,7 +232,8 @@ def near_tiles(p_pad: torch.Tensor, grid: ModelGrid, cand: torch.Tensor,
     nearest first; -1 where one is neither a candidate of the table nor
     in a tile past its capacity, so that each is in its fold list
     (``tile_ids``).  On the card one warp a scene tile
-    (``nn_grid_near_kernel``); ``near_tiles_plain`` is its plain version."""
+    (``nn_grid_near_kernel``), the kernel ``nn_grid`` launches before its
+    near pass; ``near_tiles_plain`` is its plain version."""
     if p_pad.device.type == "cpu":
         return near_tiles_plain(p_pad, grid, cand, counts, scene_tile=scene_tile)
     if p_pad.dtype != torch.float32 or not p_pad.is_contiguous():
@@ -274,14 +275,6 @@ def near_tiles_plain(p_pad, grid, cand, counts, *, scene_tile):
     return torch.where(listed, near, -1).to(torch.int32).contiguous()
 
 
-def fold_table(p_pad: torch.Tensor, u_pad: torch.Tensor, grid: ModelGrid, *,
-               scene_tile: int, cap: int):
-    """K4's table: ``candidates``' (cand, counts, overflow) and the scene
-    tiles' near tiles (``near_tiles``): (cand, counts, near, overflow)."""
-    cand, counts, overflow = candidates(p_pad, u_pad, grid, scene_tile=scene_tile, cap=cap)
-    return cand, counts, near_tiles(p_pad, grid, cand, counts, scene_tile=scene_tile), overflow
-
-
 def check_table(fn: str, cand: torch.Tensor, counts: torch.Tensor,
                 query: torch.Tensor, tiles: torch.Tensor, scene_tile: int) -> None:
     """Raise unless the candidate table and the tiles fit the query."""
@@ -304,18 +297,16 @@ def check_table(fn: str, cand: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"{fn}: query tiles hold at most 1024 points on the card")
 
 
-def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
-            tiles: torch.Tensor, scene_tile: int, payload: torch.Tensor | None = None,
-            *, kd_row: torch.Tensor, near: torch.Tensor, tile_lo: torch.Tensor,
-            tile_hi: torch.Tensor):
+def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor, grid: ModelGrid,
+            scene_tile: int, payload: torch.Tensor | None = None):
     """K4: (d2 (N,) float32, idx (N,) int32, y (N, 3) float32, payload rows
     (N, 4) float32 or None) for the kd-sorted, tile-padded scene
-    (Ni * scene_tile rows); ``payload`` is the grid's (Nj, tm, 4) and
-    ``kd_row`` its inverse permutation (``ModelGrid.kd_row``), through which
-    the winner's point and payload row are read.  ``near``: (Ni, F) int32,
-    the tiles each scene tile folds first (``fold_table``; -1: none), each
-    in its fold list; ``tile_lo``, ``tile_hi``: the grid's (Nj, 3) boxes,
-    against which an item is skipped.  Neither changes the answer."""
+    (Ni * scene_tile rows) against ``grid``'s tiles; ``payload`` is the
+    grid's (Nj, tm, 4) or None.  The winner's point and payload row are
+    read through the grid's inverse permutation (``kd_row``); the near
+    tiles (``near_tiles``) and the grid's boxes, against which an item is
+    skipped, change only the work."""
+    tiles, kd_row = grid.tiles, grid.kd_row
     check_table("nn_grid", cand, counts, scene, tiles, scene_tile)
     if payload is not None and (payload.shape != tiles.shape or payload.dtype != torch.float32
                                 or payload.device != scene.device
@@ -329,36 +320,33 @@ def nn_grid(cand: torch.Tensor, counts: torch.Tensor, scene: torch.Tensor,
                          "beside the scene")
     ni, cap = cand.shape
     nj, tm = tiles.shape[0], tiles.shape[1]
-    if near.dtype != torch.int32 or near.device != dev or near.ndim != 2 \
-            or near.shape[0] != ni or near.shape[1] < 1 or not near.is_contiguous():
-        raise ValueError("nn_grid: near must be a contiguous int32 (Ni, F) tensor "
-                         "beside the scene")
-    for box in (tile_lo, tile_hi):
+    for box in (grid.tile_lo, grid.tile_hi):
         if box.shape != (nj, 3) or box.dtype != torch.float32 or box.device != dev \
                 or not box.is_contiguous():
-            raise ValueError("nn_grid: tile_lo and tile_hi must be contiguous float32 "
-                             "(Nj, 3) tensors beside the scene")
+            raise ValueError("nn_grid: the grid's tile_lo and tile_hi must be contiguous "
+                             "float32 (Nj, 3) tensors beside the scene")
     if dev.type == "cpu":
         count_later(_k4_counters, counts, cap, nj, tm, scene_tile)
         return nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload, kd_row=kd_row)
     n = scene.shape[0]
+    nf = min(NEAR_TILES, nj)
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     y = torch.empty((n, 3), dtype=torch.float32, device=dev)
     pl = None if payload is None else torch.empty((n, 4), dtype=torch.float32, device=dev)
-    # work items, the two passes' counters and the skipped items
-    offsets = torch.empty(ni + 4, dtype=torch.int32, device=dev)
+    # work items, the two passes' counters, the skipped items, the near tiles
+    scratch = torch.empty(ni + 4 + ni * nf, dtype=torch.int32, device=dev)
     keys = torch.empty(n, dtype=torch.int64, device=dev)  # packed (d2, index) minima
     code = _build.lib().nn_grid_launch(
-        cand.data_ptr(), counts.data_ptr(), ni, cap, near.data_ptr(), near.shape[1],
-        scene.data_ptr(), scene_tile, nj, tm, tiles.data_ptr(), tile_lo.data_ptr(),
-        tile_hi.data_ptr(), kd_row.data_ptr(),
-        None if payload is None else payload.data_ptr(), offsets.data_ptr(),
+        cand.data_ptr(), counts.data_ptr(), ni, cap, nf, scene.data_ptr(), scene_tile, nj, tm,
+        tiles.data_ptr(), grid.tile_lo.data_ptr(), grid.tile_hi.data_ptr(), kd_row.data_ptr(),
+        None if payload is None else payload.data_ptr(), scratch.data_ptr(),
         keys.data_ptr(), d2.data_ptr(), idx.data_ptr(), y.data_ptr(),
         None if pl is None else pl.data_ptr(), _build.stream_ptr(scene))
     _build.LAUNCHES["nn_grid"] += 1
+    _build.LAUNCHES["nn_grid_near"] += 1
     _build.check(code, "nn_grid")
-    count_later(_k4_counters, counts, cap, nj, tm, scene_tile, offsets)
+    count_later(_k4_counters, counts, cap, nj, tm, scene_tile, scratch[ni + 3])
     return d2, idx, y, pl
 
 
@@ -387,16 +375,16 @@ def folded_pairs(counts: torch.Tensor, cap: int, nj: int, tm: int, tn: int) -> i
     return int(work_item_offsets(counts, cap, nj)[-1]) * tm * tn
 
 
-def _k4_counters(counts, cap: int, nj: int, tm: int, tn: int, offsets=None) -> dict:
+def _k4_counters(counts, cap: int, nj: int, tm: int, tn: int, skipped=None) -> dict:
     """K4's tracing counters of one launch (``utils/profiling.py``): its
-    items are its fold list's, its pairs those of the items it folded;
-    ``offsets``, the launch's scratch, ends with its count of skipped items
-    (None: the plain version, which skips none)."""
+    items are its fold list's, its table's pairs theirs, its pairs those
+    of the items it folded; ``skipped``, the launch's device count of
+    skipped items (None: the plain version, which skips none)."""
     items = int(work_item_offsets(counts, cap, nj)[-1])
-    skipped = 0 if offsets is None else int(offsets[-1])
+    skipped = 0 if skipped is None else int(skipped)
     return {"k4_rows": counts.shape[0] * tn, "k4_items": items, "k4_items_skipped": skipped,
-            "k4_pairs": (items - skipped) * tm * tn, "k4_tiles": counts.shape[0],
-            "k4_tiles_past_cap": int((counts > cap).sum())}
+            "k4_table_pairs": items * tm * tn, "k4_pairs": (items - skipped) * tm * tn,
+            "k4_tiles": counts.shape[0], "k4_tiles_past_cap": int((counts > cap).sum())}
 
 
 def nn_grid_plain(cand, counts, scene, tiles, scene_tile, payload=None, *, kd_row):
@@ -454,10 +442,8 @@ def closest_point_indices_pruned(scene: torch.Tensor, grid: ModelGrid,
         scene = torch.cat([scene, scene[-1:].expand(n_pad - n, 3)])
         u = torch.cat([u, u[-1:].expand(n_pad - n)])
     scene = scene.contiguous()
-    cand, counts, near, overflow = fold_table(scene, u, grid, scene_tile=tn, cap=cap)
-    d2, idx, y, pl = nn_grid(cand, counts, scene, grid.tiles, tn, grid.payload,
-                             kd_row=grid.kd_row, near=near, tile_lo=grid.tile_lo,
-                             tile_hi=grid.tile_hi)
+    cand, counts, overflow = candidates(scene, u, grid, scene_tile=tn, cap=cap)
+    d2, idx, y, pl = nn_grid(cand, counts, scene, grid, tn, grid.payload)
     pl = None if pl is None else pl[:n, :grid.payload_width]
     return idx[:n], y[:n], pl, d2[:n], overflow
 

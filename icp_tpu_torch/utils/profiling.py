@@ -42,14 +42,14 @@ runs from its first phase's start to its last phase's end.  Counters
   ``host_waits``          ``host_wait`` reads
   ``iters_launched``      iterations ``LoopState.run`` launched
   ``iters_done``          iterations the results count (``result.iters``)
-  ``k4_rows``, ``k4_items``, ``k4_items_skipped``, ``k4_pairs``,
-  ``k4_tiles``, ``k4_tiles_past_cap``
+  ``k4_rows``, ``k4_items``, ``k4_items_skipped``, ``k4_table_pairs``,
+  ``k4_pairs``, ``k4_tiles``, ``k4_tiles_past_cap``
                           K4's scene rows, its work items (each scene
                           tile's fold list, near pass included), those its
                           fold skipped (a count on the device), the (scene,
-                          model row) pairs of the items it folded, its
-                          scene tiles and those past the table's capacity
-                          (which fold every tile)
+                          model row) pairs of all its items and of the
+                          items it folded, its scene tiles and those past
+                          the table's capacity (which fold every tile)
   ``k7_rows``, ``k7_pairs`` likewise for K7's two launches a kNN
   ``phase_ms``            {phase span: device ms of its ranges}
 

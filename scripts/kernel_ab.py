@@ -287,14 +287,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     del warm
 
+    takes_grid = "grid" in inspect.signature(nn_grid.nn_grid).parameters
+
     def k4_ms(grid, p, u, tn, cap, payload=False, reps=20):
-        kw = {"kd_row": grid.kd_row} if hasattr(grid, "kd_row") else {}
-        if hasattr(nn_grid, "fold_table"):  # the near pass and the skip
-            cand, counts, near, _ = nn_grid.fold_table(p, u, grid, scene_tile=tn, cap=cap)
-            kw.update(near=near, tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
-        else:
-            cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=cap)
-        a = (cand, counts, p, grid.tiles, tn, grid.payload if payload else None)
+        cand, counts, _ = nn_grid.candidates(p, u, grid, scene_tile=tn, cap=cap)
+        kw = {"kd_row": grid.kd_row} if hasattr(grid, "kd_row") and not takes_grid else {}
+        a = (cand, counts, p, grid if takes_grid else grid.tiles, tn,
+             grid.payload if payload else None)
         return {"ms": cs.cuda_ms(lambda: nn_grid.nn_grid(*a, **kw), reps),
                 "fallback_tiles": int((counts > cap).sum()),
                 "mean_count": round(counts.double().mean().item(), 3)}

@@ -321,10 +321,6 @@ def test_icp_fused_kernel_when_done_writes_the_identity_step(dev):
     assert _workspace_clean(prep)
 
 
-def _k4_keywords(grid, near):
-    return dict(kd_row=grid.kd_row, near=near, tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
-
-
 @pytest.mark.parametrize("cap,case", [(16, "random"), (1, "random"), (16, "straggler"),
                                       (1, "duplicates"), (16, "ragged")])
 def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
@@ -345,18 +341,16 @@ def test_nn_grid_kernel_matches_plain_and_brute_force(dev, cap, case):
         scene[:, 0] = 0.0
     grid = nn_grid.build_model_grid(model, target_tile=256)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=tn, cap=cap)
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=tn, cap=cap)
     if case == "straggler":
         cand[:, 0] = torch.arange(cand.shape[0], device=dev) % grid.tiles.shape[0]
         counts.fill_(1)
         counts[3] = cap + 1
-        alone = torch.cat([cand[:, :1], torch.full_like(near[:, 1:], -1)], dim=1)
-        near = torch.where((counts > cap)[:, None], near, alone).contiguous()  # in each list
-    args = (cand, counts, scene, grid.tiles, tn)
-    before = _build.LAUNCHES["nn_grid"]
-    dk, ik, yk, _ = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
-    assert _build.LAUNCHES["nn_grid"] == before + 1
-    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    before = _build.LAUNCHES["nn_grid"], _build.LAUNCHES["nn_grid_near"]
+    dk, ik, yk, _ = nn_grid.nn_grid(cand, counts, scene, grid, tn)
+    assert (_build.LAUNCHES["nn_grid"], _build.LAUNCHES["nn_grid_near"]) == \
+        (before[0] + 1, before[1] + 1)
+    dp, ip, yp, _ = nn_grid.nn_grid_plain(cand, counts, scene, grid.tiles, tn, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
     assert torch.equal(yk, model[ik.long()])
     if case == "straggler":  # only the tile that folds every tile is exact
@@ -386,18 +380,19 @@ def test_nn_grid_skips_items_exactly_from_loose_bounds(dev, cap, payload):
     scene = scene[nn_grid.kd_order(scene, 4)].contiguous()  # compact tiles, as the engines'
     grid = nn_grid.build_model_grid(model, target_tile=256, payload=normals)
     u = 100 * nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
     before = _build.LAUNCHES["nn_grid_near"]
-    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=cap)
+    near = nn_grid.near_tiles(scene, grid, cand, counts, scene_tile=128)
     assert _build.LAUNCHES["nn_grid_near"] == before + 1 and bool((counts > cap).any())
     plain = nn_grid.near_tiles_plain(scene, grid, cand, counts, scene_tile=128)
     assert torch.equal(near, plain) and bool((near >= 0).all())
-    args = (cand, counts, scene, grid.tiles, 128, grid.payload)
     profiling.reset_counters()
     with profile(activities=[ProfilerActivity.CPU]):
-        out = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
+        out = nn_grid.nn_grid(cand, counts, scene, grid, 128, grid.payload)
     c = profiling.counters()
     profiling.reset_counters()
-    want = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    want = nn_grid.nn_grid_plain(cand, counts, scene, grid.tiles, 128, grid.payload,
+                                 kd_row=grid.kd_row)
     for got, w in zip(out, want):
         assert (got is None and w is None) or torch.equal(got, w)
     assert torch.equal(out[1], nn_dense.nn_dense(scene, model))
@@ -405,6 +400,7 @@ def test_nn_grid_skips_items_exactly_from_loose_bounds(dev, cap, payload):
     tm = grid.model_tile
     assert c["k4_items"] == items and 0 < c["k4_items_skipped"] < items
     assert c["k4_pairs"] == (items - c["k4_items_skipped"]) * tm * 128
+    assert c["k4_table_pairs"] == items * tm * 128
 
 
 def test_nn_grid_tie_across_a_near_tile_goes_to_the_lower_index(dev):
@@ -421,15 +417,15 @@ def test_nn_grid_tie_across_a_near_tile_goes_to_the_lower_index(dev):
     scene = torch.cat([scene, torch.tensor([[-0.2, 0.45, 0.45]])]).to(dev)
     grid = nn_grid.build_model_grid(model, target_tile=128)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=16)
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=16)
+    near = nn_grid.near_tiles(scene, grid, cand, counts, scene_tile=128)
     assert torch.equal(near, nn_grid.near_tiles_plain(scene, grid, cand, counts, scene_tile=128))
     tile = grid.kd_row.long() // grid.model_tile
     near_set = set(near[0].tolist())
     assert set(tile[256:256 + 127].tolist()) <= near_set
     assert not set(tile[:127].tolist()) & near_set
-    args = (cand, counts, scene, grid.tiles, 128)
-    dk, ik, yk, _ = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
-    dp, ip, yp, _ = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    dk, ik, yk, _ = nn_grid.nn_grid(cand, counts, scene, grid, 128)
+    dp, ip, yp, _ = nn_grid.nn_grid_plain(cand, counts, scene, grid.tiles, 128, kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(dk, dp) and torch.equal(yk, yp)
     assert ik[:127].tolist() == list(range(127))
     assert bool((dk[:127] == 0.25).all())
@@ -442,12 +438,12 @@ def test_nn_grid_payload_matches_plain(dev, cap):
     scene = (_cloud(9, 1024) * 1.01).to(dev)
     grid = nn_grid.build_model_grid(model, target_tile=256, payload=normals)
     u = nn_grid.bound_from_indices(scene, grid, nn_grid.initial_bound_indices(scene, model))
-    cand, counts, near, _ = nn_grid.fold_table(scene, u, grid, scene_tile=128, cap=cap)
-    args = (cand, counts, scene, grid.tiles, 128, grid.payload)
+    cand, counts, _ = nn_grid.candidates(scene, u, grid, scene_tile=128, cap=cap)
     before = _build.LAUNCHES["nn_grid"]
-    dk, ik, yk, pk = nn_grid.nn_grid(*args, **_k4_keywords(grid, near))
+    dk, ik, yk, pk = nn_grid.nn_grid(cand, counts, scene, grid, 128, grid.payload)
     assert _build.LAUNCHES["nn_grid"] == before + 1
-    dp, ip, yp, pp = nn_grid.nn_grid_plain(*args, kd_row=grid.kd_row)
+    dp, ip, yp, pp = nn_grid.nn_grid_plain(cand, counts, scene, grid.tiles, 128, grid.payload,
+                                           kd_row=grid.kd_row)
     assert torch.equal(ik, ip) and torch.equal(yk, yp) and torch.equal(pk, pp)
     assert torch.equal(pk[:, :3], normals[ik.long()])
 

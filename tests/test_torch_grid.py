@@ -81,8 +81,8 @@ def test_bounds_and_candidates_equal():
 
 @pytest.mark.parametrize("cap,cut", [(8, False), (3, False), (1, False), (8, True)])
 def test_near_tiles_are_the_least_box_distance(cap, cut):
-    """K4's near pass: ``fold_table`` gives ``candidates``' outputs as they
-    are (JAX's), and for each scene tile the ``NEAR_TILES`` model tiles of
+    """K4's near pass: ``candidates`` keeps its outputs (JAX's), and
+    ``near_tiles`` gives each scene tile the ``NEAR_TILES`` model tiles of
     least box distance, ties by the boxes' centres, each kept only where
     it is a candidate or the tile is past the capacity (else -1: ``cut``
     gives the first five scene tiles negative bounds, so no candidate)."""
@@ -90,13 +90,12 @@ def test_near_tiles_are_the_least_box_distance(cap, cut):
     if cut:
         u = np.where(np.arange(u.shape[0]) < 300, np.float32(-1.0), u)
     p, tu = torch.tensor(scene), torch.tensor(u)
-    cand, counts, near, over = tg.fold_table(p, tu, tgrid, scene_tile=60, cap=cap)
+    cand, counts, over = tg.candidates(p, tu, tgrid, scene_tile=60, cap=cap)
+    near = tg.near_tiles(p, tgrid, cand, counts, scene_tile=60)
     jc, jn, jo = jg._candidates(jnp.asarray(scene), jnp.asarray(u), jgrid, scene_tile=60, cap=cap)
     np.testing.assert_array_equal(cand.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jn))
     assert bool(over) == bool(jo)
-    for a, b in zip(tg.candidates(p, tu, tgrid, scene_tile=60, cap=cap), (cand, counts, over)):
-        assert torch.equal(a, b)
     nj = tgrid.tiles.shape[0]
     assert near.dtype == torch.int32 and near.shape == (counts.shape[0], tg.NEAR_TILES)
     dists = tg.tile_box_dists(p, tgrid, scene_tile=60)
@@ -244,11 +243,9 @@ def test_plain_reads_the_winner_through_kd_row():
     normals = np.random.default_rng(13).standard_normal((model.shape[0], 3))
     grid = tg.build_model_grid(torch.tensor(model), target_tile=128,
                                payload=torch.tensor(normals))
-    cand, counts, near, _ = tg.fold_table(torch.tensor(scene), torch.tensor(u), grid,
-                                          scene_tile=60, cap=4)
-    _, idx, y, pl = tg.nn_grid(cand, counts, torch.tensor(scene), grid.tiles, 60,
-                               grid.payload, kd_row=grid.kd_row, near=near,
-                               tile_lo=grid.tile_lo, tile_hi=grid.tile_hi)
+    cand, counts, _ = tg.candidates(torch.tensor(scene), torch.tensor(u), grid,
+                                    scene_tile=60, cap=4)
+    _, idx, y, pl = tg.nn_grid(cand, counts, torch.tensor(scene), grid, 60, grid.payload)
     np.testing.assert_array_equal(y.numpy(), model[idx.numpy()])
     np.testing.assert_array_equal(pl[:, :3].numpy(), normals.astype(np.float32)[idx.numpy()])
     assert not pl[:, 3].any()

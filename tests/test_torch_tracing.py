@@ -141,9 +141,9 @@ def record_tables(monkeypatch):
     (K4's list, K7's list); nothing is read until the caller reads it."""
     k4, k7, rec4, rec7 = nn_grid.nn_grid, knn_grid.knn_worklist, [], []
 
-    def nn_grid_rec(cand, counts, scene, tiles, scene_tile, payload=None, **kw):
-        rec4.append((counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile))
-        return k4(cand, counts, scene, tiles, scene_tile, payload, **kw)
+    def nn_grid_rec(cand, counts, scene, grid, scene_tile, payload=None):
+        rec4.append((counts, cand.shape[1], grid.tiles.shape[0], grid.tiles.shape[1], scene_tile))
+        return k4(cand, counts, scene, grid, scene_tile, payload)
 
     def knn_rec(cand, counts, query, tiles, scene_tile, k, bound=None):
         rec7.append((counts, cand.shape[1], tiles.shape[0], tiles.shape[1], scene_tile))
@@ -157,14 +157,16 @@ def record_tables(monkeypatch):
 def _table_counts(rec, prefix):
     """The counters of each recorded launch, counted from its table tile by
     tile: a tile past the capacity folds all nj tiles, any other its count
-    (at least one)."""
+    (at least one); the pairs as if no item were skipped."""
     out = dict.fromkeys([f"{prefix}_rows", f"{prefix}_items", f"{prefix}_pairs",
-                         f"{prefix}_tiles", f"{prefix}_tiles_past_cap"], 0)
+                         f"{prefix}_table_pairs", f"{prefix}_tiles",
+                         f"{prefix}_tiles_past_cap"], 0)
     for counts, cap, nj, tm, tn in rec:
         tiles = [nj if c > cap else max(c, 1) for c in counts.tolist()]
         out[f"{prefix}_rows"] += len(tiles) * tn
         out[f"{prefix}_items"] += sum(tiles)
         out[f"{prefix}_pairs"] += sum(tiles) * tm * tn
+        out[f"{prefix}_table_pairs"] += sum(tiles) * tm * tn
         out[f"{prefix}_tiles"] += len(tiles)
         out[f"{prefix}_tiles_past_cap"] += sum(c > cap for c in counts.tolist())
     return out
