@@ -2,6 +2,18 @@
 window's registrations against the plain reference's, from the same
 inputs made again from the seed.
 
+The reference is the one the cell's traffic mix names: ``"reference":
+"<name>"`` is the module ``reference/<name>.py``, imported by that name
+after the window (its SciPy import is no part of the set-up) and called
+as ``answer(model, scene, icp, kwargs, *, precision, device)``: the two
+clouds as float64 arrays, the configuration's ``icp`` merged with the
+mix's, the mix's ``kwargs``, ``precision`` ``"float64"`` for the reference
+or ``"tf32"`` for the control (``control.py``), and the device of the
+exact search.  It returns a ``reference.icp.Answer``, imports only NumPy,
+SciPy, torch and ``regbench.reference.*``, and takes nothing that the
+program made (``reference/__init__.py``).  Nothing here names a
+reference: a new one is a new file.
+
 The numbers compared, each the largest over the sample, each held to the
 cell's limit (``limits/<cell>.json``):
 
@@ -30,6 +42,8 @@ counts as failed, and a run with a failure is not correct.
 
 from __future__ import annotations
 
+import ast
+import importlib
 import json
 import os
 from typing import NamedTuple
@@ -76,24 +90,31 @@ def output_of(index: int, result) -> Output:
                   err=float(result.err), iters=int(result.iters))
 
 
+def references() -> list:
+    """The references a mix can name: the modules of ``reference/`` that
+    define ``answer`` at their top level, read from their source (nothing
+    is imported)."""
+    ref_dir = os.path.join(_HERE, "reference")
+    names = []
+    for f in sorted(os.listdir(ref_dir)):
+        if f.endswith(".py"):
+            with open(os.path.join(ref_dir, f)) as src:
+                tree = ast.parse(src.read())
+            if any(isinstance(node, ast.FunctionDef) and node.name == "answer"
+                   for node in tree.body):
+                names.append(f[:-3])
+    return names
+
+
 def reference_answer(config: dict, mix: dict, model: np.ndarray, scene: np.ndarray,
                      precision: str = "float64", device: str = "cpu"):
-    """The reference's registration (``reference.icp.Answer``) of ``scene``
-    onto ``model`` as the cell states it.  Imported here, after the window:
-    its SciPy import is no part of the set-up."""
-    from regbench.reference import icp as reference
-
+    """The answer (``reference.icp.Answer``) of the reference that ``mix``
+    names to the registration of ``scene`` onto ``model`` as the cell
+    states it."""
+    reference = importlib.import_module(f"regbench.reference.{mix['reference']}")
     icp = dict(config["icp"], **mix.get("icp", {}))
-    kw = dict(max_iter=int(icp["max_iter"]), threshold=float(icp["threshold"]),
-              precision=precision, device=device)
-    if mix["reference"] == "point_to_point":
-        return reference.point_to_point(
-            model, scene, err_factor=2.0 if icp.get("reference_compat", True) else 1.0,
-            trim_fraction=float(icp.get("trim_fraction", 0.0)), **kw)
-    if mix["reference"] == "point_to_plane":
-        return reference.point_to_plane(model, scene, normal_k=int(mix["kwargs"]["normal_k"]),
-                                        **kw)
-    raise ValueError(f"no reference for {mix['reference']!r}")
+    return reference.answer(model, scene, icp, dict(mix.get("kwargs", {})),
+                            precision=precision, device=device)
 
 
 def reference_for(out, ref, config: dict, mix: dict, model: np.ndarray, scene: np.ndarray,

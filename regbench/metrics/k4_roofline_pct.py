@@ -1,6 +1,7 @@
-"""K4's least time for one grid search, bytes only (``roofline.k4_bound_s``;
-the plane metrics' model normals ride it as three more columns), over its
-plan, fold and epilogue device time an iteration, taken as K3's is."""
+"""K4's least time for one grid search, bytes only (``roofline.k4_bound_s``,
+the mix's ``k4_payload_cols`` float32 columns a model row riding beside
+the coordinates), over its near-tile, plan, fold and epilogue device time
+an iteration, taken as K3's is."""
 
 from regbench import roofline
 
@@ -11,5 +12,5 @@ def read(run):
     if t <= 0 or not tr.iterations:
         return None
     n = m = int(tr.config["rows"])
-    payload = 3 if tr.mix["reference"] == "point_to_plane" else 0
+    payload = int(tr.mix["k4_payload_cols"])
     return 100.0 * roofline.k4_bound_s(n, m, payload) / (t / tr.iterations)

@@ -1,5 +1,6 @@
-"""K7's least time for one kNN of the model's rows among themselves, bytes
-only (``roofline.k7_bound_s``, ``normal_k + 1`` neighbours a row), over its
+"""K7's least time for the mix's ``k7_searches`` kNN searches a
+registration, each of one cloud's rows among themselves, bytes only
+(``roofline.k7_bound_s``, ``normal_k + 1`` neighbours a row), over its
 plan, fold and merge device time a registration."""
 
 from regbench import roofline
@@ -12,4 +13,5 @@ def read(run):
         return None
     m = int(tr.config["rows"])
     k = int(tr.mix["kwargs"]["normal_k"]) + 1
-    return 100.0 * roofline.k7_bound_s(m, m, k) / (t / len(tr.registrations))
+    searches = int(tr.mix["k7_searches"])
+    return 100.0 * searches * roofline.k7_bound_s(m, m, k) / (t / len(tr.registrations))

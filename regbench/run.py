@@ -25,10 +25,11 @@ One run is one process, from the root of a checkout:
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``; its
 configuration (``configs/``), its traffic mix (``traffic/``), its limits
-(``limits/``) and each of its metrics (``metrics/<name>.py``) are files
-found by name.  With no card, or fewer than the cell asks for, a run
-fails and prints no result.  Nothing it runs may load JAX or the JAX
-package: a run that finds them loaded fails.
+(``limits/``), the reference its mix names (``reference/<name>.py``) and
+each of its metrics (``metrics/<name>.py``) are files found by name.  With
+no card, or fewer than the cell asks for, a run fails and prints no
+result.  Nothing it runs may load JAX or the JAX package: a run that finds
+them loaded fails.
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ def load_cell(name: str, spec_path: str = os.path.join(ROOT, "BENCHMARK.json")) 
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     config = _load_json(os.path.join(ROOT, conf["file"]))
     mix = _load_json(os.path.join(_HERE, "traffic", f"{w['traffic']}.json"))
+    refs = check.references()
+    if mix.get("reference") not in refs:
+        raise SystemExit(f"traffic {w['traffic']!r} names the reference {mix.get('reference')!r}; "
+                         f"one of {', '.join(refs)} (reference/<name>.py with an answer)")
 
     def reported(m, e2e_here=None):
         if "workloads" in m:

@@ -4,14 +4,25 @@ for the CPU, and the card's path of the program on CPU tensors."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import pytest
 
-CELLS = ("horse48k.p2p", "horse1M.p2p", "horse1M.p2pl", "horse48k.p2p_trim")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # cells whose files the benchmark keeps while ``BENCHMARK.json`` leaves them
 # out: (the cell of the same configuration it has, the traffic mix)
 KEPT = {"horse48k.p2p_trim": ("horse48k.p2p", "p2p_trim")}
 SEED = 2**31 + 1234567  # past 32 signed bits, as the benchmark's seeds may be
+
+
+def _cells() -> tuple:
+    """``BENCHMARK.json``'s cells, then the kept ones."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        return tuple(w["name"] for w in json.load(f)["workloads"]) + tuple(KEPT)
+
+
+CELLS = _cells()
 
 
 @pytest.fixture
@@ -31,9 +42,6 @@ def small_cell():
 
 def kept_cell(name: str):
     """The cell ``name`` of ``BENCHMARK.json``, or one that ``KEPT`` names."""
-    import json
-    import os
-
     from regbench import check
     from regbench.run import _HERE, load_cell
 

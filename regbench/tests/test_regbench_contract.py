@@ -6,6 +6,8 @@ beside it, fails."""
 from __future__ import annotations
 
 import ast
+import importlib
+import inspect
 import json
 import os
 import re
@@ -24,6 +26,7 @@ PKG = os.path.dirname(HERE)
 ROOT = os.path.dirname(PKG)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+P = inspect.Parameter
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
 
 
@@ -125,20 +128,36 @@ def _imports(path):
 
 def test_the_reference_takes_nothing_of_the_program():
     ref_dir = os.path.join(PKG, "reference")
+    imported = set()
     for f in os.listdir(ref_dir):
         if f.endswith(".py"):
-            tops = {m.partition(".")[0] for m in _imports(os.path.join(ref_dir, f))}
             mods = set(_imports(os.path.join(ref_dir, f)))
             tops = {m.partition(".")[0] for m in mods}
             assert tops <= {"__future__", "typing", "numpy", "scipy", "torch", "regbench"}, (f, tops)
             assert all(m.startswith("regbench.reference.") for m in mods
                        if m.partition(".")[0] == "regbench"), (f, mods)
-    code = ("import sys, regbench.reference.icp; "
+            imported |= {m for m in mods if m.startswith("regbench.reference.")}
+    code = ("import sys, importlib; from regbench import check; "
+            "[importlib.import_module(f'regbench.reference.{n}') for n in check.references()]; "
             "print(sorted(m for m in sys.modules if m.partition('.')[0] in "
             "('icp_tpu_torch', 'icp_tpu', 'jax', 'jaxlib', 'flax')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr[-2000:]
+    # every module there is a reference, with the contract's ``answer``, or
+    # the shared code that a reference imports
+    refs = check.references()
+    assert refs
+    for f in os.listdir(ref_dir):
+        name = f[:-3]
+        if f.endswith(".py") and name != "__init__" and name not in refs:
+            assert f"regbench.reference.{name}" in imported, f
+    for name in refs:
+        params = inspect.signature(importlib.import_module(f"regbench.reference.{name}").answer)
+        kinds = [(p.name, p.kind) for p in params.parameters.values()]
+        assert kinds == [("model", P.POSITIONAL_OR_KEYWORD), ("scene", P.POSITIONAL_OR_KEYWORD),
+                         ("icp", P.POSITIONAL_OR_KEYWORD), ("kwargs", P.POSITIONAL_OR_KEYWORD),
+                         ("precision", P.KEYWORD_ONLY), ("device", P.KEYWORD_ONLY)], name
 
 
 def test_the_benchmark_imports_no_repository_tooling():

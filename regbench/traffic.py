@@ -27,6 +27,18 @@ alone, so the reference can make it again after the window:
 * the mix's ``clutter_fraction`` of the scene's rows, seeded, is replaced
   by points uniform in the model's bounding box enlarged
   ``clutter_box_scale`` times about its centre.
+
+A mix also states what its engine makes the grid searches carry, for the
+roofline readers (``metrics/``), which never infer it from the entry or
+the reference's name:
+
+* ``k4_payload_cols``: the float32 columns a model row carries through
+  K4 beside its coordinates (0 for point-to-point; 3, the model's
+  normals, for point-to-plane, symmetric and GICP);
+* ``k7_searches``: the K7 kNN searches of one cloud among itself that a
+  registration makes (1 where the model's normals are estimated; 2 where
+  the scene's are too, as symmetric ICP and GICP do).  A mix whose
+  registrations make none leaves it out.
 """
 
 from __future__ import annotations
