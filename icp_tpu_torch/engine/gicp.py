@@ -12,18 +12,27 @@ mean Mahalanobis residual after the step (over N, or over the weight sum of
 the kd-padded rows in the grid loop).
 
 The loops are ``engine/plane.py``'s: dense (NN by
-``closest_point_indices``, then the (y, C_y) gather; the scene covariances
+``closest_point_indices``, then the (y, n_y) gather; the scene covariances
 co-rotate, ``C <- R C R^T``) and grid (the model normals ride K4's payload
-slot and ``C_y`` is rebuilt from the emitted normal; the scene covariances
-are kd-permuted once, with the identity on the padding rows, weight 0).
-Trim and bucket padding as in ``engine/point_to_plane.py``.
+slot; the scene covariances are kd-permuted once, with the identity on the
+padding rows, weight 0); in both the step builds ``C_y`` from the matched
+model normals.  Trim and bucket padding as in ``engine/point_to_plane.py``.
+Under a profiler, GICP's own work lies in the inner span ``icp.gicp.step``
+(``utils/profiling.inner``): each step (``C_y``, ``_gicp_system``) and each
+rotation of the scene covariances, so twice a launched iteration, in the
+single-device and the sharded loops alike (there with the step's
+all-reduces), and once more for a warm start's rotation (``init``).
 
-The float32 einsums of the sums stand where JAX writes
-``Precision.HIGHEST``: they need full-float32 matmuls, which
-``icp_generalized`` runs under (``utils.precision.full_float32``).  Rigid
-only.  ``icp_generalized_sharded`` is the multi-process form
-(``parallel/sharded.gn_sharded``): the model covariances ride the ring (the
-model normals, in the grid loop), the scene's are split with its rows.
+The 6x6 system is summed over the rows in float64, from the per-row
+products in the cloud's dtype: at 1,000,000 rows (the ``horse1M.gicp``
+benchmark cell, on an H100) float32 sums moved the answer by up to 4e-6 of
+the model's diagonal, against 6e-7 with float64 sums.  The float32 per-row
+products stand where JAX writes ``Precision.HIGHEST``: they need
+full-float32 matmuls, which ``icp_generalized`` runs under
+(``utils.precision.full_float32``).  Rigid only.
+``icp_generalized_sharded`` is the multi-process form
+(``parallel/sharded.gn_sharded``): the model normals ride the ring, the
+scene's covariances are split with its rows.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from icp_tpu_torch.engine.point_to_plane import _reduced, _rodrigues, _solve6
 from icp_tpu_torch.ops.alignment import Similarity
 from icp_tpu_torch.ops.transform import apply_similarity, cast_similarity
 from icp_tpu_torch.utils.precision import in_full_float32
-from icp_tpu_torch.utils.profiling import register, span
+from icp_tpu_torch.utils.profiling import inner, register, span
+
+STEP_SPAN = "icp.gicp.step"
 
 
 def disk_covariances(normals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -91,10 +102,11 @@ def _gicp_system(p, y, Cy, cov_p, weights=None, reduce=None):
         torch.stack([-p[:, 1], p[:, 0], zeros], dim=-1),
     ], dim=-2)  # [p]_x
     J = torch.cat([px, -torch.eye(3, dtype=dt, device=dev).expand(n, 3, 3)], dim=-1)
-    Jr = J.reshape(n * 3, 6)
-    A = Jr.T @ (M @ J).reshape(n * 3, 6)
-    b = Jr.T @ (M @ (y - p)[:, :, None]).reshape(n * 3)
-    x = _solve6(*_reduced(reduce, A, b))
+    # the per-row products in ``dt``, their sums over the rows in float64
+    Jr = J.reshape(n * 3, 6).to(torch.float64)
+    A = Jr.T @ (M @ J).reshape(n * 3, 6).to(torch.float64)
+    b = Jr.T @ (M @ (y - p)[:, :, None]).reshape(n * 3).to(torch.float64)
+    x = _solve6(*_reduced(reduce, A, b)).to(dt)
     sim = Similarity(s=torch.ones((), dtype=dt, device=dev), R=_rodrigues(x[:3]), t=x[3:])
     p_new = apply_similarity(p, sim)
     dn = y - p_new
@@ -105,12 +117,21 @@ def _gicp_system(p, y, Cy, cov_p, weights=None, reduce=None):
 
 
 def gicp_engine(eps: float) -> PlaneEngine:
-    """The GICP part of the plane loops: model rows are the disk covariances
-    of the model normals, the scene side data its covariances."""
+    """The GICP part of the plane loops: each step builds the matched model
+    rows' disk covariances from their normals, the scene side data is its
+    covariances; the step and the rotation each lie in the inner span
+    ``STEP_SPAN``."""
+
+    def step(p, y, y_normals, cov_p, weights=None, reduce=None):
+        with inner(STEP_SPAN, p):
+            return _gicp_system(p, y, disk_covariances(y_normals, eps), cov_p, weights, reduce)
+
+    def rotate(R, cov):
+        with inner(STEP_SPAN, cov):
+            return _rotate_covariances(R, cov)
+
     return PlaneEngine(
-        step=_gicp_system,
-        model_rows=lambda normals: disk_covariances(normals, eps),
-        rotate=_rotate_covariances,
+        step=step, rotate=rotate,
         pad=lambda cov, k: torch.eye(3, dtype=cov.dtype, device=cov.device).expand(k, 3, 3))
 
 
@@ -124,8 +145,9 @@ def icp_generalized(model, scene, config: Optional[ICPConfig] = None, *,
     Normals of both clouds are estimated by kNN PCA when not given; ``eps``
     is the across-surface variance (0: the pure plane metric, 1: point to
     point).  ``init``: warm-start Similarity with a pure rotation.  The
-    dense loop builds the model covariances in ``config.dtype``; the grid
-    loop carries the model normals as float32 payload, as JAX does.
+    step builds the matched model rows' covariances in ``config.dtype``;
+    the grid loop carries the model normals as float32 payload, as JAX
+    does.
     ``scene_n`` / ``model_n``: valid row counts of bucket-padded clouds.
     Returns ``ICPResult`` (``ICPTrace`` with ``trace=True``); devices as
     in ``icp``.

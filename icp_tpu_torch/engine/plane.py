@@ -6,9 +6,9 @@ Point-to-plane, symmetric and GICP (``engine/point_to_plane.py``,
 their side data; this module runs either loop for each of them:
 
   * ``dense_loop``: NN by ``closest_point_indices`` (K1 for ``pallas``, K9
-    for ``bf16``), the gather of the matched model points and their side
-    rows (normals or covariances), the trim and bucket weights
-    (``engine/icp.step_weights``), the engine's step, the gated update;
+    for ``bf16``), the gather of the matched model points and their
+    normals, the trim and bucket weights (``engine/icp.step_weights``),
+    the engine's step, the gated update;
   * ``grid_loop``: the model normals ride K4's payload slot, the scene's
     side data (scene normals, covariances) is padded and kd-permuted once
     with the points, the trim reads K4's distances
@@ -45,23 +45,16 @@ ENGINES = ("point_to_point", "point_to_plane", "symmetric", "gicp")
 class PlaneEngine(NamedTuple):
     """One engine's part of the loops.
 
-    ``step(p, y, m_side, s_side, w) -> (sim, p_new, err)``: one Gauss-Newton
-    step of the matched points ``y`` with their model side rows ``m_side``
+    ``step(p, y, y_normals, s_side, w) -> (sim, p_new, err)``: one
+    Gauss-Newton step of the matched points ``y`` with their model normals
     and the scene's own side rows ``s_side``, rows weighted by ``w`` (None:
-    unweighted).  ``model_rows(normals)``: the model side rows of model
-    normals (None: the normals themselves), for the whole model in the
-    dense loop and for K4's normal payload in the grid loop.
-    ``rotate(R, s_side)``: the scene side data moved by a rotation (None:
-    the engine has none).  ``pad(s_side, k)``: ``k`` rows of scene side data
-    for the kd tile padding (weight 0)."""
+    unweighted).  ``rotate(R, s_side)``: the scene side data moved by a
+    rotation (None: the engine has none).  ``pad(s_side, k)``: ``k`` rows of
+    scene side data for the kd tile padding (weight 0)."""
 
     step: Callable
-    model_rows: Optional[Callable] = None
     rotate: Optional[Callable] = None
     pad: Optional[Callable] = None
-
-    def rows(self, normals: torch.Tensor) -> torch.Tensor:
-        return normals if self.model_rows is None else self.model_rows(normals)
 
 
 def _gated(done: torch.Tensor, old, new):
@@ -92,12 +85,10 @@ def _advance(engine, loop, state: dict, sim, p_new, err, **more):
 def dense_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: float,
                max_iter: int, nn_method: str, init: Optional[Similarity], trace: bool,
                trim_fraction: float = 0.0, scene_n=None, model_n=None):
-    """The dense loop of a plane engine: the model side rows (of the model
-    ``normals``) gathered with the matched points, ``s_side`` the scene's
-    (N, ...) side data or None."""
+    """The dense loop of a plane engine: the model ``normals`` gathered with
+    the matched points, ``s_side`` the scene's (N, ...) side data or None."""
     dt, dev = scene.dtype, scene.device
     with span("icp.prologue", dev):
-        m_side = engine.rows(normals)
         model, scene, mask = bucket_prologue(model, scene, scene_n, model_n)
         p, side = _start(engine, scene, s_side, init)
         state = dict(p=p, side=side,
@@ -109,7 +100,7 @@ def dense_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold:
         idx = closest_point_indices(p, model, method=nn_method).to(torch.int64)
         y = model[idx]
         w = step_weights(p, y, trim_fraction, mask)
-        sim, p_new, err = engine.step(p, y, m_side[idx], state["side"], w)
+        sim, p_new, err = engine.step(p, y, normals[idx], state["side"], w)
         _advance(engine, loop, state, sim, p_new, err)
 
     loop.run(step)
@@ -156,7 +147,7 @@ def grid_loop(engine: PlaneEngine, model, normals, scene, s_side, *, threshold: 
                                                   max_candidates=max_candidates)
         y = y.to(dt)
         w_eff = grid_weights(p, y, d2, w, trim_fraction)
-        sim, p_new, err = engine.step(p, y, engine.rows(nv.to(dt)), state["side"], w_eff)
+        sim, p_new, err = engine.step(p, y, nv.to(dt), state["side"], w_eff)
         _advance(engine, loop, state, sim, p_new, err, u=next_bound(y, p_new))
 
     loop.run(step)

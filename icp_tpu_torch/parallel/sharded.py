@@ -17,7 +17,7 @@ points gathered from all ranks.
     distances for ``nn_method="pallas"``, else JAX's expansion form
     ``|m|^2 - 2 p.m`` in full float32), folds them into its best so far by
     (distance, lowest GLOBAL index) and passes the shard on; the matched
-    points (and per-model-point payloads: normals, covariances) are
+    points (and per-model-point payloads: normals) are
     gathered during the fold.  The shard is not passed after the last
     hop, so a world-1 ring sends nothing.  Both distance forms are the
     same formula on every hop, so the cross-hop ties compare exactly.
@@ -36,7 +36,7 @@ points gathered from all ranks.
 
 ``icp_sharded_2d`` splits the scene over the ``sp`` axis and the model over
 ``mp`` of a 2-D mesh; ``gn_sharded`` is the plane engines' (point-to-plane,
-symmetric, GICP) ring loop with the model side rows riding the ring.
+symmetric, GICP) ring loop with the model normals riding the ring.
 Every entry point runs under ``utils.precision.full_float32``.
 """
 
@@ -487,9 +487,9 @@ def gn_sharded(engine_name: str, model, scene, config: Optional[ICPConfig] = Non
     """The sharded plane engines (``icp_point_to_plane_sharded``,
     ``icp_symmetric_sharded``, ``icp_generalized_sharded``): normals
     estimated on the whole clouds before sharding (``plane_inputs``),
-    then the ring fold with the model side rows (normals, or GICP's
-    covariances) riding the ring as payload and the scene's side rows
-    (normals or covariances) sharded with its points; the 6x6 normal
+    then the ring fold with the model normals riding the ring as
+    payload and the scene's side rows (normals or covariances) sharded
+    with its points; the 6x6 normal
     equations all-reduced, the solve replicated.  An NN method resolving
     to ``"grid"`` runs the grid loop of ``parallel/sharded_grid.py``;
     ``validate``: the dense path checks the inputs as the single-device
@@ -511,7 +511,7 @@ def gn_sharded(engine_name: str, model, scene, config: Optional[ICPConfig] = Non
     p = shard_rows(scene, mesh)
     m_loc = shard_rows(model, mesh, _MODEL_PAD)
     # pad rows get zero normals: GICP's covariance of those is the identity
-    m_side = engine.rows(shard_rows(model_normals, mesh))
+    m_side = shard_rows(model_normals, mesh)
     s_side = None if side_of is None else side_of(shard_rows(scene_normals, mesh))
     w = shard_rows(torch.ones(n, dtype=dt, device=dev), mesh)
     nn_impl = dense_nn_impl(cfg, dev.type)

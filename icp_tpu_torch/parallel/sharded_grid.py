@@ -201,7 +201,7 @@ def _gn_grid_loop(engine, side_of, model, model_normals, scene, scene_normals,
         y, _, d2, nv = sh.correspond(p, state["u"])
         y = y.to(dt)
         w_eff = trimmed(sh.w, d2.to(dt), cfg.trim_fraction, sh.axis.group)
-        sim, p_new, err = engine.step(p, y, engine.rows(nv.to(dt)), state["side"], w_eff,
+        sim, p_new, err = engine.step(p, y, nv.to(dt), state["side"], w_eff,
                                       reduce=reduce)
         return sim, p_new, err, dict(u=next_bound(y, p_new))
 

@@ -35,8 +35,21 @@ fall inside the innermost of them.  One registration:
 Every span but ``icp.register`` and ``icp.host_wait`` is a phase: it also
 records a pair of CUDA events on the current stream (the host clock for a
 CPU run), read only when ``counters()`` is; ``icp.register``'s device range
-runs from its first phase's start to its last phase's end.  Counters
-(``counters()``, each summed over the recorded calls):
+runs from its first phase's start to its last phase's end.  The phases lie
+side by side under ``icp.register``.  An inner span (``inner``) lies inside
+a phase and records its events as a phase does, but its device ms go to
+``inner_ms``, apart from ``phase_ms``, so that no sum over the phases counts
+its time twice:
+
+  ``icp.gicp.step``       inside ``icp.loop``, GICP's own work of each
+                          launched iteration (``engine/gicp.py``): the
+                          matched model rows' covariances, the Mahalanobis
+                          system, its solve, the moved points and the
+                          error; then the scene covariances' rotation: two
+                          spans an iteration, never around K4 or the
+                          loop's record and gating
+
+Counters (``counters()``, each summed over the recorded calls):
 
   ``registrations``       ``icp.register`` spans entered
   ``host_waits``          ``host_wait`` reads
@@ -52,6 +65,8 @@ runs from its first phase's start to its last phase's end.  Counters
                           the table's capacity (which fold every tile)
   ``k7_rows``, ``k7_pairs`` likewise for K7's two launches a kNN
   ``phase_ms``            {phase span: device ms of its ranges}
+  ``inner_ms``            {inner span: device ms of its ranges}, present
+                          only once an inner span has run
 
 Counting adds no launch and no read while the profiler records: a counter
 keeps the device tensors the program computes anyway (K4's and K7's tile
@@ -82,6 +97,8 @@ _ints: collections.Counter = collections.Counter()  # settled counts
 _ms: collections.Counter = collections.Counter()  # settled phase ms
 _later: list = []  # (fn, args): fn(*args) -> {counter: int}, reduced on read
 _phases: list = []  # (name, start, end): CUDA events or host seconds, read on read
+_inner_ms: collections.Counter = collections.Counter()  # settled inner span ms
+_inner: list = []  # (name, start, end) of the inner spans, read on read
 _roots: list = []  # the open icp.register spans, innermost last
 
 
@@ -101,12 +118,15 @@ class _Phase:
         ev.record(self.stream)
         return ev
 
-    def __enter__(self):
+    def _open(self) -> None:
         self.range = _range(self.name)
         self.range.__enter__()
         dev = _device_of(self.where)
         self.stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         self.start = self._mark()
+
+    def __enter__(self):
+        self._open()
         if _roots and _roots[-1].start is None:
             _roots[-1].start = self.start
         return self
@@ -116,6 +136,21 @@ class _Phase:
         _phases.append((self.name, self.start, end))
         if _roots:
             _roots[-1].end = end
+        return self.range.__exit__(*exc)
+
+
+class _Inner(_Phase):
+    """A span inside a phase: its marks go to ``inner_ms``, and the open
+    ``icp.register``'s range is left as its phases make it."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        self._open()
+        return self
+
+    def __exit__(self, *exc):
+        _inner.append((self.name, self.start, self._mark()))
         return self.range.__exit__(*exc)
 
 
@@ -157,6 +192,15 @@ def span(name: str, where=None):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Phase(name, where)
+
+
+def inner(name: str, where=None):
+    """The inner span ``name`` inside a phase, on ``where``'s device
+    (``_device_of``), while the profiler records, else a shared no-op
+    context; its device ms are counted in ``inner_ms``."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Inner(name, where)
 
 
 def register():
@@ -224,19 +268,25 @@ def _elapsed_ms(start, end) -> float:
 def counters() -> dict:
     """Every counter since the last ``reset_counters()``, the kept tensors
     and events read now (a host read each): {counter: int, "phase_ms":
-    {phase span: ms}}."""
-    later, phases = _later[:], _phases[:]
-    del _later[:], _phases[:]
+    {phase span: ms}}, and "inner_ms": {inner span: ms} once an inner span
+    has run."""
+    later, phases, inner_marks = _later[:], _phases[:], _inner[:]
+    del _later[:], _phases[:], _inner[:]
     for fn, args in later:
         _ints.update(fn(*args))
     for name, start, end in phases:
         _ms[name] += _elapsed_ms(start, end)
-    return dict(_ints, phase_ms=dict(_ms))
+    for name, start, end in inner_marks:
+        _inner_ms[name] += _elapsed_ms(start, end)
+    out = dict(_ints, phase_ms=dict(_ms))
+    if _inner_ms:
+        out["inner_ms"] = dict(_inner_ms)
+    return out
 
 
 def reset_counters() -> None:
     """Zero every counter."""
-    for kept in (_ints, _ms, _later, _phases):
+    for kept in (_ints, _ms, _later, _phases, _inner_ms, _inner):
         kept.clear()
 
 

@@ -2,7 +2,8 @@
 the CPU: the span tree of each registration path under ``torch.profiler``,
 nothing entered or counted without it, answers bit-identical either way,
 K4's and K7's counters against their tables, the plane loop's gated
-no-ops, and the six per-layer metrics of a small traced ``regbench`` cell."""
+no-ops, the six per-layer metrics of a small traced ``regbench`` cell, and
+GICP's inner span ``icp.gicp.step`` inside its grid loop."""
 
 import dataclasses
 import math
@@ -243,3 +244,76 @@ def test_a_traced_regbench_cell_reports_the_six_metrics(monkeypatch):
     assert m["host_waits_per_reg"] >= 1
     assert m["k4_pairs_per_query"] > 0 and m["k7_pairs_per_query"] > 0
     assert out["correct"] is True
+
+
+GICP_STEP = "icp.gicp.step"
+GICP_GRID_PHASES = {"icp.prologue", "icp.loop", "icp.finish", "icp.normals.knn",
+                    "icp.normals.pca"} | SETUP
+
+
+def _gicp_grid(clouds):
+    ref, _, moved = clouds
+    return icp_tpu_torch.icp_generalized(ref, moved, ICPConfig(max_iter=30, nn_method="grid"),
+                                         device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gicp_grid(clouds):
+    """(untraced result, traced result, traced icp.* events, counters) of
+    GICP's grid loop (both clouds' normals, K4 with the normals payload)."""
+    off = _gicp_grid(clouds)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = _gicp_grid(clouds)
+    events = [e for e in prof.events() if e.name.startswith("icp.")]
+    c = profiling.counters()
+    profiling.reset_counters()
+    return off, on, events, c
+
+
+def test_gicp_grid_span_tree_under_the_profiler(gicp_grid):
+    """The phases lie side by side under the root, as on every path;
+    ``icp.gicp.step`` lies directly under ``icp.loop``, twice each launched
+    iteration (the rows and step, then the scene covariances' rotation),
+    and its ms go to ``inner_ms``, not to ``phase_ms``."""
+    _, _, events, c = gicp_grid
+    roots = [e for e in events if e.name == "icp.register"]
+    assert len(roots) == 1 and _icp_parent(roots[0]) is None
+    names = {e.name for e in events}
+    assert names == GICP_GRID_PHASES | {"icp.register", "icp.host_wait", GICP_STEP}
+    steps = [e for e in events if e.name == GICP_STEP]
+    for e in events:
+        parent = _icp_parent(e)
+        if e.name == "icp.host_wait":
+            assert parent is not None and parent.name != "icp.register"
+        elif e.name == GICP_STEP:
+            assert parent is not None and parent.name == "icp.loop"
+        elif e.name != "icp.register":
+            assert parent is roots[0], (e.name, parent and parent.name)
+    assert c["registrations"] == 1 and c["iters_launched"] >= c["iters_done"] >= 1
+    assert len(steps) == 2 * c["iters_launched"]
+    assert set(c["phase_ms"]) == GICP_GRID_PHASES | {"icp.register"}
+    assert set(c["inner_ms"]) == {GICP_STEP}
+    assert 0 < c["inner_ms"][GICP_STEP] <= c["phase_ms"]["icp.loop"]
+    inside = sum(v for k, v in c["phase_ms"].items() if k != "icp.register")
+    assert inside <= c["phase_ms"]["icp.register"]
+
+
+def test_gicp_grid_answers_bit_identical_with_tracing_on_and_off(gicp_grid):
+    off, on, _, c = gicp_grid
+    assert torch.equal(off.points, on.points) and torch.equal(off.err, on.err)
+    assert int(off.iters) == int(on.iters) == c["iters_done"]
+    for a, b in zip(off.transform, on.transform):
+        assert torch.equal(a, b)
+
+
+def test_no_inner_span_without_the_profiler(clouds, monkeypatch):
+    """GICP's grid loop with the profiler off enters no span, and the
+    counters carry no ``inner_ms``."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span was entered with the profiler off")
+
+    monkeypatch.setattr(profiling, "_range", refuse)
+    profiling.reset_counters()
+    _gicp_grid(clouds)
+    assert profiling.counters() == {"phase_ms": {}}
